@@ -1,0 +1,53 @@
+"""Convolutions in channels-last layout with torch-shaped weights.
+
+Weights keep the torch state_dict shapes — conv weight (C_out, C_in, kT,
+kV), bias (C_out,) — so reference checkpoints load as they are.  Both ops
+compute in the input's activation dtype and add the bias after the
+product, as the reference package does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def pointwise_conv(x: torch.Tensor, weight: torch.Tensor,
+                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """1x1 conv as a matmul. x: (..., C_in); weight: (C_out, C_in, 1, 1)
+    or (C_out, C_in).  Returns (..., C_out) in x.dtype."""
+    w = weight.reshape(weight.shape[0], weight.shape[1])
+    out = torch.matmul(x, w.t().to(x.dtype))
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
+
+
+def temporal_conv(x: torch.Tensor, weight: torch.Tensor,
+                  bias: Optional[torch.Tensor] = None, *,
+                  stride: int = 1) -> torch.Tensor:
+    """k x 1 temporal conv with padding (k-1)//2 and temporal stride.
+
+    Matches the reference residual ``tcn`` (model/shift_gcn.py:31-45):
+    Conv2d(kernel=(k,1), padding=((k-1)//2, 0), stride=(s,1)).
+    x: (N, T, V, C_in); weight: (C_out, C_in, k, 1) -> (N, T_out, V, C_out).
+    """
+    k = weight.shape[2]
+    out = F.conv2d(x.permute(0, 3, 1, 2), weight.to(x.dtype),
+                   stride=(stride, 1), padding=((k - 1) // 2, 0))
+    out = out.permute(0, 2, 3, 1)
+    if bias is not None:
+        out = out + bias.to(x.dtype)
+    return out
+
+
+class Conv(nn.Module):
+    """Conv weight and bias under the torch Conv2d names."""
+
+    def __init__(self, cin: int, cout: int, k: int = 1):
+        super().__init__()
+        self.weight = nn.Parameter(torch.zeros(cout, cin, k, 1))
+        self.bias = nn.Parameter(torch.zeros(cout))

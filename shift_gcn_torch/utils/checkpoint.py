@@ -1,0 +1,99 @@
+"""Weight carry-over into the port's ``Model``.
+
+Two sources:
+
+- ``state_dict_from_arrays(params, bn_state)``: nested dicts of numpy
+  arrays in the reference package's parameter layout (the structure of
+  its ``init_params``: ``down.conv`` / ``down.bn``, no shift index
+  buffers) -> the reference-named torch ``state_dict``.
+- ``load_reference_checkpoint(path)``: a reference ``.pt`` / ``.pkl``
+  checkpoint (a bare state_dict or the full resume dict).
+
+Orbax checkpoints of the reference package's trainer are not read here:
+reading them needs orbax and its array library.  Export one to a ``.pt``
+first with the reference package's checkpoint CLI.
+"""
+
+from __future__ import annotations
+
+import pickle
+from typing import Any, Dict, Mapping, Tuple
+
+import numpy as np
+import torch
+
+from shift_gcn_torch.ops.spatial_shift import flat_shift_index
+
+
+def state_dict_from_arrays(
+    params: Mapping[str, Any], bn_state: Mapping[str, Any],
+) -> Dict[str, torch.Tensor]:
+    """Flatten (params, bn_state) into a reference-named torch state_dict.
+
+    Translations, so the result loads into ``Model`` (and the reference
+    torch model) strictly:
+      - gcn ``down.conv`` / ``down.bn`` -> Sequential ``down.0`` / ``down.1``;
+      - BN ``num_batches_tracked`` becomes int64, as torch keeps it;
+      - each Shift_gcn block's ``shift_in`` / ``shift_out`` index buffers
+        are regenerated from its (V, C_in, C_out): they are fixed
+        functions of shape and the parameter trees do not carry them.
+    """
+    flat: Dict[str, np.ndarray] = {}
+
+    def walk(tree: Mapping[str, Any], prefix: str = "") -> None:
+        for k, v in tree.items():
+            if isinstance(v, Mapping):
+                walk(v, f"{prefix}{k}.")
+            else:
+                flat[prefix + k] = np.asarray(v)
+
+    walk(params)
+    walk(bn_state)
+
+    out: Dict[str, np.ndarray] = {}
+    for key, value in flat.items():
+        parts = key.split(".")
+        if "down" in parts:
+            i = parts.index("down")
+            if i + 1 < len(parts) and parts[i + 1] in ("conv", "bn"):
+                parts[i + 1] = "0" if parts[i + 1] == "conv" else "1"
+        if parts[-1] == "num_batches_tracked":
+            value = value.astype(np.int64)
+        out[".".join(parts)] = value
+
+    for key in list(out):
+        if key.endswith(".Linear_weight"):
+            prefix = key[: -len("Linear_weight")]
+            cin, cout = out[key].shape
+            v = out[prefix + "Feature_Mask"].shape[1]
+            out[prefix + "shift_in"] = flat_shift_index(v, cin, +1)
+            out[prefix + "shift_out"] = flat_shift_index(v, cout, -1)
+    return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
+
+
+def load_reference_checkpoint(
+    path: str,
+) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
+    """Load a reference ``.pt`` / ``.pkl`` checkpoint.
+
+    Returns (state_dict on the CPU, meta).  ``meta`` holds epoch /
+    global_step / best_acc when the file is the full resume dict.  A
+    ``DataParallel`` ``module.`` prefix is stripped.  ``.pkl`` files are
+    unpickled: load only files from a trusted source.
+    """
+    if path.endswith(".pkl"):
+        with open(path, "rb") as f:
+            blob = pickle.load(f)
+    else:
+        blob = torch.load(path, map_location="cpu", weights_only=True)
+    meta: Dict[str, Any] = {}
+    if isinstance(blob, dict) and "model_state_dict" in blob:
+        meta = {k: blob[k] for k in ("epoch", "global_step", "best_acc")
+                if k in blob}
+        blob = blob["model_state_dict"]
+    state_dict = {
+        k.split("module.")[-1]: torch.as_tensor(np.asarray(v))
+        if not torch.is_tensor(v) else v.detach().cpu()
+        for k, v in blob.items()
+    }
+    return state_dict, meta
