@@ -7,19 +7,20 @@ Phases, in order; any failure exits non-zero:
 1. card: prints ``nvidia-smi`` name / power limit and the torch device name;
 2. build: compiles every kernel of ``shift_gcn_torch/csrc`` (one nvcc per
    source, in parallel) and prints the seconds it took;
-3. temporal shift kernel vs its plain PyTorch version at the serving
-   shapes (stride 1/2, C 64/128/256, T 300/150, V=33, 64 windows), fp32
-   and bf16;
-4. fused Shift-GCN kernel vs its plain version at the six (C, D) pairs of
-   the backbone, R = 64*300 frames, fp32 and bf16;
+3. temporal shift kernel vs its plain PyTorch version at every (T, C,
+   stride) one forward of the serving model launches it with (64 windows,
+   V=33), fp32 and bf16;
+4. fused Shift-GCN kernel vs its plain version at every (T, C, D) of the
+   forward, R = 64*T frames, fp32 and bf16;
 5. serving: a full-width MediaPipe fall model (10 units, V=33, 2 classes)
    x 4 streams with seeded random weights serves three landmark
    sequences through ``run_on_landmarks``; the launch counters must show
    20 temporal-shift and 10 Shift-GCN launches per stream forward, and the
    probabilities must match the same predictor on the plain path;
 6. timings at the serving batch (64 windows, T=300, fp32): each kernel
-   per forward beside its bound, its plain version and (Shift-GCN) the
-   index_select + matmul formulation; the whole forward per stream, and
+   per forward beside its bound, its plain version and one library call
+   for the same function (temporal shift: a depthwise conv2d; Shift-GCN:
+   index_select + matmul); the whole forward per stream, and
    one profiled forward: device busy share and device time by kernel.
 
 The second-to-last line is a JSON object with one entry per kernel; the
@@ -190,6 +191,36 @@ def k4_cost_ms(r, c, d, itemsize=4):
     return moved / HBM_BYTES_PER_S * 1e3, flops / FP32_SIMT_FLOPS * 1e3
 
 
+def shift_conv_library(x: torch.Tensor, ypos: torch.Tensor, stride: int):
+    """The temporal shift as one depthwise ``F.conv2d`` over T on the
+    channels-last view: per channel the taps (1 - f, f) at offsets lo and
+    lo + 1 of a 2P+1 window, zero padding P on both ends, where P is the
+    least radius this ``ypos`` needs.  Returns the call, with its weights
+    built here, outside any timed region."""
+    import torch.nn.functional as F
+
+    n, t_in, v, c = x.shape
+    y = ypos.float() + (0.0 if stride == 1 else 0.5)
+    lo = torch.floor(y)
+    frac = y - lo
+    lo = lo.long()
+    radius = int(max(int((-lo).max()), int((lo + 1).max()), 1))
+    w = torch.zeros(c, 2 * radius + 1, device=x.device)
+    ch = torch.arange(c, device=x.device)
+    w[ch, lo + radius] = 1.0 - frac
+    w[ch, lo + radius + 1] = frac
+    w = w.to(x.dtype).view(c, 1, 2 * radius + 1, 1)
+    t_out = t_in // stride
+    xc = x.permute(0, 3, 1, 2)  # (N, C, T, V), channels-last in memory
+
+    def call():
+        out = F.conv2d(xc, w, stride=(stride, 1), padding=(radius, 0),
+                       groups=c)
+        return out[:, :, :t_out].permute(0, 2, 3, 1)
+
+    return call
+
+
 @contextmanager
 def plain_path():
     """Route the model's two kernel calls to their plain versions."""
@@ -276,44 +307,42 @@ def main() -> None:
     print(f"[build] {len(kernels.SOURCES)} kernels in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    # 3. temporal shift kernel vs plain --------------------------------
+    # 3./4. each kernel vs its plain version at the forward's launches --
+    config = ModelConfig(num_class=2, num_point=V, num_person=1,
+                         graph="mediapipe_pose")
+    k1_shapes, k4_shapes = forward_shapes(config, T_WINDOW)
     k1_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
-        for stride in (1, 2):
-            for c in (64, 128, 256):
-                for t in (300, 150):
-                    x = torch.randn(N_WINDOWS, t, V, c, generator=gen,
-                                    device=dev).to(dtype)
-                    y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
-                    y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near ±(8-1)
-                    ypos = torch.from_numpy(y).to(dev)
-                    got = temporal_shift.temporal_shift(x, ypos, stride)
-                    want = temporal_shift.temporal_shift_reference(
-                        x, ypos, stride)
-                    torch.cuda.synchronize()
-                    err, scale = max_err(got, want)
-                    # fp32: identical rounding steps, ~1e-6 relative;
-                    # bf16: one bf16 rounding of the fp32 result
-                    tol = (1e-6 if dtype == torch.float32 else 2 ** -8) * scale
-                    if not err <= tol:
-                        fail(f"temporal_shift {dtype} s={stride} C={c} T={t}:"
-                             f" max|err| {err:.3g} > {tol:.3g}")
-                    worst = max(worst, err)
-        print(f"[k1] temporal_shift {str(dtype)[6:]}: 12 shapes, "
-              f"max|err| {worst:.3g}")
+        for t, c, stride in sorted(set(k1_shapes)):
+            x = torch.randn(N_WINDOWS, t, V, c, generator=gen,
+                            device=dev).to(dtype)
+            y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
+            y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near ±(8-1)
+            ypos = torch.from_numpy(y).to(dev)
+            got = temporal_shift.temporal_shift(x, ypos, stride)
+            want = temporal_shift.temporal_shift_reference(x, ypos, stride)
+            torch.cuda.synchronize()
+            err, scale = max_err(got, want)
+            # fp32: identical rounding steps, ~1e-6 relative;
+            # bf16: one bf16 rounding of the fp32 result
+            tol = (1e-6 if dtype == torch.float32 else 2 ** -8) * scale
+            if not err <= tol:
+                fail(f"temporal_shift {dtype} s={stride} C={c} T={t}: "
+                     f"max|err| {err:.3g} > {tol:.3g}")
+            worst = max(worst, err)
+        print(f"[k1] temporal_shift {str(dtype)[6:]}: "
+              f"{len(set(k1_shapes))} forward shapes (T, C, s) "
+              f"{sorted(set(k1_shapes))}, max|err| {worst:.3g}")
         if dtype == torch.float32:
             k1_err = worst
 
-    # 4. fused Shift-GCN kernel vs plain -------------------------------
-    pairs = ((3, 64), (64, 64), (64, 128), (128, 128), (128, 256),
-             (256, 256))
-    r = N_WINDOWS * T_WINDOW
     k4_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         worst = 0.0
-        for c, d in pairs:
-            x = torch.randn(r, V, c, generator=gen, device=dev).to(dtype)
+        for t, c, d in sorted(set(k4_shapes)):
+            x = torch.randn(N_WINDOWS * t, V, c, generator=gen,
+                            device=dev).to(dtype)
             gate = torch.tanh(torch.randn(V, c, generator=gen,
                                           device=dev)) + 1.0
             w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
@@ -327,17 +356,16 @@ def main() -> None:
             # neighbouring bf16 values
             tol = (2e-5 if dtype == torch.float32 else 2 ** -7) * scale
             if not err <= tol:
-                fail(f"shift_gcn {dtype} C={c} D={d}: max|err| {err:.3g} > "
-                     f"{tol:.3g}")
+                fail(f"shift_gcn {dtype} T={t} C={c} D={d}: max|err| "
+                     f"{err:.3g} > {tol:.3g}")
             worst = max(worst, err)
-        print(f"[k4] shift_gcn {str(dtype)[6:]}: 6 (C,D) pairs at R={r}, "
-              f"max|err| {worst:.3g}")
+        print(f"[k4] shift_gcn {str(dtype)[6:]}: {len(set(k4_shapes))} "
+              f"forward shapes (T, C, D) {sorted(set(k4_shapes))} at "
+              f"R={N_WINDOWS}*T, max|err| {worst:.3g}")
         if dtype == torch.float32:
             k4_err = worst
 
     # 5. serving path ---------------------------------------------------
-    config = ModelConfig(num_class=2, num_point=V, num_person=1,
-                         graph="mediapipe_pose")
     state_dicts = {m: state_dict_from_arrays(*random_arrays(config, rng))
                    for m in pipeline.MODALITY_ORDER}
     predictor = pipeline.EnsemblePredictor(state_dicts, model_config=config)
@@ -376,9 +404,8 @@ def main() -> None:
           f"max|p - p_plain| {serve_err:.3g}")
 
     # 6. timings at the serving batch ----------------------------------
-    k1_shapes, k4_shapes = forward_shapes(config, T_WINDOW)
     # per stream forward: kernel, plain, bound, library, bytes, operations
-    totals = {"temporal_shift": [0.0, 0.0, 0.0, None, 0.0, 0.0],
+    totals = {"temporal_shift": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
               "shift_gcn": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0]}
     for shape in sorted(set(k1_shapes)):
         t, c, stride = shape
@@ -386,16 +413,23 @@ def main() -> None:
         x = torch.randn(N_WINDOWS, t, V, c, generator=gen, device=dev)
         ypos = torch.from_numpy(
             rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+        library = shift_conv_library(x, ypos, stride)
+        lib_err, _ = max_err(library(), temporal_shift.temporal_shift_reference(
+            x, ypos, stride))
+        if not lib_err <= 1e-5:
+            fail(f"depthwise conv yardstick disagrees ({lib_err:.3g})")
         ms = time_ms(lambda: temporal_shift.temporal_shift(x, ypos, stride))
         plain = time_ms(lambda: temporal_shift.temporal_shift_reference(
             x, ypos, stride))
+        lib = time_ms(library)
         cost = k1_cost_ms(N_WINDOWS, t, c, stride)
         bound = max(cost)
-        for i, val in ((0, ms), (1, plain), (2, bound), (4, cost[0]),
-                       (5, cost[1])):
+        for i, val in ((0, ms), (1, plain), (2, bound), (3, lib),
+                       (4, cost[0]), (5, cost[1])):
             totals["temporal_shift"][i] += count * val
         print(f"[time] temporal_shift T={t} C={c} s={stride} x{count}: "
-              f"{ms:.4f} ms (bound {bound:.4f}, plain {plain:.4f}) | {card}")
+              f"{ms:.4f} ms (bound {bound:.4f}, plain {plain:.4f}, "
+              f"depthwise conv2d {lib:.4f}) | {card}")
     for shape in sorted(set(k4_shapes)):
         t, c, d = shape
         count = k4_shapes.count(shape)

@@ -70,9 +70,6 @@ class ModelConfig:
     # run the backbone in this activation dtype ("bfloat16"); parameters,
     # BN statistics, pooling and the classifier stay fp32
     activation_dtype: Optional[str] = None
-    # temporal tap radius of the reference lowering; loaded shift
-    # positions must stay inside it (ops.temporal_shift.assert_in_range)
-    max_shift: int = 8
 
     @property
     def act_dtype(self) -> Optional[torch.dtype]:
@@ -232,17 +229,17 @@ class Model(nn.Module):
 def _check_shift_range(module: Model, incompatible) -> None:
     for name, param in module.named_parameters():
         if name.endswith(".ypos"):
-            temporal_shift.assert_in_range(
-                param, name, module.config.max_shift)
+            # the reference lowering's default tap radius
+            temporal_shift.assert_in_range(param, name)
 
 
 def config_from_reference_args(model_args: Dict[str, Any]) -> ModelConfig:
     """ModelConfig from reference-style YAML ``model_args`` (num_class /
     num_point / num_person / graph / in_channels), plus ``blocks``: rows of
     [in_channels, out_channels, stride, residual] replacing the default
-    backbone.  Of a ``lowering`` dict only ``max_shift`` applies here; its
-    other keys choose among equivalent implementations the port does not
-    have."""
+    backbone.  A ``lowering`` dict is ignored: it chooses among equivalent
+    implementations the port does not have, and loaded shift positions are
+    held to the default tap radius (``temporal_shift.DEFAULT_MAX_SHIFT``)."""
     graph = get_graph(model_args.get("graph", "ntu_rgb_d"))
     kwargs: Dict[str, Any] = {}
     if "blocks" in model_args:
@@ -251,8 +248,6 @@ def config_from_reference_args(model_args: Dict[str, Any]) -> ModelConfig:
                       stride=int(b[2]) if len(b) > 2 else 1,
                       residual=bool(b[3]) if len(b) > 3 else True)
             for b in model_args["blocks"])
-    if "max_shift" in (model_args.get("lowering") or {}):
-        kwargs["max_shift"] = int(model_args["lowering"]["max_shift"])
     return ModelConfig(
         num_class=model_args.get("num_class", 60),
         num_point=model_args.get("num_point", graph.num_nodes),
