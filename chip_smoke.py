@@ -21,7 +21,22 @@ Phases, in order; any failure exits non-zero:
    per forward beside its bound, its plain version and one library call
    for the same function (temporal shift: a depthwise conv2d; Shift-GCN:
    index_select + matmul); the whole forward per stream, and
-   one profiled forward: device busy share and device time by kernel.
+   one profiled forward: device busy share and device time by kernel;
+7. backward kernels vs their plain versions at every launch shape of one
+   training step (64 clips, T=300), fp32 and bf16: K2 temporal-shift
+   grad_input and K3 position grad at the K1 shapes, K5 Shift-GCN dx and
+   K6 shear-gate at the K4 shapes;
+8. one full-width train step (fp32, 64 clips x T=300) on the kernel path
+   vs the plain path from the same seeded state and batch: loss, every
+   true gradient, the ypos steps, and a gradient on every parameter;
+9. ``Trainer.start()`` on ``configs/mediapipe/train_joint.yaml`` unchanged
+   in model and batch (bf16 activations, batch 64, T=300) for one epoch
+   of 8 steps on synthetic data, with eval and save; the launch counters
+   must equal the stated per-step counts x 8 plus the eval forwards, and
+   the saved checkpoint must reproduce the best-score pickle;
+10. training timings: each backward kernel per step beside its bound, its
+   plain version and a library call; the train step on the kernel path
+   vs the plain path, fp32 and bf16; one profiled train step.
 
 The second-to-last line is a JSON object with one entry per kernel; the
 last line is ``{"ok": true, "device": {...}}``.  There is no CPU path:
@@ -32,9 +47,12 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import pickle
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager
 from unittest import mock
@@ -50,8 +68,42 @@ REPORT_KEYS = ["total_frames", "num_windows", "fall_detected",
                "frame_probabilities"]
 K1_SOURCE = "shift_gcn_torch/csrc/temporal_shift.cu"
 K4_SOURCE = "shift_gcn_torch/csrc/shift_gcn.cu"
-K1_REPLACES = "shift_gcn_tpu/ops/pallas/temporal_shift_kernel.py:88"
-K4_REPLACES = "shift_gcn_tpu/ops/pallas/shift_gcn_kernel.py:88"
+TSHIFT_PALLAS = "shift_gcn_tpu/ops/pallas/temporal_shift_kernel.py"
+SGCN_PALLAS = "shift_gcn_tpu/ops/pallas/shift_gcn_kernel.py"
+# kernel -> (source, the TPU kernel it replaces)
+KERNEL_ROWS = {
+    "temporal_shift": (K1_SOURCE, f"{TSHIFT_PALLAS}:88"),
+    "temporal_shift_grad_input": (K1_SOURCE, f"{TSHIFT_PALLAS}:192"),
+    "temporal_shift_position_grad": (K1_SOURCE, f"{TSHIFT_PALLAS}:195"),
+    "shift_gcn": (K4_SOURCE, f"{SGCN_PALLAS}:88"),
+    "shift_gcn_dx": (K4_SOURCE, f"{SGCN_PALLAS}:143"),
+    "shear_gate": (K4_SOURCE, f"{SGCN_PALLAS}:158"),
+}
+TRAIN_CONFIG = "configs/mediapipe/train_joint.yaml"
+TRAIN_CLIPS, VAL_CLIPS = 512, 128
+# launches per train step of the 10-unit model: each unit runs K1 twice
+# and K4 once forward; backward K2, K3 once per K1, K5 once per K4 (every
+# unit's input needs its gradient: unit 1's is data_bn's output), K6 on
+# the unit's input and on its cotangent
+PER_STEP = {"temporal_shift": 20, "temporal_shift_grad_input": 20,
+            "temporal_shift_position_grad": 20, "shift_gcn": 10,
+            "shift_gcn_dx": 10, "shear_gate": 20}
+PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
+# device kernels by the name they show in the profiler, first match wins
+PROFILE_GROUPS = (
+    ("K1 temporal shift", ("tshift_kernel<",)),
+    ("K2 grad_input", ("tshift_grad_input_kernel",)),
+    ("K3 position grad", ("tshift_position_",)),
+    ("K4 shift_gcn", ("shift_gcn_kernel<float, false>",
+                      "shift_gcn_kernel<__nv_bfloat16, false>")),
+    ("K5 dx", ("shift_gcn_kernel<float, true>",
+               "shift_gcn_kernel<__nv_bfloat16, true>")),
+    ("K6 shear", ("shear_gate_kernel",)),
+    ("cuBLAS / cuDNN", ("gemm", "xmma", "cutlass", "sm90_", "convolve")),
+    ("reductions", ("reduce_kernel",)),
+    ("copies and casts", ("copy",)),
+    ("elementwise", ("elementwise",)),
+)
 
 
 def fail(msg: str) -> None:
@@ -223,31 +275,44 @@ def shift_conv_library(x: torch.Tensor, ypos: torch.Tensor, stride: int):
 
 @contextmanager
 def plain_path():
-    """Route the model's two kernel calls to their plain versions."""
-    from shift_gcn_torch.ops import shift_gcn_kernel, temporal_shift
+    """Route the six raw kernel launchers (forward and backward) to their
+    plain versions; the autograd Functions around them stay."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+    from shift_gcn_torch.ops import temporal_shift as ts
 
-    with mock.patch.object(temporal_shift, "temporal_shift",
-                           temporal_shift.temporal_shift_reference), \
-            mock.patch.object(shift_gcn_kernel, "fused_shift_gcn",
-                              shift_gcn_kernel.shift_gcn_transform):
+    swaps = ((ts, "temporal_shift_forward", ts.temporal_shift_reference),
+             (ts, "temporal_shift_grad_input",
+              ts.temporal_shift_grad_input_reference),
+             (ts, "temporal_shift_position_grad",
+              ts.temporal_shift_position_grad_reference),
+             (sk, "shift_gcn_forward", ss.shift_gcn_transform),
+             (sk, "shift_gcn_dx", ss.shift_gcn_dx_reference),
+             (sk, "shear_gate", ss.shear_gate_reference))
+    patches = [mock.patch.object(mod, name, fn) for mod, name, fn in swaps]
+    for patch in patches:
+        patch.start()
+    try:
         yield
+    finally:
+        for patch in patches:
+            patch.stop()
 
 
-def profile_forward(model, batch, card: str, top: int = 10) -> None:
-    """Device time of one forward by operator (torch.profiler) and the
-    device's busy share of the forward's wall time."""
+def profile_call(fn, label: str, card: str, top: int = 10) -> None:
+    """Device time of one call of ``fn`` by operator (torch.profiler) and
+    the device's busy share of the call's wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode():
-        model(batch)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            model(batch)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
+        wall_ms = (time.perf_counter() - t0) * 1e3
 
     def self_device_us(e):
         return getattr(e, "self_device_time_total",
@@ -262,7 +327,7 @@ def profile_forward(model, batch, card: str, top: int = 10) -> None:
     if busy_ms == 0:
         print("[profile] device time not measured (profiler saw none)")
         return
-    print(f"[profile] one forward, {batch.shape[0]} windows: device busy "
+    print(f"[profile] {label}: device busy "
           f"{busy_ms:.3f} ms of {wall_ms:.3f} ms wall "
           f"({100 * busy_ms / wall_ms:.1f}%, profiler on) | {card}")
     for e in rows[:top]:
@@ -271,6 +336,546 @@ def profile_forward(model, batch, card: str, top: int = 10) -> None:
             break
         print(f"[profile]   {us / 1e3:8.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%"
               f"  x{e.count:<4d} {e.key[:70]}")
+    groups = {}
+    for e in rows:
+        group = next((g for g, marks in PROFILE_GROUPS if any(
+            m in e.key for m in marks)), "other")
+        groups[group] = groups.get(group, 0.0) + self_device_us(e) / 1e3
+    print("[profile]   by group: " + ", ".join(
+        f"{g} {ms:.3f} ms ({100 * ms / busy_ms:.1f}%)" for g, ms in
+        sorted(groups.items(), key=lambda kv: -kv[1])))
+
+
+# ---------------------------------------------------------------------------
+# Training: backward kernels, one train step, the Trainer, timings
+# ---------------------------------------------------------------------------
+
+
+def train_shapes(config, t: int):
+    """Per launch of one train step: K2/K3 (t_in, c, stride) as K1's;
+    K5 (t, c, d) as K4's; K6 (t, channels) on each unit's input and on
+    its cotangent."""
+    k1, k4 = forward_shapes(config, t)
+    k6 = [shape for t_, c, d in k4 for shape in ((t_, c), (t_, d))]
+    return k1, k4, k6
+
+
+def k2_cost_ms(n, t_in, c, stride, itemsize=4):
+    """K2: read the cotangent, write grad_input; 3 flops per output."""
+    out = n * t_in * V * c
+    moved = (n * (t_in // stride) * V * c + out) * itemsize + c * 4
+    return moved / HBM_BYTES_PER_S * 1e3, 3.0 * out / FP32_SIMT_FLOPS * 1e3
+
+
+def k3_cost_ms(n, t_in, c, stride, itemsize=4):
+    """K3: read x and the cotangent, write C floats; 3 flops per
+    cotangent element."""
+    g = n * (t_in // stride) * V * c
+    moved = (n * t_in * V * c + g) * itemsize + 2 * c * 4
+    return moved / HBM_BYTES_PER_S * 1e3, 3.0 * g / FP32_SIMT_FLOPS * 1e3
+
+
+def k6_cost_ms(r, c, in_size=4):
+    """K6 on the path (no gate): read each element once, write it once in
+    fp32."""
+    moved = r * V * c * (in_size + 4)
+    return moved / HBM_BYTES_PER_S * 1e3, r * V * c / FP32_SIMT_FLOPS * 1e3
+
+
+def shift_conv_transpose_library(g, ypos, stride: int, t_in: int):
+    """K2's yardstick: the transposed depthwise conv of
+    ``shift_conv_library``, one ``F.conv_transpose2d`` with stride (s, 1)."""
+    import torch.nn.functional as F
+
+    n, t_out, v, c = g.shape
+    w, radius = depthwise_taps(ypos, stride, g.dtype)
+    gc = g.permute(0, 3, 1, 2)
+    pad_end = t_in - (t_out - 1) * stride - 1
+
+    def call():
+        out = F.conv_transpose2d(gc, w, stride=(stride, 1),
+                                 padding=(radius, 0),
+                                 output_padding=(pad_end, 0), groups=c)
+        return out.permute(0, 2, 3, 1)
+
+    return call
+
+
+def position_grad_library(x, g, ypos, stride: int):
+    """K3's yardstick: ``torch.nn.grad.conv2d_weight`` of the depthwise
+    conv (one call), then the difference of the two taps at lo + 1 and lo,
+    over N."""
+    n, t_in, v, c = x.shape
+    w, radius = depthwise_taps(ypos, stride, x.dtype)
+    y = ypos.float() + (0.0 if stride == 1 else 0.5)
+    lo = torch.floor(y).long() + radius
+    ch = torch.arange(c, device=x.device)
+    xc, gc = x.permute(0, 3, 1, 2), g.permute(0, 3, 1, 2)
+
+    def call():
+        dw = torch.nn.grad.conv2d_weight(
+            xc, w.shape, gc, stride=(stride, 1), padding=(radius, 0),
+            groups=c)[:, 0, :, 0].float()
+        return (dw[ch, lo + 1] - dw[ch, lo]) / n
+
+    return call
+
+
+def depthwise_taps(ypos, stride: int, dtype):
+    """(C, 1, 2P+1, 1) depthwise conv taps of the shift and P."""
+    c = ypos.shape[0]
+    y = ypos.float() + (0.0 if stride == 1 else 0.5)
+    lo = torch.floor(y)
+    frac = y - lo
+    lo = lo.long()
+    radius = int(max(int((-lo).max()), int((lo + 1).max()), 1))
+    w = torch.zeros(c, 2 * radius + 1, device=ypos.device)
+    ch = torch.arange(c, device=ypos.device)
+    w[ch, lo + radius] = 1.0 - frac
+    w[ch, lo + radius + 1] = frac
+    return w.to(dtype).view(c, 1, 2 * radius + 1, 1), radius
+
+
+def check_backward_kernels(config, gen, rng, dev):
+    """Phase 7: each backward kernel vs its plain version at every launch
+    shape of one train step, fp32 and bf16.  Returns the fp32 max |err|
+    per kernel."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    k1_shapes, k4_shapes, k6_shapes = train_shapes(config, T_WINDOW)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = str(dtype)[6:]
+        worst = {"temporal_shift_grad_input": 0.0,
+                 "temporal_shift_position_grad": 0.0, "shift_gcn_dx": 0.0,
+                 "shear_gate": 0.0}
+        ties = channels = 0
+        for t, c, stride in sorted(set(k1_shapes)):
+            x = torch.randn(N_WINDOWS, t, V, c, generator=gen,
+                            device=dev).to(dtype)
+            g = torch.randn(N_WINDOWS, t // stride, V, c, generator=gen,
+                            device=dev).to(dtype)
+            y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
+            y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near +-(8-1)
+            ypos = torch.from_numpy(y).to(dev)
+            got = ts.temporal_shift_grad_input(g, ypos, stride, t)
+            want = ts.temporal_shift_grad_input_reference(g, ypos, stride, t)
+            err, scale = max_err(got, want)
+            # fp32: identical rounding steps; bf16: one bf16 rounding
+            tol = (1e-6 if dtype == torch.float32 else 2 ** -8) * scale
+            if not err <= tol:
+                fail(f"K2 {name} T={t} C={c} s={stride}: max|err| "
+                     f"{err:.3g} > {tol:.3g}")
+            worst["temporal_shift_grad_input"] = max(
+                worst["temporal_shift_grad_input"], err)
+
+            raw = ts.temporal_shift_position_grad(x, g, ypos, stride)
+            raw_ref = ts.temporal_shift_position_grad_reference(
+                x, g, ypos, stride)
+            # the same fp32 terms summed in another order: the error is
+            # bounded by a few ulps of the sum of |terms| (fp32 eps 6e-8
+            # times the ~log depth of either order); 2e-5 leaves margin
+            _, x0, x1 = ts._source_frames(x, ypos, stride)
+            abs_sum = ((x1 - x0).abs() * g.float().abs()).mean(0).sum((0, 1))
+            bound = 2e-5 * abs_sum
+            diff = (raw - raw_ref).abs()
+            if not bool((diff <= bound).all()):
+                fail(f"K3 {name} T={t} C={c} s={stride}: gy_raw off by "
+                     f"{float((diff / bound).max()):.3g} x its bound")
+            clear = raw_ref.abs() > bound
+            steps = ts.constraint_step(raw) == ts.constraint_step(raw_ref)
+            if not bool(steps[clear].all()):
+                fail(f"K3 {name}: a ypos step differs on a channel clear "
+                     "of a tie")
+            ties += int((~clear).sum())
+            channels += c
+            worst["temporal_shift_position_grad"] = max(
+                worst["temporal_shift_position_grad"], float(diff.max()))
+            del x, g, got, want, x0, x1
+        for t, c, d in sorted(set(k4_shapes)):
+            r = N_WINDOWS * t
+            g = torch.randn(r, V, d, generator=gen, device=dev).to(dtype)
+            gate = torch.tanh(torch.randn(V, c, generator=gen,
+                                          device=dev)) + 1.0
+            w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+            got = sk.shift_gcn_dx(g, gate, w)
+            want = ss.shift_gcn_dx_reference(g, gate, w)
+            err, scale = max_err(got, want)
+            # as K4: another summation order; bf16 may round to a neighbour
+            tol = (2e-5 if dtype == torch.float32 else 2 ** -7) * scale
+            if not err <= tol:
+                fail(f"K5 {name} T={t} C={c} D={d}: max|err| {err:.3g} > "
+                     f"{tol:.3g}")
+            worst["shift_gcn_dx"] = max(worst["shift_gcn_dx"], err)
+        for t, c in sorted(set(k6_shapes)):
+            x = torch.randn(N_WINDOWS * t, V, c, generator=gen,
+                            device=dev).to(dtype)
+            gate = torch.tanh(torch.randn(V, c, generator=gen,
+                                          device=dev)) + 1.0
+            # the path's call (no gate) and the gated one: one fp32
+            # multiply at most, so exact
+            for g_ in (None, gate):
+                err, _ = max_err(sk.shear_gate(x, g_),
+                                 ss.shear_gate_reference(x, g_))
+                if err != 0.0:
+                    fail(f"K6 {name} T={t} C={c}: max|err| {err:.3g} != 0")
+        torch.cuda.synchronize()
+        print(f"[k2k3] {name}: {len(set(k1_shapes))} train shapes (T, C, s) "
+              f"{sorted(set(k1_shapes))}: K2 max|err| "
+              f"{worst['temporal_shift_grad_input']:.3g}, K3 max|gy_raw err| "
+              f"{worst['temporal_shift_position_grad']:.3g} (bound 2e-5 of "
+              f"sum|terms|), ypos channels at a tie {ties} of {channels}")
+        print(f"[k5k6] {name}: K5 at {len(set(k4_shapes))} shapes (T, C, D) "
+              f"{sorted(set(k4_shapes))} max|err| "
+              f"{worst['shift_gcn_dx']:.3g}; K6 at {len(set(k6_shapes))} "
+              "shapes, gated and ungated, exact")
+        if dtype == torch.float32:
+            errs = worst
+        torch.cuda.empty_cache()
+    return errs
+
+
+def synthetic_batch(rng, n: int, t: int):
+    """(N, 3, T, 33, 1) clips with a two-class signal, and labels."""
+    labels = rng.integers(0, 2, n)
+    data = rng.standard_normal((n, 3, t, V, 1)).astype(np.float32) * 0.1
+    data[:, 0] += (labels * 0.3)[:, None, None, None].astype(np.float32)
+    return data, labels
+
+
+def check_train_step(config, rng, dev, seed: int):
+    """Phase 8: one fp32 train step's loss and gradients, kernel path vs
+    plain path, from the same seeded state and batch."""
+    from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.ops import temporal_shift as ts
+    from shift_gcn_torch.train.state import cross_entropy
+
+    model = Model(config).init_weights(torch.Generator().manual_seed(seed))
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    x = torch.from_numpy(data).to(dev)
+    y = torch.from_numpy(labels).to(dev)
+
+    def run():
+        raws = []
+        inner = ts.temporal_shift_position_grad
+
+        def recorded(*args):
+            out = inner(*args)
+            raws.append(out.clone())
+            return out
+
+        model.load_state_dict(start)
+        model.train()
+        model.zero_grad(set_to_none=True)
+        with mock.patch.object(ts, "temporal_shift_position_grad",
+                               recorded):
+            loss = cross_entropy(model(x), y)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: None if p.grad is None else p.grad.clone()
+                 for n, p in model.named_parameters()}
+        return loss.item(), grads, raws
+
+    loss, grads, raws = run()
+    with plain_path():
+        loss_p, grads_p, raws_p = run()
+    missing = [n for n, g in grads.items() if g is None]
+    if missing:
+        fail(f"no gradient on the kernel path for {missing[:5]}")
+    if not abs(loss - loss_p) <= 1e-5 * abs(loss_p):
+        fail(f"train step loss {loss} vs plain {loss_p}")
+    worst = 0.0
+    ypos_equal = ypos_total = 0
+    for name, g in grads.items():
+        gp = grads_p[name]
+        if name.endswith("xpos"):
+            if bool(g.any()):
+                fail(f"{name}: nonzero xpos gradient")
+        elif name.endswith("ypos"):
+            ypos_equal += int((g == gp).sum())
+            ypos_total += g.numel()
+        else:
+            # fp32 through 10 units: the kernels' summation orders differ
+            # from cuBLAS and the plain gathers only in roundoff, which a
+            # rare ReLU kink can magnify locally; 1e-3 of each gradient's
+            # largest entry
+            rel = float((g - gp).abs().max()) / max(
+                float(gp.abs().max()), 1e-30)
+            if not rel <= 1e-3:
+                fail(f"{name}: gradient off by {rel:.3g} of its scale")
+            worst = max(worst, rel)
+    # ypos steps: equal wherever gy_raw is clear of a tie, i.e. larger than
+    # the two paths' gy_raw gap bound, 1e-3 of the layer's largest |gy_raw|
+    ties = 0
+    if len(raws) != len(raws_p) or len(raws) != 20:
+        fail(f"{len(raws)} / {len(raws_p)} position-grad calls, expected 20")
+    for raw, raw_p in zip(raws, raws_p):
+        bound = 1e-3 * float(raw_p.abs().max())
+        if not float((raw - raw_p).abs().max()) <= bound:
+            fail("gy_raw differs between the paths beyond 1e-3 of its "
+                 "scale")
+        clear = raw_p.abs() > bound
+        same = ts.constraint_step(raw) == ts.constraint_step(raw_p)
+        if not bool(same[clear].all()):
+            fail("a ypos step differs on a channel clear of a tie")
+        ties += int((~same).sum())
+    print(f"[step] fp32 train step, {N_WINDOWS} clips x T={T_WINDOW}: loss "
+          f"{loss:.6f} vs plain {loss_p:.6f}; true gradients max "
+          f"|diff|/scale {worst:.3g}; ypos steps equal on {ypos_equal} of "
+          f"{ypos_total} channels ({ties} differ, all at a tie); every "
+          "parameter has a gradient, xpos's is zero")
+    del model, grads, grads_p
+    torch.cuda.empty_cache()
+
+
+def run_trainer(rng, dev, workdir: str):
+    """Phase 9: ``Trainer.start()`` on the MediaPipe joint config for one
+    epoch of synthetic data.  Returns the launch counts of the run."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.data.feeder import BatchIterator, Feeder
+    from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.train.config import load_config
+    from shift_gcn_torch.train.trainer import Trainer
+    from shift_gcn_torch.utils.checkpoint import (
+        latest_checkpoint, load_reference_checkpoint)
+
+    feeder_args = {}
+    for split, n in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
+        data, labels = synthetic_batch(rng, n, T_WINDOW)
+        paths = {"data_path": os.path.join(workdir, f"{split}_data.npy"),
+                 "label_path": os.path.join(workdir, f"{split}_label.pkl")}
+        np.save(paths["data_path"], data)
+        with open(paths["label_path"], "wb") as f:
+            pickle.dump(([f"{split}{i}" for i in range(n)],
+                         labels.tolist()), f)
+        feeder_args[split] = paths
+    cfg = load_config([
+        "--config", TRAIN_CONFIG, "--num_epoch", "1", "--eval_interval", "1",
+        "--save_interval", "1", "--log_interval", "4",
+        "--work_dir", os.path.join(workdir, "work"),
+        "--model_saved_name", os.path.join(workdir, "save"),
+        "--train_feeder_args", json.dumps(feeder_args["train"]),
+        "--test_feeder_args", json.dumps(feeder_args["val"])])
+    if (cfg.batch_size, cfg.activation_dtype) != (N_WINDOWS, "bfloat16"):
+        fail(f"{TRAIN_CONFIG} no longer trains batch {N_WINDOWS} in bf16")
+    trainer = Trainer(cfg)
+    epochs = []
+    train_epoch = trainer.train_epoch
+    trainer.train_epoch = lambda e: epochs.append(train_epoch(e)) or epochs[-1]
+    steps = TRAIN_CLIPS // cfg.batch_size
+    eval_forwards = -(-VAL_CLIPS // cfg.test_batch_size)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    expect = {k: PER_STEP[k] * steps + PER_EVAL_FORWARD.get(k, 0)
+              * eval_forwards for k in PER_STEP}
+    if launches != expect:
+        fail(f"trainer launch counts {launches} != expected {expect}")
+    losses = epochs[0]["losses"]
+    if len(losses) != steps or not np.isfinite(losses).all():
+        fail(f"train losses {losses}")
+    eval_dir = os.path.join(trainer.work_dir, "eval_results")
+    ckpt = latest_checkpoint(trainer.save_dir)
+    epoch_pkls = [p for p in os.listdir(eval_dir) if p.startswith("epoch_0_")]
+    if ckpt is None or not os.path.exists(os.path.join(
+            eval_dir, "best_acc.pkl")) or len(epoch_pkls) != 1:
+        fail("the run left no checkpoint, best_acc.pkl or epoch pickle")
+    with open(os.path.join(eval_dir, "best_acc.pkl"), "rb") as f:
+        best_scores = pickle.load(f)
+
+    # the checkpoint, in a fresh Model, reproduces the best scores
+    state_dict, meta = load_reference_checkpoint(ckpt)
+    model = Model(trainer.model_config)
+    model.load_state_dict(state_dict, strict=True)
+    test = BatchIterator(Feeder(**feeder_args["val"]), cfg.test_batch_size)
+    gap = 0.0
+    with torch.no_grad():
+        for data, _, index, mask in test.epoch(0):
+            x = torch.from_numpy(data).to(torch.bfloat16).to(dev).float()
+            logits = model(x).cpu().numpy()
+            for i in np.nonzero(mask > 0)[0]:
+                gap = max(gap, float(np.abs(
+                    logits[i] - best_scores[f"val{index[i]}"]).max()))
+    if not gap <= 1e-5:
+        fail(f"reloaded checkpoint scores differ by {gap:.3g}")
+    print(f"[train] Trainer.start() on {TRAIN_CONFIG} (bf16, batch "
+          f"{cfg.batch_size}, T={T_WINDOW}): {steps} steps + "
+          f"{eval_forwards} eval batches in {wall:.1f} s, losses "
+          f"{[round(v, 4) for v in losses]}, best acc {best:.4f}, "
+          f"checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}, "
+          f"step {meta['global_step']}) reproduces best_acc.pkl to {gap:.3g}; "
+          f"launches {launches} = per step {PER_STEP} x {steps} + per eval "
+          f"forward {PER_EVAL_FORWARD} x {eval_forwards}")
+    del trainer, model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def time_backward_kernels(config, gen, rng, dev, card: str):
+    """Phase 10a: each backward kernel per train step (sum over its launch
+    shapes), fp32, beside its bound, plain version and library call; the
+    kernel also in bf16.  Returns {kernel: (ms, plain, bound, library,
+    bytes_ms, ops_ms)}."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    k1_shapes, k4_shapes, k6_shapes = train_shapes(config, T_WINDOW)
+    totals = {k: [0.0] * 6 for k in ("temporal_shift_grad_input",
+                                     "temporal_shift_position_grad",
+                                     "shift_gcn_dx", "shear_gate")}
+    bf16 = dict.fromkeys(totals, 0.0)
+
+    def add(kernel, count, ms, plain, lib, cost, ms_bf16):
+        for i, val in enumerate((ms, plain, max(cost), lib) + cost):
+            totals[kernel][i] += count * val
+        bf16[kernel] += count * ms_bf16
+
+    for t, c, stride in sorted(set(k1_shapes)):
+        count = k1_shapes.count((t, c, stride))
+        x = torch.randn(N_WINDOWS, t, V, c, generator=gen, device=dev)
+        g = torch.randn(N_WINDOWS, t // stride, V, c, generator=gen,
+                        device=dev)
+        xb, gb = x.bfloat16(), g.bfloat16()
+        ypos = torch.from_numpy(
+            rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+        lib2 = shift_conv_transpose_library(g, ypos, stride, t)
+        lib3 = position_grad_library(x, g, ypos, stride)
+        err2, _ = max_err(lib2(), ts.temporal_shift_grad_input_reference(
+            g, ypos, stride, t))
+        err3, scale3 = max_err(lib3(), ts.temporal_shift_position_grad_reference(
+            x, g, ypos, stride))
+        if not (err2 <= 1e-5 and err3 <= 1e-4 * scale3):
+            fail(f"K2/K3 library yardsticks disagree ({err2:.3g}, "
+                 f"{err3:.3g})")
+        add("temporal_shift_grad_input", count,
+            time_ms(lambda: ts.temporal_shift_grad_input(g, ypos, stride, t)),
+            time_ms(lambda: ts.temporal_shift_grad_input_reference(
+                g, ypos, stride, t)), time_ms(lib2),
+            k2_cost_ms(N_WINDOWS, t, c, stride),
+            time_ms(lambda: ts.temporal_shift_grad_input(
+                gb, ypos, stride, t)))
+        add("temporal_shift_position_grad", count,
+            time_ms(lambda: ts.temporal_shift_position_grad(
+                x, g, ypos, stride)),
+            time_ms(lambda: ts.temporal_shift_position_grad_reference(
+                x, g, ypos, stride)), time_ms(lib3),
+            k3_cost_ms(N_WINDOWS, t, c, stride),
+            time_ms(lambda: ts.temporal_shift_position_grad(
+                xb, gb, ypos, stride)))
+        del x, g, xb, gb
+    for t, c, d in sorted(set(k4_shapes)):
+        count = k4_shapes.count((t, c, d))
+        r = N_WINDOWS * t
+        g = torch.randn(r, V, d, generator=gen, device=dev)
+        gb = g.bfloat16()
+        gate = torch.tanh(torch.randn(V, c, generator=gen, device=dev)) + 1
+        w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+        idx_in = torch.from_numpy(
+            spatial_flat_index(d, +1)).to(dev)
+        idx_out = torch.from_numpy(spatial_flat_index(c, -1)).to(dev)
+        wt = w.t().contiguous()
+
+        def library():
+            gz = g.view(r, V * d).index_select(1, idx_in).view(r, V, d)
+            dh = torch.matmul(gz, wt) * gate
+            return dh.view(r, V * c).index_select(1, idx_out).view(r, V, c)
+
+        err, scale = max_err(library(), ss.shift_gcn_dx_reference(g, gate, w))
+        if not err <= 1e-4 * scale:
+            fail(f"K5 library yardstick disagrees ({err:.3g})")
+        add("shift_gcn_dx", count,
+            time_ms(lambda: sk.shift_gcn_dx(g, gate, w)),
+            time_ms(lambda: ss.shift_gcn_dx_reference(g, gate, w)),
+            time_ms(library), k4_cost_ms(r, d, c),
+            time_ms(lambda: sk.shift_gcn_dx(gb, gate, w)))
+        del g, gb
+    for t, c in sorted(set(k6_shapes)):
+        count = k6_shapes.count((t, c))
+        r = N_WINDOWS * t
+        x = torch.randn(r, V, c, generator=gen, device=dev)
+        xb = x.bfloat16()
+        idx_in = torch.from_numpy(spatial_flat_index(c, +1)).to(dev)
+
+        def library():
+            return x.view(r, V * c).index_select(1, idx_in).view(r, V, c)
+
+        err, _ = max_err(library(), ss.shear_gate_reference(x))
+        if err != 0.0:
+            fail(f"K6 library yardstick disagrees ({err:.3g})")
+        add("shear_gate", count,
+            time_ms(lambda: sk.shear_gate(x)),
+            time_ms(lambda: ss.shear_gate_reference(x)),
+            time_ms(library), k6_cost_ms(r, c),
+            time_ms(lambda: sk.shear_gate(xb)))
+        del x, xb
+    torch.cuda.empty_cache()
+    per_step = {"temporal_shift_grad_input": len(k1_shapes),
+                "temporal_shift_position_grad": len(k1_shapes),
+                "shift_gcn_dx": len(k4_shapes), "shear_gate": len(k6_shapes)}
+    for kernel, (ms, plain, bound, lib, bytes_ms, ops_ms) in totals.items():
+        by = "operations" if ops_ms > bytes_ms else "bytes"
+        print(f"[time] {kernel} per train step ({per_step[kernel]} launches, "
+              f"{N_WINDOWS} clips x T={T_WINDOW}): {ms:.4f} ms fp32, "
+              f"{bf16[kernel]:.4f} ms bf16 (bound {bound:.4f} by {by}, "
+              f"plain {plain:.4f}, library {lib:.4f}) | {card}")
+    return totals
+
+
+def spatial_flat_index(channels: int, direction: int) -> np.ndarray:
+    from shift_gcn_torch.ops import spatial_shift
+
+    return spatial_shift.flat_shift_index(V, channels, direction)
+
+
+def time_train_step(config, rng, dev, card: str, seed: int) -> None:
+    """Phase 10b: one train step (forward, backward, SGD) at 64 clips x
+    T=300, kernel path vs plain path, fp32 and bf16, then a profiled
+    bf16 step on the kernel path (the Trainer's configuration)."""
+    import dataclasses
+
+    from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    for act in (None, "bfloat16"):
+        cfg = dataclasses.replace(config, activation_dtype=act)
+        model = Model(cfg).init_weights(torch.Generator().manual_seed(seed))
+        opt = build_optimizer(model, 0.1)
+
+        def step():
+            train_step(model, opt, batch, 0.1)
+
+        times = {}
+        for path in ("kernels", "plain", "kernels", "plain"):
+            if path == "plain":
+                with plain_path():
+                    ms = time_ms(step, iters=3, reps=3)
+            else:
+                ms = time_ms(step, iters=3, reps=3)
+            times.setdefault(path, []).append(ms)
+        k, p = min(times["kernels"]), min(times["plain"])
+        print(f"[time] train step {act or 'float32'}, {N_WINDOWS} clips x "
+              f"T={T_WINDOW}: {k:.3f} ms kernels ({N_WINDOWS / k * 1e3:.1f} "
+              f"clips/s), {p:.3f} ms plain path ({N_WINDOWS / p * 1e3:.1f} "
+              f"clips/s); runs kernels {times['kernels']}, plain "
+              f"{times['plain']} | {card}")
+        if act == "bfloat16":
+            profile_call(step, f"one bf16 train step, {N_WINDOWS} clips",
+                         card, top=16)
+        del model, opt
+        torch.cuda.empty_cache()
 
 
 def main() -> None:
@@ -304,7 +909,8 @@ def main() -> None:
     kernels.build_all()
     for name in kernels.SOURCES:
         kernels.library(name)
-    print(f"[build] {len(kernels.SOURCES)} kernels in "
+    print(f"[build] {len(kernels.SOURCES)} sources, "
+          f"{len(kernels.KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.1f} s")
 
     # 3./4. each kernel vs its plain version at the forward's launches --
@@ -376,7 +982,8 @@ def main() -> None:
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
     forwards = len(sequences) * len(pipeline.MODALITY_ORDER)
-    expect = {"temporal_shift": 20 * forwards, "shift_gcn": 10 * forwards}
+    expect = {name: PER_EVAL_FORWARD.get(name, 0) * forwards
+              for name in kernels.KERNELS}
     if launches != expect:
         fail(f"launch counts {launches} != expected {expect}")
     with plain_path():
@@ -477,22 +1084,40 @@ def main() -> None:
             fwd_plain = time_ms(lambda: model(batch), iters=3, reps=5)
     print(f"[time] forward per stream, {N_WINDOWS} windows x T={T_WINDOW}: "
           f"{fwd:.3f} ms kernels, {fwd_plain:.3f} ms plain path | {card}")
-    profile_forward(model, batch, card)
+    with torch.inference_mode():
+        profile_call(lambda: model(batch),
+                     f"one forward, {N_WINDOWS} windows", card)
+
+    del model, batch, predictor, state_dicts
+    torch.cuda.empty_cache()
+
+    # 7.-10. training ------------------------------------------------------
+    train_errs = check_backward_kernels(config, gen, rng, dev)
+    check_train_step(config, rng, dev, args.seed)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        train_launches = run_trainer(rng, dev, workdir)
+    train_totals = time_backward_kernels(config, gen, rng, dev, card)
+    time_train_step(config, rng, dev, card, args.seed)
 
     entries = []
-    for name, source, replaces, err in (
-            ("temporal_shift", K1_SOURCE, K1_REPLACES, k1_err),
-            ("shift_gcn", K4_SOURCE, K4_REPLACES, k4_err)):
-        ms, plain, bound, lib, bytes_ms, ops_ms = totals[name]
-        bound_by = "operations" if ops_ms > bytes_ms else "bytes"
+    rows = [(name, totals[name], launches[name], err) for name, err in
+            (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
+    rows += [(name, train_totals[name], train_launches[name],
+              train_errs[name]) for name in train_totals]
+    for name, (ms, plain, bound, lib, bytes_ms, ops_ms), count, err in rows:
+        source, replaces = KERNEL_ROWS[name]
         entries.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": count,
             "max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound, "bound_by": bound_by, "library_ms": lib})
-    print("[note] kernel ms / plain_ms / bound_ms / library_ms are per "
-          f"stream forward at {N_WINDOWS} windows x T={T_WINDOW}, fp32; "
-          "launches are the serving run's")
+            "bound_ms": bound,
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library_ms": lib})
+    print("[note] kernel ms / plain_ms / bound_ms / library_ms, fp32: "
+          "temporal_shift and shift_gcn per stream forward at "
+          f"{N_WINDOWS} windows x T={T_WINDOW}, launches from the serving "
+          "run; the four backward kernels per train step at "
+          f"{N_WINDOWS} clips x T={T_WINDOW}, launches from the Trainer run")
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -21,15 +21,28 @@ import subprocess
 from pathlib import Path
 from typing import Dict
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 SOURCES = ("temporal_shift", "shift_gcn")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
+# kernel -> the source that holds it
+KERNELS: Dict[str, str] = {
+    "temporal_shift": "temporal_shift",                # K1, forward
+    "temporal_shift_grad_input": "temporal_shift",     # K2
+    "temporal_shift_position_grad": "temporal_shift",  # K3
+    "shift_gcn": "shift_gcn",                          # K4, forward
+    "shift_gcn_dx": "shift_gcn",                       # K5
+    "shear_gate": "shift_gcn",                         # K6
+}
+
 # Launches per kernel: each wrapper adds one where it launches its
-# kernel, and nowhere else.  Callers reset them with reset_launches().
-LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+# kernel, and nowhere else (K3's two passes count as one launch).
+# Callers reset them with reset_launches().
+LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -95,14 +108,45 @@ def library(name: str) -> ctypes.CDLL:
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32 = ctypes.c_void_p, ctypes.c_int
     if name == "temporal_shift":
-        # (x, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
-        fn = lib.temporal_shift_forward
-        fn.argtypes = [ptr, ptr, ptr, i32, i32, i32, i32, i32, i32, i32, ptr]
+        signatures = {
+            # (x, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
+            "temporal_shift_forward": [ptr, ptr, ptr] + [i32] * 7 + [ptr],
+            # (g, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
+            "temporal_shift_grad_input": [ptr, ptr, ptr] + [i32] * 7 + [ptr],
+            # (x, g, ypos, partial, out, n, t_in, t_out, v, c, stride,
+            #  is_bf16, chunks, stream)
+            "temporal_shift_position_grad":
+                [ptr] * 5 + [i32] * 8 + [ptr],
+        }
     else:
-        # (x, gate, w, bias, out, r, v, c, d, is_bf16, stream)
-        fn = lib.shift_gcn_forward
-        fn.argtypes = [ptr, ptr, ptr, ptr, ptr, i32, i32, i32, i32, i32, ptr]
-    fn.restype = ctypes.c_int
+        signatures = {
+            # (x, gate, w, bias, out, r, v, c, d, is_bf16, stream)
+            "shift_gcn_forward": [ptr] * 5 + [i32] * 5 + [ptr],
+            # (g, gate, w, dx, r, v, c, d, is_bf16, stream)
+            "shift_gcn_dx": [ptr] * 4 + [i32] * 5 + [ptr],
+            # (x, gate, out, r, v, c, is_bf16, stream)
+            "shear_gate": [ptr] * 3 + [i32] * 4 + [ptr],
+        }
+    for symbol, argtypes in signatures.items():
+        fn = getattr(lib, symbol)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if a raw launcher is called where autograd would record it.
+
+    A kernel's output has no ``grad_fn``: called in grad mode on an input
+    that requires grad, it would silently cut every gradient upstream.
+    Only the kernel's ``torch.autograd.Function`` may call it then (its
+    forward and backward run with grad mode off).
+    """
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: called in grad mode on an input that requires "
+            "grad; use the op's autograd entry point, which carries the "
+            "kernel's backward")
 
 
 def check(status: int, kernel: str) -> None:

@@ -1,9 +1,13 @@
-"""Shift-GCN model, eval forward, as a torch module.
+"""Shift-GCN model as a torch module, for eval and training.
 
 Parameter and buffer names match the reference torch ``state_dict``
 (reference: model/shift_gcn.py:165-216), so a reference checkpoint loads
-with ``load_state_dict(strict=True)``.  Weights are not drawn here: a new
-``Model`` holds zeros (and BN identities) until a state_dict is loaded.
+with ``load_state_dict(strict=True)``.  A new ``Model`` holds zeros (and
+BN identities) until a state_dict is loaded or ``init_weights`` draws
+the reference initialization from a ``torch.Generator``.  ``Model.train()``
+switches every BN to batch statistics; the two kernel ops then run
+through their ``torch.autograd.Function``s, whose backwards are kernels
+too.
 
 Backbone (reference: model/shift_gcn.py:178-187): 10 TCN_GCN units,
 3->64 (no residual), 3x 64->64, 64->128 stride 2, 2x 128->128,
@@ -12,12 +16,14 @@ linear classifier.
 
 Layout: input (N, C, T, V, M) as the reference feeder gives it; inside,
 (N*M, T, V, C) channels-last.  Each unit launches the fused spatial
-kernel once and the temporal-shift kernel twice on a CUDA device.
+kernel once and the temporal-shift kernel twice on a CUDA device in its
+forward.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
@@ -57,8 +63,8 @@ def default_backbone() -> Tuple[BlockSpec, ...]:
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """Model hyperparameters that apply to the eval forward (reference
-    Model.__init__ signature, model/shift_gcn.py:166)."""
+    """Model hyperparameters (reference Model.__init__ signature,
+    model/shift_gcn.py:166)."""
 
     num_class: int = 60
     num_point: int = 25
@@ -67,6 +73,8 @@ class ModelConfig:
     in_channels: int = 3
     blocks: Tuple[BlockSpec, ...] = dataclasses.field(
         default_factory=default_backbone)
+    # ypos init is U(-shift_init_scale, shift_init_scale)
+    shift_init_scale: float = 1.0
     # run the backbone in this activation dtype ("bfloat16"); parameters,
     # BN statistics, pooling and the classifier stay fp32
     activation_dtype: Optional[str] = None
@@ -111,8 +119,8 @@ class ShiftGCN(nn.Module):
 
 
 class Shift(nn.Module):
-    """Shift positions (reference: shift.py:39-43).  xpos is loaded but
-    not read (see ops/temporal_shift.py)."""
+    """Shift positions (reference: shift.py:39-43).  xpos is read by no
+    arithmetic and gets a zero gradient (see ops/temporal_shift.py)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -133,11 +141,13 @@ class ShiftTCN(nn.Module):
         self.temporal_linear = Conv(channels, channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = temporal_shift.temporal_shift(self.bn(x), self.shift_in.ypos, 1)
+        h = temporal_shift.temporal_shift(self.bn(x), self.shift_in.ypos, 1,
+                                          xpos=self.shift_in.xpos)
         h = pointwise_conv(h, self.temporal_linear.weight,
                            self.temporal_linear.bias)
         h = torch.relu(h)
-        h = temporal_shift.temporal_shift(h, self.shift_out.ypos, self.stride)
+        h = temporal_shift.temporal_shift(h, self.shift_out.ypos, self.stride,
+                                          xpos=self.shift_out.xpos)
         return self.bn2(h)
 
 
@@ -209,6 +219,58 @@ class Model(nn.Module):
         self.register_load_state_dict_post_hook(_check_shift_range)
         self.to(device)
         self.eval()
+
+    def init_weights(self, generator: torch.Generator) -> "Model":
+        """Draw the reference initialization (reference package
+        ``init_params``; the reference model/shift_gcn.py:26-28, 63, 92-104,
+        208) from ``generator``, a CPU generator, so a seed gives the same
+        weights on any device.  Matches the reference in distribution, not
+        in bits."""
+
+        def normal(param, std):
+            param.copy_(torch.randn(param.shape, generator=generator) * std)
+
+        def uniform(param, bound):
+            param.copy_((torch.rand(param.shape, generator=generator) * 2
+                         - 1) * bound)
+
+        def kaiming_fan_out(conv):
+            # kaiming_normal_(mode='fan_out'): std = sqrt(2 / (C_out*kh*kw))
+            w = conv.weight
+            normal(w, math.sqrt(2.0 / (w.shape[0] * w.shape[2] * w.shape[3])))
+
+        with torch.no_grad():
+            for module in self.modules():
+                if isinstance(module, BatchNorm):
+                    module.weight.fill_(1.0)
+                    module.bias.zero_()
+                    module.running_mean.zero_()
+                    module.running_var.fill_(1.0)
+                    module.num_batches_tracked.zero_()
+            for i in range(len(self.config.blocks)):
+                unit = getattr(self, f"l{i + 1}")
+                gcn = unit.gcn1
+                normal(gcn.Linear_weight,
+                       math.sqrt(1.0 / gcn.Linear_weight.shape[1]))
+                gcn.Linear_bias.zero_()
+                gcn.Feature_Mask.zero_()
+                if gcn.down is not None:
+                    kaiming_fan_out(gcn.down[0])
+                    gcn.down[0].bias.zero_()
+                tcn = unit.tcn1
+                for shift in (tcn.shift_in, tcn.shift_out):
+                    uniform(shift.xpos, 1e-8)
+                    uniform(shift.ypos, self.config.shift_init_scale)
+                kaiming_fan_out(tcn.temporal_linear)
+                # torch's default conv bias: U(+-1/sqrt(fan_in))
+                uniform(tcn.temporal_linear.bias,
+                        1.0 / math.sqrt(tcn.temporal_linear.weight.shape[1]))
+                if unit.residual_kind == "conv":
+                    kaiming_fan_out(unit.residual.conv)
+                    unit.residual.conv.bias.zero_()
+            normal(self.fc.weight, math.sqrt(2.0 / self.config.num_class))
+            uniform(self.fc.bias, 1.0 / math.sqrt(self.fc.weight.shape[1]))
+        return self
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, t, v, m = x.shape

@@ -1,2 +1,2 @@
-"""Eval-path ops: batch norm, convs, the spatial and temporal shifts and
-their CUDA kernel wrappers."""
+"""Ops: batch norm, convs, the spatial and temporal shifts, and their CUDA
+kernel wrappers with their autograd Functions."""

@@ -1,54 +1,162 @@
-"""Fused spatial Shift-GCN transform: kernel wrapper.
+"""Fused spatial Shift-GCN transform with its backward.
 
 ``fused_shift_gcn(x, gate, w, bias)`` computes, for x (R, V, C),
 
     out = shift_out((shift_in(x) * gate) @ w + bias)        -> (R, V, D)
 
-On a CPU tensor it runs the plain version
-(``ops.spatial_shift.shift_gcn_transform``); on a CUDA tensor it launches
-the hand-written kernel (``csrc/shift_gcn.cu``) or raises.  Math is fp32;
-the output follows x.dtype (fp32 or bf16).
+When autograd records it (grad mode on and an input requires grad) it
+runs ``FusedShiftGCNFunction``, whose backward gives, for the cotangent
+g (R, V, D), with sx = shift_in(x) and gz = shift_in(g):
+
+    dx    = shift_out((gz @ w.T) * gate)                       K5
+    M[u]  = sum_r sx[r, u, :]^T gz[r, u, :]     (V, C, D)      K6 x2 + bmm
+    dw    = sum_u gate[u, :, None] * M[u]
+    dgate = sum_d M[:, :, d] * w[:, d]
+    dbias = sum_{r,u} gz[r, u, :]
+
+dgate is taken from the ungated shear sx, never as h / gate.  Both dw
+and dgate come from the one per-joint product M, so the gated h of the
+reference's backward is never formed and only one matmul over R runs.
+dx is skipped when x needs no gradient.  (In the model every unit's x
+needs one: the first unit's input is the output of the trainable
+``data_bn``.)
+
+The three raw launchers (``shift_gcn_forward`` K4, ``shift_gcn_dx`` K5,
+``shear_gate`` K6) run their plain PyTorch versions
+(``ops.spatial_shift``) on a CPU tensor and the hand-written kernels
+(``csrc/shift_gcn.cu``) on a CUDA tensor, or raise; called in grad mode
+on an input that requires grad, each raises.  Math is fp32; activations
+follow x.dtype (fp32 or bf16).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from shift_gcn_torch import kernels
-from shift_gcn_torch.ops.spatial_shift import shift_gcn_transform
+from shift_gcn_torch.ops.spatial_shift import (
+    shear_gate_reference, shift_gcn_dx_reference, shift_gcn_transform)
 
-
-def fused_shift_gcn(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
-    """x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D)."""
-    if x.device.type == "cpu":
-        return shift_gcn_transform(x, gate, w, bias)
+def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
+    """x: a contiguous (R, V, C) activation on CUDA; each of ``params`` a
+    contiguous fp32 tensor of the given (name: (tensor, shape))."""
     if x.device.type != "cuda":
-        raise ValueError(f"fused_shift_gcn: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"fused_shift_gcn: unsupported dtype {x.dtype}")
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError("fused_shift_gcn: x must be a contiguous (R, V, C) "
-                         "tensor")
-    r, v, c = x.shape
-    d = w.shape[-1]
-    for name, t, shape in (("gate", gate, (v, c)), ("w", w, (c, d)),
-                           ("bias", bias, (d,))):
+        raise ValueError(f"{name}: activations must be contiguous "
+                         "(R, V, C) tensors")
+    for pname, (t, shape) in params.items():
         if (t.shape != shape or t.dtype != torch.float32
                 or t.device != x.device or not t.is_contiguous()):
-            raise ValueError(f"fused_shift_gcn: {name} must be a contiguous "
-                             f"fp32 {shape} tensor on {x.device}")
-    if v > 160:
-        raise ValueError(f"fused_shift_gcn: V={v} exceeds the kernel's "
+            raise ValueError(f"{name}: {pname} must be a contiguous fp32 "
+                             f"{shape} tensor on {x.device}")
+    if x.shape[1] > 160:
+        raise ValueError(f"{name}: V={x.shape[1]} exceeds the kernel's "
                          "160-row frame tile")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                      bias: torch.Tensor) -> torch.Tensor:
+    """K4: x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D)."""
+    kernels.refuse_grad("shift_gcn", x, gate, w, bias)
+    if x.device.type == "cpu":
+        return shift_gcn_transform(x, gate, w, bias)
+    r, v, c = x.shape
+    d = w.shape[-1]
+    _check_cuda("shift_gcn", x, gate=(gate, (v, c)), w=(w, (c, d)),
+                bias=(bias, (d,)))
     if r * v * max(c, d) >= 2 ** 31:
-        raise ValueError("fused_shift_gcn: tensor too large for 32-bit "
-                         "indexing")
+        raise ValueError("shift_gcn: tensor too large for 32-bit indexing")
     out = torch.empty((r, v, d), dtype=x.dtype, device=x.device)
     status = kernels.library("shift_gcn").shift_gcn_forward(
         x.data_ptr(), gate.data_ptr(), w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), r, v, c, d, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        _stream(x))
     kernels.check(status, "shift_gcn")
     kernels.LAUNCHES["shift_gcn"] += 1
     return out
+
+
+def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor,
+                 w: torch.Tensor) -> torch.Tensor:
+    """K5: cotangent g (R, V, D), gate (V, C), w (C, D) -> dx (R, V, C)."""
+    kernels.refuse_grad("shift_gcn_dx", g, gate, w)
+    if g.device.type == "cpu":
+        return shift_gcn_dx_reference(g, gate, w)
+    r, v, d = g.shape
+    c = w.shape[0]
+    _check_cuda("shift_gcn_dx", g, gate=(gate, (v, c)), w=(w, (c, d)))
+    if r * v * max(c, d) >= 2 ** 31:
+        raise ValueError("shift_gcn_dx: tensor too large for 32-bit "
+                         "indexing")
+    dx = torch.empty((r, v, c), dtype=g.dtype, device=g.device)
+    status = kernels.library("shift_gcn").shift_gcn_dx(
+        g.data_ptr(), gate.data_ptr(), w.data_ptr(), dx.data_ptr(), r, v, c,
+        d, int(g.dtype == torch.bfloat16), _stream(g))
+    kernels.check(status, "shift_gcn_dx")
+    kernels.LAUNCHES["shift_gcn_dx"] += 1
+    return dx
+
+
+def shear_gate(x: torch.Tensor,
+               gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """K6: shift_in(x) * gate in fp32 for x (R, V, C), gate (V, C) or None
+    (1)."""
+    kernels.refuse_grad("shear_gate", x, gate)
+    if x.device.type == "cpu":
+        return shear_gate_reference(x, gate)
+    r, v, c = x.shape
+    params = {} if gate is None else {"gate": (gate, (v, c))}
+    _check_cuda("shear_gate", x, **params)
+    out = torch.empty((r, v, c), dtype=torch.float32, device=x.device)
+    status = kernels.library("shift_gcn").shear_gate(
+        x.data_ptr(), None if gate is None else gate.data_ptr(),
+        out.data_ptr(), r, v, c, int(x.dtype == torch.bfloat16), _stream(x))
+    kernels.check(status, "shear_gate")
+    kernels.LAUNCHES["shear_gate"] += 1
+    return out
+
+
+class FusedShiftGCNFunction(torch.autograd.Function):
+    """Forward K4; backward K5 (dx) and K6 on x and g (no gate) feeding
+    one per-joint fp32 ``bmm`` for dw and dgate."""
+
+    @staticmethod
+    def forward(ctx, x, gate, w, bias):
+        ctx.save_for_backward(x, gate, w)
+        return shift_gcn_forward(x, gate, w, bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, gate, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx = dgate = dw = dbias = None
+        if ctx.needs_input_grad[0]:
+            dx = shift_gcn_dx(g, gate, w)
+        if any(ctx.needs_input_grad[1:]):
+            gz = shear_gate(g)
+            sx = shear_gate(x)
+            # M[u] = sx[:, u, :]^T @ gz[:, u, :], one product per joint
+            m = torch.bmm(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
+            dw = (m * gate[:, :, None]).sum(0)
+            dgate = (m * w[None]).sum(-1)
+            dbias = gz.sum((0, 1))
+        return dx, dgate, dw, dbias
+
+
+def fused_shift_gcn(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D) in
+    x.dtype; see the module docstring."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, gate, w, bias)):
+        return FusedShiftGCNFunction.apply(x, gate, w, bias)
+    return shift_gcn_forward(x, gate, w, bias)

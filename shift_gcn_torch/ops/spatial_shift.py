@@ -8,14 +8,17 @@ reduces to a per-channel circular roll along the joint axis:
     shift_out:  out[v, c] = x[(v - c) mod V, c]
 
 ``shift_gcn_transform`` chains shift_in, the gate, the pointwise matmul
-with bias and shift_out.  It is the plain version of the fused kernel in
-``ops/shift_gcn_kernel.py`` and keeps that kernel's numerics: fp32 math
-after the load, one rounding to x.dtype at the end.
+with bias and shift_out.  It is the plain version of the fused kernel K4
+in ``ops/shift_gcn_kernel.py``; ``shift_gcn_dx_reference`` and
+``shear_gate_reference`` are the plain versions of its backward kernels
+K5 and K6.  All keep the kernels' numerics: fp32 math after the load, one
+rounding to the output dtype at the end (K6's output is fp32).
 """
 
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -62,3 +65,23 @@ def shift_gcn_transform(x: torch.Tensor, gate: torch.Tensor,
     h = spatial_shift(x.float(), +1) * gate.float()
     z = torch.matmul(h, weight.float()) + bias.float()
     return spatial_shift(z, -1).to(x.dtype)
+
+
+def shift_gcn_dx_reference(g: torch.Tensor, gate: torch.Tensor,
+                           weight: torch.Tensor) -> torch.Tensor:
+    """Input gradient of ``shift_gcn_transform`` (K5's plain version):
+    shift_out((shift_in(g) @ weight.T) * gate).
+
+    g: (..., V, D) cotangent; gate: (V, C); weight: (C, D).  Returns
+    (..., V, C) in g.dtype.
+    """
+    dh = torch.matmul(spatial_shift(g.float(), +1), weight.float().t())
+    return spatial_shift(dh * gate.float(), -1).to(g.dtype)
+
+
+def shear_gate_reference(x: torch.Tensor,
+                         gate: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """shift_in(x) * gate in fp32 (K6's plain version); no gate multiplies
+    by 1.  x: (..., V, C); gate: (V, C) or None."""
+    h = spatial_shift(x.float(), +1)
+    return h if gate is None else h * gate.float()

@@ -1,4 +1,4 @@
-"""Learnable fractional temporal shift, forward only (eval path).
+"""Learnable fractional temporal shift with its constraint backward.
 
 Per channel c, with temporal stride s and y = ypos[c] (+0.5 when s != 1,
 the reference Shift module's rule):
@@ -8,22 +8,41 @@ the reference Shift module's rule):
 with lo = floor(y), f = y - lo, and reads outside [0, T) taken as zero.
 T_out = T // s.  Layout is channels-last (N, T, V, C).
 
-The joint-axis position ``xpos`` is treated as exactly zero: its init is
-U(-1e-8, 1e-8), the reference's constraint backward zeroes its gradient
-and weight decay only shrinks it, so its bilinear contribution stays below
-fp32 rounding for the life of any run.
+The backward is the reference's constraint backward, not the derivative:
+
+- grad_input is the exact transpose of the forward (K2): input frame t
+  gathers (1 - f) * g[(t - lo) / s] and f * g[(t - lo - 1) / s], each
+  only where the offset is a non-negative multiple of s below T_out * s
+  (the stride-2 evenness rule);
+- the position gradient is a fixed step: with
+  gy_raw[c] = sum_{t,v} mean_n (x[t*s + lo + 1] - x[t*s + lo]) * g[t]
+  (K3, fp32), ypos moves by 0.01 * sign(gy_raw), or 1e-4 where gy_raw is
+  exactly 0 (``constraint_step``);
+- xpos gets a zero gradient.
+
+The joint-axis position ``xpos`` is treated as exactly zero in the
+forward: its init is U(-1e-8, 1e-8), its gradient is zero and weight
+decay only shrinks it, so its bilinear contribution stays below fp32
+rounding for the life of any run.
 
 The reference package sums taps only inside the static radius
-[-max_shift, max_shift + 1], while the kernel here reads the two frames
-directly at any offset.  ``assert_in_range`` keeps every loaded ``ypos``
-inside that radius, so the two agree by construction.
+[-max_shift, max_shift + 1], while the kernels here read the two frames
+directly at any offset.  ``assert_in_range`` keeps every ``ypos`` inside
+that radius, so the two agree by construction.
 
-``temporal_shift`` is the entry point: on a CPU tensor it runs the plain
-version ``temporal_shift_reference``; on a CUDA tensor it launches the
-hand-written kernel (``csrc/temporal_shift.cu``) or raises.
+``temporal_shift`` is the entry point.  When autograd records it (grad
+mode on and an input requires grad) it runs ``TemporalShiftFunction``;
+otherwise the forward alone.  Each of the three raw launchers
+(``temporal_shift_forward`` K1, ``temporal_shift_grad_input`` K2,
+``temporal_shift_position_grad`` K3) runs its plain PyTorch version on a
+CPU tensor and its hand-written kernel (``csrc/temporal_shift.cu``) on a
+CUDA tensor, or raises; called in grad mode on an input that requires
+grad, each raises (``kernels.refuse_grad``).
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import numpy as np
 import torch
@@ -33,58 +52,229 @@ from shift_gcn_torch import kernels
 DEFAULT_MAX_SHIFT = 8
 
 
-def temporal_shift_reference(x: torch.Tensor, ypos: torch.Tensor,
-                             stride: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: fp32 math, output in x.dtype."""
-    n, t_in, v, c = x.shape
-    t_out = t_in // stride
-    y = ypos.float().to(x.device)
+# ---------------------------------------------------------------------------
+# Plain PyTorch versions (CPU path and the kernels' oracles on the card)
+# ---------------------------------------------------------------------------
+
+
+def _lo_frac(ypos: torch.Tensor, stride: int, device):
+    y = ypos.float().to(device)
     y = y if stride == 1 else y + 0.5
     lo_f = torch.floor(y)
-    frac = y - lo_f
-    lo = lo_f.to(torch.int64)
-    t = torch.arange(t_out, device=x.device)[:, None] * stride + lo  # (T', C)
-
-    def frames(idx: torch.Tensor) -> torch.Tensor:
-        valid = (idx >= 0) & (idx < t_in)
-        gather = idx.clamp(0, t_in - 1)[None, :, None, :].expand(
-            n, t_out, v, c)
-        vals = torch.gather(x, 1, gather).float()
-        return vals * valid[None, :, None, :]
-
-    out = (1.0 - frac) * frames(t) + frac * frames(t + 1)
-    return out.to(x.dtype)
+    return lo_f.to(torch.int64), y - lo_f
 
 
-def temporal_shift(x: torch.Tensor, ypos: torch.Tensor,
-                   stride: int = 1) -> torch.Tensor:
-    """(N, T, V, C) -> (N, T // stride, V, C); see the module docstring."""
-    if x.device.type == "cpu":
-        return temporal_shift_reference(x, ypos, stride)
+def _gather_frames(src: torch.Tensor, idx: torch.Tensor,
+                   valid: torch.Tensor) -> torch.Tensor:
+    """src (N, T_src, V, C), idx/valid (T, C) -> fp32 (N, T, V, C) with
+    src[n, idx[t, c], v, c] where valid, else 0."""
+    n, t_src, v, c = src.shape
+    gather = idx.clamp(0, t_src - 1)[None, :, None, :].expand(
+        n, idx.shape[0], v, c)
+    return torch.gather(src, 1, gather).float() * valid[None, :, None, :]
+
+
+def _source_frames(x: torch.Tensor, ypos: torch.Tensor, stride: int):
+    """(frac, x[t*s + lo], x[t*s + lo + 1]) in fp32, zero outside [0, T)."""
+    t_in = x.shape[1]
+    lo, frac = _lo_frac(ypos, stride, x.device)
+    t = torch.arange(t_in // stride, device=x.device)[:, None] * stride + lo
+
+    def frames(idx):
+        return _gather_frames(x, idx, (idx >= 0) & (idx < t_in))
+
+    return frac, frames(t), frames(t + 1)
+
+
+def temporal_shift_reference(x: torch.Tensor, ypos: torch.Tensor,
+                             stride: int = 1) -> torch.Tensor:
+    """K1's plain version: fp32 math, output in x.dtype."""
+    frac, x0, x1 = _source_frames(x, ypos, stride)
+    return ((1.0 - frac) * x0 + frac * x1).to(x.dtype)
+
+
+def temporal_shift_grad_input_reference(g: torch.Tensor, ypos: torch.Tensor,
+                                        stride: int,
+                                        t_in: int) -> torch.Tensor:
+    """K2's plain version: the transposed shift of the cotangent
+    g (N, T_out, V, C) back to (N, t_in, V, C); fp32 math, output in
+    g.dtype."""
+    t_out = g.shape[1]
+    lo, frac = _lo_frac(ypos, stride, g.device)
+    t = torch.arange(t_in, device=g.device)[:, None]
+
+    def taps(k):
+        valid = (k >= 0) & (k % stride == 0) & (k < t_out * stride)
+        return _gather_frames(g, torch.div(k, stride, rounding_mode="floor"),
+                              valid)
+
+    return ((1.0 - frac) * taps(t - lo) + frac * taps(t - lo - 1)).to(
+        g.dtype)
+
+
+def temporal_shift_position_grad_reference(x: torch.Tensor, g: torch.Tensor,
+                                           ypos: torch.Tensor,
+                                           stride: int) -> torch.Tensor:
+    """K3's plain version: gy_raw (C,) fp32, the mean over N and sum over
+    (T, V) of (x[t*s + lo + 1] - x[t*s + lo]) * g[t], all in fp32."""
+    _, x0, x1 = _source_frames(x, ypos, stride)
+    return ((x1 - x0) * g.float()).mean(0).sum((0, 1))
+
+
+def constraint_step(gy_raw: torch.Tensor) -> torch.Tensor:
+    """The reference constraint kernel's position update: 0.01 in the
+    direction of gy_raw's sign, or 1e-4 where gy_raw is exactly 0.
+    Written in the reference package's order so the steps are
+    bit-equal."""
+    mag = gy_raw.abs()
+    nonzero = mag != 0
+    return torch.where(
+        nonzero, gy_raw / torch.where(nonzero, mag, torch.ones_like(mag))
+        * 0.01, torch.full_like(gy_raw, 1e-4))
+
+
+# ---------------------------------------------------------------------------
+# Raw launchers: plain version on a CPU tensor, kernel on a CUDA tensor
+# ---------------------------------------------------------------------------
+
+
+def _check_cuda(name: str, x: torch.Tensor, ypos: torch.Tensor) -> None:
     if x.device.type != "cuda":
-        raise ValueError(f"temporal_shift: unsupported device {x.device}")
+        raise ValueError(f"{name}: unsupported device {x.device}")
     if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"temporal_shift: unsupported dtype {x.dtype}")
+        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
     if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError("temporal_shift: x must be a contiguous (N, T, V, C) "
-                         "tensor")
-    n, t_in, v, c = x.shape
+        raise ValueError(f"{name}: activations must be contiguous "
+                         "(N, T, V, C) tensors")
+    c = x.shape[-1]
     if (ypos.shape != (c,) or ypos.dtype != torch.float32
             or ypos.device != x.device or not ypos.is_contiguous()):
-        raise ValueError("temporal_shift: ypos must be a contiguous fp32 "
-                         f"({c},) tensor on {x.device}")
+        raise ValueError(f"{name}: ypos must be a contiguous fp32 ({c},) "
+                         f"tensor on {x.device}")
     if x.numel() >= 2 ** 31:
-        raise ValueError("temporal_shift: tensor too large for 32-bit "
-                         "indexing")
+        raise ValueError(f"{name}: tensor too large for 32-bit indexing")
+
+
+def _stream(x: torch.Tensor) -> int:
+    return torch.cuda.current_stream(x.device).cuda_stream
+
+
+def temporal_shift_forward(x: torch.Tensor, ypos: torch.Tensor,
+                           stride: int = 1) -> torch.Tensor:
+    """K1: (N, T, V, C) -> (N, T // stride, V, C)."""
+    kernels.refuse_grad("temporal_shift", x, ypos)
+    if x.device.type == "cpu":
+        return temporal_shift_reference(x, ypos, stride)
+    _check_cuda("temporal_shift", x, ypos)
+    n, t_in, v, c = x.shape
     t_out = t_in // stride
     out = torch.empty((n, t_out, v, c), dtype=x.dtype, device=x.device)
     status = kernels.library("temporal_shift").temporal_shift_forward(
         x.data_ptr(), ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c,
-        stride, int(x.dtype == torch.bfloat16),
-        torch.cuda.current_stream(x.device).cuda_stream)
+        stride, int(x.dtype == torch.bfloat16), _stream(x))
     kernels.check(status, "temporal_shift")
     kernels.LAUNCHES["temporal_shift"] += 1
     return out
+
+
+def temporal_shift_grad_input(g: torch.Tensor, ypos: torch.Tensor,
+                              stride: int, t_in: int) -> torch.Tensor:
+    """K2: cotangent (N, T_out, V, C) -> grad_input (N, t_in, V, C)."""
+    kernels.refuse_grad("temporal_shift_grad_input", g, ypos)
+    if g.device.type == "cpu":
+        return temporal_shift_grad_input_reference(g, ypos, stride, t_in)
+    _check_cuda("temporal_shift_grad_input", g, ypos)
+    n, t_out, v, c = g.shape
+    if t_out != t_in // stride:
+        raise ValueError(f"temporal_shift_grad_input: T_out={t_out} is not "
+                         f"t_in // stride = {t_in // stride}")
+    if n * t_in * v * c >= 2 ** 31:
+        raise ValueError("temporal_shift_grad_input: tensor too large for "
+                         "32-bit indexing")
+    out = torch.empty((n, t_in, v, c), dtype=g.dtype, device=g.device)
+    status = kernels.library("temporal_shift").temporal_shift_grad_input(
+        g.data_ptr(), ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c,
+        stride, int(g.dtype == torch.bfloat16), _stream(g))
+    kernels.check(status, "temporal_shift_grad_input")
+    kernels.LAUNCHES["temporal_shift_grad_input"] += 1
+    return out
+
+
+# K3 splits the N*T_out*V rows into chunks of this many rows; each chunk's
+# per-channel partial sum lands in a scratch row, reduced in order after
+K3_ROWS_PER_CHUNK = 1024
+
+
+def temporal_shift_position_grad(x: torch.Tensor, g: torch.Tensor,
+                                 ypos: torch.Tensor,
+                                 stride: int) -> torch.Tensor:
+    """K3: gy_raw (C,) fp32 from the forward input x (N, T, V, C) and the
+    cotangent g (N, T // stride, V, C); two passes in a fixed order."""
+    kernels.refuse_grad("temporal_shift_position_grad", x, g, ypos)
+    if x.device.type == "cpu":
+        return temporal_shift_position_grad_reference(x, g, ypos, stride)
+    _check_cuda("temporal_shift_position_grad", x, ypos)
+    n, t_in, v, c = x.shape
+    t_out = t_in // stride
+    if (g.shape != (n, t_out, v, c) or g.dtype != x.dtype
+            or g.device != x.device or not g.is_contiguous()):
+        raise ValueError("temporal_shift_position_grad: g must be a "
+                         f"contiguous {x.dtype} {(n, t_out, v, c)} tensor")
+    chunks = max(1, -(-n * t_out * v // K3_ROWS_PER_CHUNK))
+    partial = torch.empty((chunks, c), dtype=torch.float32, device=x.device)
+    out = torch.empty((c,), dtype=torch.float32, device=x.device)
+    status = kernels.library("temporal_shift").temporal_shift_position_grad(
+        x.data_ptr(), g.data_ptr(), ypos.data_ptr(), partial.data_ptr(),
+        out.data_ptr(), n, t_in, t_out, v, c, stride,
+        int(x.dtype == torch.bfloat16), chunks, _stream(x))
+    kernels.check(status, "temporal_shift_position_grad")
+    kernels.LAUNCHES["temporal_shift_position_grad"] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Autograd
+# ---------------------------------------------------------------------------
+
+
+class TemporalShiftFunction(torch.autograd.Function):
+    """Forward K1; backward K2 (grad_input), K3 + ``constraint_step``
+    (ypos) and a zero xpos gradient."""
+
+    @staticmethod
+    def forward(ctx, x, xpos, ypos, stride):
+        ctx.stride = stride
+        ctx.save_for_backward(x, ypos)
+        ctx.xpos_meta = (None if xpos is None
+                         else (xpos.shape, xpos.dtype, xpos.device))
+        return temporal_shift_forward(x, ypos, stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, ypos = ctx.saved_tensors
+        g = g.contiguous()
+        grad_x = grad_xpos = grad_ypos = None
+        if ctx.needs_input_grad[0]:
+            grad_x = temporal_shift_grad_input(g, ypos, ctx.stride,
+                                               x.shape[1])
+        if ctx.needs_input_grad[1]:
+            shape, dtype, device = ctx.xpos_meta
+            grad_xpos = torch.zeros(shape, dtype=dtype, device=device)
+        if ctx.needs_input_grad[2]:
+            grad_ypos = constraint_step(
+                temporal_shift_position_grad(x, g, ypos, ctx.stride))
+        return grad_x, grad_xpos, grad_ypos, None
+
+
+def temporal_shift(x: torch.Tensor, ypos: torch.Tensor, stride: int = 1,
+                   xpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, T, V, C) -> (N, T // stride, V, C); see the module docstring.
+    ``xpos`` is read by no arithmetic; passed, it receives the zero
+    gradient."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (x, xpos, ypos)):
+        return TemporalShiftFunction.apply(x, xpos, ypos, stride)
+    return temporal_shift_forward(x, ypos, stride)
 
 
 def assert_in_range(ypos, name: str = "ypos",

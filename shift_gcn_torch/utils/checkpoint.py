@@ -1,4 +1,5 @@
-"""Weight carry-over into the port's ``Model``.
+"""Checkpoints: weight carry-over into the port's ``Model`` and the
+trainer's resume files.
 
 Two sources:
 
@@ -9,6 +10,12 @@ Two sources:
 - ``load_reference_checkpoint(path)``: a reference ``.pt`` / ``.pkl``
   checkpoint (a bare state_dict or the full resume dict).
 
+The trainer writes ``save_checkpoint``: a ``torch.save`` of the reference
+resume dict ``{model_state_dict, optimizer_state_dict, epoch, global_step,
+best_acc}`` named ``<Experiment_name>-<epoch>-<global_step>.pt``
+(reference: main.py:436-448), which ``load_reference_checkpoint`` reads
+back; ``latest_checkpoint`` finds the newest one.
+
 Orbax checkpoints of the reference package's trainer are not read here:
 reading them needs orbax and its array library.  Export one to a ``.pt``
 first with the reference package's checkpoint CLI.
@@ -16,8 +23,10 @@ first with the reference package's checkpoint CLI.
 
 from __future__ import annotations
 
+import os
 import pickle
-from typing import Any, Dict, Mapping, Tuple
+import re
+from typing import Any, Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,3 +106,39 @@ def load_reference_checkpoint(
         for k, v in blob.items()
     }
     return state_dict, meta
+
+
+_CHECKPOINT_NAME = re.compile(r"(?P<name>.+)-(?P<epoch>\d+)-(?P<step>\d+)\.pt")
+
+
+def save_checkpoint(save_dir: str, experiment: str, epoch: int,
+                    global_step: int, best_acc: float,
+                    model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer) -> str:
+    """Write the reference resume dict; returns its path."""
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"{experiment}-{epoch}-{global_step}.pt")
+    torch.save({
+        "model_state_dict": {k: v.detach().cpu()
+                             for k, v in model.state_dict().items()},
+        "optimizer_state_dict": optimizer.state_dict(),
+        "epoch": epoch,
+        "global_step": global_step,
+        "best_acc": best_acc,
+    }, path)
+    return path
+
+
+def latest_checkpoint(save_dir: str) -> Optional[str]:
+    """The checkpoint of the highest (epoch, global_step) in save_dir,
+    the reference's max-epoch auto-detect (inference_pipeline.py:28-38)."""
+    if not os.path.isdir(save_dir):
+        return None
+    found = []
+    for name in os.listdir(save_dir):
+        m = _CHECKPOINT_NAME.fullmatch(name)
+        if m:
+            found.append((int(m["epoch"]), int(m["step"]), name))
+    if not found:
+        return None
+    return os.path.join(save_dir, max(found)[2])

@@ -8,6 +8,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from shift_gcn_tpu.ops.batchnorm import batch_norm as jax_batch_norm
@@ -178,12 +179,15 @@ def test_conv_matches_reference():
 
 def test_cpu_path_launches_no_kernel():
     kernels.reset_launches()
-    x = torch.zeros(1, 4, 33, 3)
-    temporal_shift.temporal_shift(x, torch.zeros(3), 2)
+    x = torch.zeros(1, 4, 33, 3, requires_grad=True)
+    ypos = torch.zeros(3, requires_grad=True)
+    temporal_shift.temporal_shift(x, ypos, 2).sum().backward()
+    w = torch.zeros(3, 5, requires_grad=True)
     shift_gcn_kernel.fused_shift_gcn(
-        x.reshape(4, 33, 3), torch.ones(33, 3), torch.zeros(3, 5),
-        torch.zeros(5))
-    assert kernels.LAUNCHES == {"temporal_shift": 0, "shift_gcn": 0}
+        x.reshape(4, 33, 3), torch.ones(33, 3), w, torch.zeros(5)
+    ).sum().backward()
+    assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
+    assert all(count == 0 for count in kernels.LAUNCHES.values())
 
 
 def test_kernel_build_targets_hopper():
@@ -193,3 +197,229 @@ def test_kernel_build_targets_hopper():
     for name in kernels.SOURCES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
         assert kernels._library_path(name).parent == kernels.BUILD_DIR
+    assert set(kernels.KERNELS.values()) == set(kernels.SOURCES)
+
+
+# ---------------------------------------------------------------------------
+# Backward: K2/K3 (temporal shift) and K5/K6 (fused Shift-GCN)
+# ---------------------------------------------------------------------------
+
+
+def _torch_params(*arrays):
+    return [torch.from_numpy(a).requires_grad_() for a in arrays]
+
+
+# (stride, T, C): each (stride, T) pair of T in {16, 17, 32} meets every C
+# in {3, 8, 130}; T=17 at stride 2 drops its odd last frame
+@pytest.mark.parametrize("stride,t,c", [
+    (1, 16, 3), (1, 17, 130), (1, 32, 8),
+    (2, 16, 8), (2, 17, 3), (2, 32, 130)])
+def test_temporal_shift_grads_match_pallas(interpret, stride, t, c):
+    rng = np.random.default_rng(100 * t + c + stride)
+    x = rng.standard_normal((2, t, 5, c)).astype(np.float32)
+    ypos = rng.uniform(-3, 3, c).astype(np.float32)
+    ypos[:2] = (1.0, -2.0)  # integer shifts: f = 0
+    xpos = rng.uniform(-1e-8, 1e-8, c).astype(np.float32)
+    g = rng.standard_normal((2, t // stride, 5, c)).astype(np.float32)
+
+    def loss(x_, xp_, yp_):
+        return jnp.sum(tsk.temporal_shift_pallas(x_, xp_, yp_, stride) * g)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        jnp.asarray(x), jnp.asarray(xpos), jnp.asarray(ypos))
+    xt, xpt, ypt = _torch_params(x, xpos, ypos)
+    out = temporal_shift.temporal_shift(xt, ypt, stride, xpos=xpt)
+    out.backward(torch.from_numpy(g))
+    # the reference reaches grad_input through floor(-y), one rounding of
+    # (1 - f) away from the exact transpose: fp32 roundoff
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(want[0]),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    np.testing.assert_array_equal(xpt.grad.numpy(), np.zeros(c, np.float32))
+    # constraint steps are exactly +-0.01 or 1e-4: bit-equal
+    np.testing.assert_array_equal(ypt.grad.numpy(), np.asarray(want[2]))
+
+
+def test_cpu_temporal_shift_gives_constraint_step():
+    # on the CPU the plain version runs inside the Function: ypos gets the
+    # reference's fixed step, not the derivative plain autograd would give
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((2, 12, 4, 6)).astype(np.float32)
+    ypos = rng.uniform(-2, 2, 6).astype(np.float32)
+    g = torch.from_numpy(rng.standard_normal((2, 12, 4, 6)).astype(
+        np.float32))
+    yt = torch.from_numpy(ypos).requires_grad_()
+    temporal_shift.temporal_shift(torch.from_numpy(x), yt, 1).backward(g)
+    true_y = torch.from_numpy(ypos).requires_grad_()
+    frac, x0, x1 = temporal_shift._source_frames(
+        torch.from_numpy(x), true_y, 1)
+    ((1.0 - frac) * x0 + frac * x1).backward(g)
+    step = yt.grad.numpy()
+    assert set(np.abs(step).tolist()) <= {np.float32(0.01), np.float32(1e-4)}
+    np.testing.assert_array_equal(
+        np.sign(step), np.sign(true_y.grad.numpy()))
+    assert not np.allclose(step, true_y.grad.numpy())
+
+
+def test_constraint_step_values():
+    raw = torch.tensor([3.0, -1e-30, 0.0, -0.0, 7e-8])
+    np.testing.assert_array_equal(
+        temporal_shift.constraint_step(raw).numpy(),
+        np.array([0.01, -0.01, 1e-4, 1e-4, 0.01], np.float32))
+
+
+@pytest.mark.parametrize("stride,t", [(1, 9), (2, 9), (2, 10)])
+def test_temporal_shift_plain_backward_is_transpose(stride, t):
+    # K2's plain version is the exact transpose of K1's; K3's is the mean
+    # over N, sum over (T, V) of the two-tap difference times g
+    rng = np.random.default_rng(t + stride)
+    x = torch.from_numpy(rng.standard_normal((3, t, 2, 5)).astype(
+        np.float32)).requires_grad_()
+    ypos = torch.tensor([0.0, 1.5, -2.25, 3.0, -0.75])
+    g = torch.from_numpy(rng.standard_normal((3, t // stride, 2, 5)).astype(
+        np.float32))
+    frac, x0, x1 = temporal_shift._source_frames(x, ypos, stride)
+    ((1.0 - frac) * x0 + frac * x1).backward(g)
+    got = temporal_shift.temporal_shift_grad_input_reference(
+        g, ypos, stride, t)
+    np.testing.assert_allclose(got.numpy(), x.grad.numpy(), atol=1e-6)
+    xn, gn = x.detach().numpy(), g.numpy()
+    want = np.zeros(5, np.float64)
+    for c, y in enumerate(ypos.tolist()):
+        lo = int(np.floor(y + (0.5 if stride != 1 else 0.0)))
+        for tt in range(t // stride):
+            t0 = tt * stride + lo
+            a = xn[:, t0 + 1, :, c] if 0 <= t0 + 1 < t else 0.0
+            b = xn[:, t0, :, c] if 0 <= t0 < t else 0.0
+            want[c] += np.sum((a - b) * gn[:, tt, :, c]) / 3
+    got = temporal_shift.temporal_shift_position_grad_reference(
+        x.detach(), g, ypos, stride)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
+
+
+@pytest.mark.parametrize("v", [25, 33])
+@pytest.mark.parametrize("c,d", [(3, 8), (8, 16), (16, 8)])
+def test_fused_shift_gcn_grads_match_pallas(interpret, v, c, d):
+    rng = np.random.default_rng(7 * v + c + d)
+    x = rng.standard_normal((40, v, c)).astype(np.float32)
+    mask = rng.standard_normal((v, c)).astype(np.float32)
+    w = rng.standard_normal((c, d)).astype(np.float32)
+    b = rng.standard_normal(d).astype(np.float32)
+    g = rng.standard_normal((40, v, d)).astype(np.float32)
+
+    def loss(x_, m_, w_, b_):
+        return jnp.sum(sgk.fused_shift_gcn(x_, jnp.tanh(m_) + 1.0, w_, b_,
+                                           32) * g)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1, 2, 3)))(
+        *map(jnp.asarray, (x, mask, w, b)))
+    params = _torch_params(x, mask, w, b)
+    xt, mt, wt, bt = params
+    out = shift_gcn_kernel.fused_shift_gcn(xt, torch.tanh(mt) + 1.0, wt, bt)
+    out.backward(torch.from_numpy(g))
+    # fp32: dw and dgate sum over R*V = 1320 products in another order (and
+    # the reference takes dgate through h / gate): 1e-5 of each
+    # gradient's scale
+    for name, p, ref in zip(("dx", "dmask", "dw", "dbias"), params, want):
+        ref = np.asarray(ref)
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(p.grad.numpy(), ref, atol=1e-5 * scale,
+                                   rtol=1e-5, err_msg=name)
+
+
+def test_dx_skipped_when_input_needs_no_grad():
+    # x needs no grad: the backward runs no dx at all
+    x = torch.randn(6, 5, 3)
+    w = torch.randn(3, 4, requires_grad=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(shift_gcn_kernel, "shift_gcn_dx", None)
+        shift_gcn_kernel.fused_shift_gcn(
+            x, torch.ones(5, 3), w, torch.zeros(4)).sum().backward()
+    assert w.grad is not None
+
+
+@pytest.mark.parametrize("gated", [False, True])
+def test_shift_gcn_plain_backward(gated):
+    # K5's plain version is autograd's dx of the plain forward; K6's is
+    # shift_in(x) * gate
+    rng = np.random.default_rng(12)
+    x = torch.from_numpy(rng.standard_normal((4, 7, 3)).astype(
+        np.float32)).requires_grad_()
+    gate = torch.from_numpy(rng.uniform(0.5, 1.5, (7, 3)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((4, 7, 5)).astype(np.float32))
+    spatial_shift.shift_gcn_transform(x, gate, w, torch.zeros(5)).backward(g)
+    np.testing.assert_allclose(
+        spatial_shift.shift_gcn_dx_reference(g, gate, w).numpy(),
+        x.grad.numpy(), atol=1e-6)
+    got = spatial_shift.shear_gate_reference(
+        x.detach().bfloat16(), gate if gated else None)
+    want = jax_spatial_shift(jnp.asarray(x.detach().bfloat16().float().numpy()),
+                             1, "gather")
+    want = np.asarray(want) * (gate.numpy() if gated else 1.0)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("launcher", [
+    lambda x: temporal_shift.temporal_shift_forward(x, torch.zeros(3), 1),
+    lambda x: temporal_shift.temporal_shift_grad_input(
+        x, torch.zeros(3), 1, 4),
+    lambda x: temporal_shift.temporal_shift_position_grad(
+        x, x.detach(), torch.zeros(3), 1),
+    lambda x: shift_gcn_kernel.shift_gcn_forward(
+        x[0], torch.ones(4, 3), torch.zeros(3, 2), torch.zeros(2)),
+    lambda x: shift_gcn_kernel.shift_gcn_dx(
+        x[0], torch.ones(4, 3), torch.zeros(3, 3)),
+    lambda x: shift_gcn_kernel.shear_gate(x[0]),
+], ids=["K1", "K2", "K3", "K4", "K5", "K6"])
+def test_raw_launchers_refuse_grad(launcher):
+    # a raw launcher's output has no grad_fn: outside its Function, in
+    # grad mode, it raises instead of cutting the gradient
+    x = torch.zeros(1, 4, 4, 3, requires_grad=True)
+    with pytest.raises(RuntimeError, match="requires grad"):
+        launcher(x)
+    with torch.no_grad():
+        launcher(x)
+
+
+@pytest.mark.parametrize("feature_dims,reduce_axes,shape", [
+    (1, (0, 1), (3, 6, 15)),         # data_bn: (N, T, M*V*C)
+    (2, (0, 1), (3, 6, 5, 3)),       # Shift_gcn bn: (V, C) features
+    (1, (0, 1, 2), (3, 6, 5, 3)),    # tcn / residual / down bn
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_norm_train_matches_reference(feature_dims, reduce_axes,
+                                            shape, dtype):
+    rng = np.random.default_rng(20 + len(shape) + feature_dims)
+    nf = int(np.prod(shape[len(shape) - feature_dims:]))
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, nf).astype(np.float32)
+    b = rng.standard_normal(nf).astype(np.float32)
+    mean = rng.standard_normal(nf).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, nf).astype(np.float32)
+    want, new_state = jax_batch_norm(
+        jnp.asarray(x).astype(dtype),
+        {"weight": jnp.asarray(w), "bias": jnp.asarray(b)},
+        {"running_mean": jnp.asarray(mean), "running_var": jnp.asarray(var),
+         "num_batches_tracked": jnp.asarray(4, jnp.int32)},
+        reduce_axes=reduce_axes, training=True, lp=False)
+    bn = batchnorm.BatchNorm(nf, feature_dims=feature_dims)
+    with torch.no_grad():
+        for name, value in (("weight", w), ("bias", b),
+                            ("running_mean", mean), ("running_var", var)):
+            getattr(bn, name).copy_(torch.from_numpy(value))
+        bn.num_batches_tracked.fill_(4)
+    got = bn.train()(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert got.dtype == getattr(torch, dtype)
+    # fp32 stats and normalize on both sides; bf16 differs by the final
+    # rounding only (both round the same fp32 value, up to roundoff)
+    tol = FP32_TOL if dtype == "float32" else 2 ** -7
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want.astype(jnp.float32)),
+                               atol=tol, rtol=tol)
+    for key in ("running_mean", "running_var"):
+        np.testing.assert_allclose(getattr(bn, key).numpy(),
+                                   np.asarray(new_state[key]),
+                                   atol=FP32_TOL, rtol=FP32_TOL)
+    assert int(bn.num_batches_tracked) == int(
+        new_state["num_batches_tracked"]) == 5
