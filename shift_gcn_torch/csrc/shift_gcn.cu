@@ -1,5 +1,5 @@
 // Fused spatial Shift-GCN transform: forward (K4), input gradient (K5)
-// and the shear-gate recompute (K6).
+// and the shear recompute of the weight gradients (K6).
 //
 // Replaces the Pallas TPU kernels of the reference package,
 // ops/pallas/shift_gcn_kernel.py: _fwd_kernel reached through
@@ -17,15 +17,17 @@
 //   dz[r, u, c]  = sum_d g[r, (u + d) % V, d] * W[c, d]
 //   dx[r, w, c]  = dz[r, u, c] * gate[u, c],  u = (w - c) % V
 //
-// K6: out[r, u, c] = x[r, (u + c) % V, c] * gate[u, c] in fp32 (gate
-// optional).
+// K6: out[r, u, c] = x[r, (u + c) % V, c] in fp32.  The reference's
+// shear-gate kernel also multiplies by gate[u, c]; here that multiply is
+// folded into the weight-gradient reduction over the (V, C, D) per-joint
+// product (ops/shift_gcn_kernel.py), so K6 is the bare shear.
 //
 // fp32 accumulation; x, g and outputs are fp32 or bf16, gate/W/bias fp32.
 //
 // Bound on the H100: K4 and K5 by operations in fp32, 2*R*V*C*D flops
 // against (R*V*C + R*V*D) activations moved: at C, D >= 64 that is more
 // than the fp32 SIMT rate (67 TFLOP/s) can do in the time 3.35 TB/s moves
-// the bytes.  K6 by memory: one multiply per element.
+// the bytes.  K6 by memory: one load and one store per element.
 //
 // K4/K5 design (one template; K5 is its kDx instantiation): both shears
 // wrap around the joint axis, so a block owns whole frames: kFrames =
@@ -188,8 +190,8 @@ shift_gcn_kernel(const T* __restrict__ x, const float* __restrict__ gate,
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
-shear_gate_kernel(const T* __restrict__ x, const float* __restrict__ gate,
-                  float* __restrict__ out, int64_t total, int v, int c) {
+shear_in_kernel(const T* __restrict__ x, float* __restrict__ out,
+                int64_t total, int v, int c) {
   const int64_t vc = static_cast<int64_t>(v) * c;
   for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
        i < total; i += static_cast<int64_t>(gridDim.x) * kThreads) {
@@ -197,10 +199,8 @@ shear_gate_kernel(const T* __restrict__ x, const float* __restrict__ gate,
     const int uc = static_cast<int>(i - frame * vc);
     const int u = uc / c;
     const int ch = uc - u * c;
-    float val = load_f(x + frame * vc + static_cast<int64_t>(
-                                            (u + ch) % v) * c + ch);
-    if (gate != nullptr) val *= gate[uc];
-    out[i] = val;
+    out[i] = load_f(x + frame * vc + static_cast<int64_t>((u + ch) % v) * c +
+                    ch);
   }
 }
 
@@ -253,22 +253,21 @@ extern "C" int shift_gcn_dx(const void* g, const void* gate, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
-// K6: out (r, v, c) fp32 = shear_in(x) * gate, gate (v, c) or null for 1.
-extern "C" int shear_gate(const void* x, const void* gate, void* out, int r,
-                          int v, int c, int is_bf16, void* stream) {
+// K6: out (r, v, c) fp32 = shear_in(x).
+extern "C" int shear_in(const void* x, void* out, int r, int v, int c,
+                        int is_bf16, void* stream) {
   const int64_t total = static_cast<int64_t>(r) * v * c;
   if (total == 0) return 0;
   const int64_t want = (total + kThreads - 1) / kThreads;
   const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* g = static_cast<const float*>(gate);
   float* o = static_cast<float*>(out);
   if (is_bf16) {
-    shear_gate_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), g, o, total, v, c);
+    shear_in_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(x), o, total, v, c);
   } else {
-    shear_gate_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), g, o, total, v, c);
+    shear_in_kernel<float><<<blocks, kThreads, 0, s>>>(
+        static_cast<const float*>(x), o, total, v, c);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -36,7 +36,7 @@ KERNELS: Dict[str, str] = {
     "temporal_shift_position_grad": "temporal_shift",  # K3
     "shift_gcn": "shift_gcn",                          # K4, forward
     "shift_gcn_dx": "shift_gcn",                       # K5
-    "shear_gate": "shift_gcn",                         # K6
+    "shear_in": "shift_gcn",                           # K6
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
@@ -124,8 +124,8 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "shift_gcn_forward": [ptr] * 5 + [i32] * 5 + [ptr],
             # (g, gate, w, dx, r, v, c, d, is_bf16, stream)
             "shift_gcn_dx": [ptr] * 4 + [i32] * 5 + [ptr],
-            # (x, gate, out, r, v, c, is_bf16, stream)
-            "shear_gate": [ptr] * 3 + [i32] * 4 + [ptr],
+            # (x, out, r, v, c, is_bf16, stream)
+            "shear_in": [ptr] * 2 + [i32] * 4 + [ptr],
         }
     for symbol, argtypes in signatures.items():
         fn = getattr(lib, symbol)
@@ -147,6 +147,23 @@ def refuse_grad(kernel: str, *tensors) -> None:
             f"{kernel}: called in grad mode on an input that requires "
             "grad; use the op's autograd entry point, which carries the "
             "kernel's backward")
+
+
+def check_activation(kernel: str, x: torch.Tensor, layout: str) -> None:
+    """Raise unless x is a contiguous fp32 or bf16 CUDA tensor with as
+    many dimensions as ``layout`` names, e.g. "(N, T, V, C)"."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{kernel}: unsupported device {x.device}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{kernel}: unsupported dtype {x.dtype}")
+    if x.dim() != layout.count(",") + 1 or not x.is_contiguous():
+        raise ValueError(f"{kernel}: activations must be contiguous "
+                         f"{layout} tensors")
+
+
+def stream(x: torch.Tensor) -> int:
+    """The handle of the current CUDA stream on x's device."""
+    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def check(status: int, kernel: str) -> None:

@@ -15,14 +15,16 @@ g (R, V, D), with sx = shift_in(x) and gz = shift_in(g):
     dbias = sum_{r,u} gz[r, u, :]
 
 dgate is taken from the ungated shear sx, never as h / gate.  Both dw
-and dgate come from the one per-joint product M, so the gated h of the
-reference's backward is never formed and only one matmul over R runs.
+and dgate come from the one per-joint product M: the gate multiply that
+the reference's shear-gate kernel applies per element is folded into the
+(V, C, D) reduction for dw, so K6 is the bare shear and only one matmul
+over R runs.
 dx is skipped when x needs no gradient.  (In the model every unit's x
 needs one: the first unit's input is the output of the trainable
 ``data_bn``.)
 
 The three raw launchers (``shift_gcn_forward`` K4, ``shift_gcn_dx`` K5,
-``shear_gate`` K6) run their plain PyTorch versions
+``shear_in`` K6) run their plain PyTorch versions
 (``ops.spatial_shift``) on a CPU tensor and the hand-written kernels
 (``csrc/shift_gcn.cu``) on a CUDA tensor, or raise; called in grad mode
 on an input that requires grad, each raises.  Math is fp32; activations
@@ -31,24 +33,17 @@ follow x.dtype (fp32 or bf16).
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 
 from shift_gcn_torch import kernels
 from shift_gcn_torch.ops.spatial_shift import (
-    shear_gate_reference, shift_gcn_dx_reference, shift_gcn_transform)
+    shear_in_reference, shift_gcn_dx_reference, shift_gcn_transform)
+
 
 def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
     """x: a contiguous (R, V, C) activation on CUDA; each of ``params`` a
     contiguous fp32 tensor of the given (name: (tensor, shape))."""
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
-    if x.dim() != 3 or not x.is_contiguous():
-        raise ValueError(f"{name}: activations must be contiguous "
-                         "(R, V, C) tensors")
+    kernels.check_activation(name, x, "(R, V, C)")
     for pname, (t, shape) in params.items():
         if (t.shape != shape or t.dtype != torch.float32
                 or t.device != x.device or not t.is_contiguous()):
@@ -57,10 +52,6 @@ def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
     if x.shape[1] > 160:
         raise ValueError(f"{name}: V={x.shape[1]} exceeds the kernel's "
                          "160-row frame tile")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
@@ -79,7 +70,7 @@ def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
     status = kernels.library("shift_gcn").shift_gcn_forward(
         x.data_ptr(), gate.data_ptr(), w.data_ptr(), bias.data_ptr(),
         out.data_ptr(), r, v, c, d, int(x.dtype == torch.bfloat16),
-        _stream(x))
+        kernels.stream(x))
     kernels.check(status, "shift_gcn")
     kernels.LAUNCHES["shift_gcn"] += 1
     return out
@@ -100,34 +91,31 @@ def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor,
     dx = torch.empty((r, v, c), dtype=g.dtype, device=g.device)
     status = kernels.library("shift_gcn").shift_gcn_dx(
         g.data_ptr(), gate.data_ptr(), w.data_ptr(), dx.data_ptr(), r, v, c,
-        d, int(g.dtype == torch.bfloat16), _stream(g))
+        d, int(g.dtype == torch.bfloat16), kernels.stream(g))
     kernels.check(status, "shift_gcn_dx")
     kernels.LAUNCHES["shift_gcn_dx"] += 1
     return dx
 
 
-def shear_gate(x: torch.Tensor,
-               gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """K6: shift_in(x) * gate in fp32 for x (R, V, C), gate (V, C) or None
-    (1)."""
-    kernels.refuse_grad("shear_gate", x, gate)
+def shear_in(x: torch.Tensor) -> torch.Tensor:
+    """K6: shift_in(x) in fp32 for x (R, V, C)."""
+    kernels.refuse_grad("shear_in", x)
     if x.device.type == "cpu":
-        return shear_gate_reference(x, gate)
+        return shear_in_reference(x)
     r, v, c = x.shape
-    params = {} if gate is None else {"gate": (gate, (v, c))}
-    _check_cuda("shear_gate", x, **params)
+    _check_cuda("shear_in", x)
     out = torch.empty((r, v, c), dtype=torch.float32, device=x.device)
-    status = kernels.library("shift_gcn").shear_gate(
-        x.data_ptr(), None if gate is None else gate.data_ptr(),
-        out.data_ptr(), r, v, c, int(x.dtype == torch.bfloat16), _stream(x))
-    kernels.check(status, "shear_gate")
-    kernels.LAUNCHES["shear_gate"] += 1
+    status = kernels.library("shift_gcn").shear_in(
+        x.data_ptr(), out.data_ptr(), r, v, c,
+        int(x.dtype == torch.bfloat16), kernels.stream(x))
+    kernels.check(status, "shear_in")
+    kernels.LAUNCHES["shear_in"] += 1
     return out
 
 
 class FusedShiftGCNFunction(torch.autograd.Function):
-    """Forward K4; backward K5 (dx) and K6 on x and g (no gate) feeding
-    one per-joint fp32 ``bmm`` for dw and dgate."""
+    """Forward K4; backward K5 (dx) and K6 on x and g feeding one
+    per-joint fp32 ``bmm`` for dw and dgate."""
 
     @staticmethod
     def forward(ctx, x, gate, w, bias):
@@ -142,8 +130,8 @@ class FusedShiftGCNFunction(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = shift_gcn_dx(g, gate, w)
         if any(ctx.needs_input_grad[1:]):
-            gz = shear_gate(g)
-            sx = shear_gate(x)
+            gz = shear_in(g)
+            sx = shear_in(x)
             # M[u] = sx[:, u, :]^T @ gz[:, u, :], one product per joint
             m = torch.bmm(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
             dw = (m * gate[:, :, None]).sum(0)

@@ -10,7 +10,7 @@ reduces to a per-channel circular roll along the joint axis:
 ``shift_gcn_transform`` chains shift_in, the gate, the pointwise matmul
 with bias and shift_out.  It is the plain version of the fused kernel K4
 in ``ops/shift_gcn_kernel.py``; ``shift_gcn_dx_reference`` and
-``shear_gate_reference`` are the plain versions of its backward kernels
+``shear_in_reference`` are the plain versions of its backward kernels
 K5 and K6.  All keep the kernels' numerics: fp32 math after the load, one
 rounding to the output dtype at the end (K6's output is fp32).
 """
@@ -18,8 +18,6 @@ rounding to the output dtype at the end (K6's output is fp32).
 from __future__ import annotations
 
 import functools
-from typing import Optional
-
 import numpy as np
 import torch
 
@@ -79,9 +77,6 @@ def shift_gcn_dx_reference(g: torch.Tensor, gate: torch.Tensor,
     return spatial_shift(dh * gate.float(), -1).to(g.dtype)
 
 
-def shear_gate_reference(x: torch.Tensor,
-                         gate: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """shift_in(x) * gate in fp32 (K6's plain version); no gate multiplies
-    by 1.  x: (..., V, C); gate: (V, C) or None."""
-    h = spatial_shift(x.float(), +1)
-    return h if gate is None else h * gate.float()
+def shear_in_reference(x: torch.Tensor) -> torch.Tensor:
+    """shift_in(x) in fp32 (K6's plain version).  x: (..., V, C)."""
+    return spatial_shift(x.float(), +1)

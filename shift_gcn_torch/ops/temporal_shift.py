@@ -139,13 +139,7 @@ def constraint_step(gy_raw: torch.Tensor) -> torch.Tensor:
 
 
 def _check_cuda(name: str, x: torch.Tensor, ypos: torch.Tensor) -> None:
-    if x.device.type != "cuda":
-        raise ValueError(f"{name}: unsupported device {x.device}")
-    if x.dtype not in (torch.float32, torch.bfloat16):
-        raise TypeError(f"{name}: unsupported dtype {x.dtype}")
-    if x.dim() != 4 or not x.is_contiguous():
-        raise ValueError(f"{name}: activations must be contiguous "
-                         "(N, T, V, C) tensors")
+    kernels.check_activation(name, x, "(N, T, V, C)")
     c = x.shape[-1]
     if (ypos.shape != (c,) or ypos.dtype != torch.float32
             or ypos.device != x.device or not ypos.is_contiguous()):
@@ -153,10 +147,6 @@ def _check_cuda(name: str, x: torch.Tensor, ypos: torch.Tensor) -> None:
                          f"tensor on {x.device}")
     if x.numel() >= 2 ** 31:
         raise ValueError(f"{name}: tensor too large for 32-bit indexing")
-
-
-def _stream(x: torch.Tensor) -> int:
-    return torch.cuda.current_stream(x.device).cuda_stream
 
 
 def temporal_shift_forward(x: torch.Tensor, ypos: torch.Tensor,
@@ -171,7 +161,7 @@ def temporal_shift_forward(x: torch.Tensor, ypos: torch.Tensor,
     out = torch.empty((n, t_out, v, c), dtype=x.dtype, device=x.device)
     status = kernels.library("temporal_shift").temporal_shift_forward(
         x.data_ptr(), ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c,
-        stride, int(x.dtype == torch.bfloat16), _stream(x))
+        stride, int(x.dtype == torch.bfloat16), kernels.stream(x))
     kernels.check(status, "temporal_shift")
     kernels.LAUNCHES["temporal_shift"] += 1
     return out
@@ -194,7 +184,7 @@ def temporal_shift_grad_input(g: torch.Tensor, ypos: torch.Tensor,
     out = torch.empty((n, t_in, v, c), dtype=g.dtype, device=g.device)
     status = kernels.library("temporal_shift").temporal_shift_grad_input(
         g.data_ptr(), ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c,
-        stride, int(g.dtype == torch.bfloat16), _stream(g))
+        stride, int(g.dtype == torch.bfloat16), kernels.stream(g))
     kernels.check(status, "temporal_shift_grad_input")
     kernels.LAUNCHES["temporal_shift_grad_input"] += 1
     return out
@@ -226,7 +216,7 @@ def temporal_shift_position_grad(x: torch.Tensor, g: torch.Tensor,
     status = kernels.library("temporal_shift").temporal_shift_position_grad(
         x.data_ptr(), g.data_ptr(), ypos.data_ptr(), partial.data_ptr(),
         out.data_ptr(), n, t_in, t_out, v, c, stride,
-        int(x.dtype == torch.bfloat16), chunks, _stream(x))
+        int(x.dtype == torch.bfloat16), chunks, kernels.stream(x))
     kernels.check(status, "temporal_shift_position_grad")
     kernels.LAUNCHES["temporal_shift_position_grad"] += 1
     return out

@@ -263,7 +263,8 @@ class Trainer:
             f"\tMean training loss: {mean_loss:.4f}  acc: {mean_acc:.4f}  "
             f"({clips / max(dt, 1e-9):.1f} clips/s)  time: {proportion}")
         return {"loss": mean_loss, "acc": mean_acc, "losses": losses,
-                "clips_per_sec": clips / max(dt, 1e-9)}
+                "clips_per_sec": clips / max(dt, 1e-9),
+                "dataloader_share": timer["dataloader"] / total}
 
     def evaluate(self, epoch: int, wrong_file: Optional[str] = None,
                  result_file: Optional[str] = None) -> float:

@@ -337,10 +337,10 @@ def test_dx_skipped_when_input_needs_no_grad():
     assert w.grad is not None
 
 
-@pytest.mark.parametrize("gated", [False, True])
-def test_shift_gcn_plain_backward(gated):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_shift_gcn_plain_backward(dtype):
     # K5's plain version is autograd's dx of the plain forward; K6's is
-    # shift_in(x) * gate
+    # shift_in(x) widened to fp32
     rng = np.random.default_rng(12)
     x = torch.from_numpy(rng.standard_normal((4, 7, 3)).astype(
         np.float32)).requires_grad_()
@@ -351,13 +351,11 @@ def test_shift_gcn_plain_backward(gated):
     np.testing.assert_allclose(
         spatial_shift.shift_gcn_dx_reference(g, gate, w).numpy(),
         x.grad.numpy(), atol=1e-6)
-    got = spatial_shift.shear_gate_reference(
-        x.detach().bfloat16(), gate if gated else None)
-    want = jax_spatial_shift(jnp.asarray(x.detach().bfloat16().float().numpy()),
+    got = spatial_shift.shear_in_reference(x.detach().to(dtype))
+    want = jax_spatial_shift(jnp.asarray(x.detach().to(dtype).float().numpy()),
                              1, "gather")
-    want = np.asarray(want) * (gate.numpy() if gated else 1.0)
     assert got.dtype == torch.float32
-    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("launcher", [
@@ -370,7 +368,7 @@ def test_shift_gcn_plain_backward(gated):
         x[0], torch.ones(4, 3), torch.zeros(3, 2), torch.zeros(2)),
     lambda x: shift_gcn_kernel.shift_gcn_dx(
         x[0], torch.ones(4, 3), torch.zeros(3, 3)),
-    lambda x: shift_gcn_kernel.shear_gate(x[0]),
+    lambda x: shift_gcn_kernel.shear_in(x[0]),
 ], ids=["K1", "K2", "K3", "K4", "K5", "K6"])
 def test_raw_launchers_refuse_grad(launcher):
     # a raw launcher's output has no grad_fn: outside its Function, in
