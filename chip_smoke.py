@@ -6,7 +6,9 @@ Phases, in order; any failure exits non-zero:
 
 1. card: prints ``nvidia-smi`` name / power limit and the torch device name;
 2. build: compiles every kernel of ``shift_gcn_torch/csrc`` (one nvcc per
-   source, in parallel) and prints the seconds it took;
+   source, in parallel) and prints the seconds it took, and, where the
+   toolkit has ``cuobjdump``, the tensor-core (HMMA) instructions and the
+   registers of each K4/K5 function of the built library;
 3. temporal shift kernel vs its plain PyTorch version at every (T, C,
    stride) one forward of the serving model launches it with (64 windows,
    V=33), fp32 and bf16;
@@ -20,15 +22,19 @@ Phases, in order; any failure exits non-zero:
 6. timings at the serving batch (64 windows, T=300, fp32): each kernel
    per forward beside its bound, its plain version and one library call
    for the same function (temporal shift: a depthwise conv2d; Shift-GCN:
-   index_select + matmul); the whole forward per stream, and
-   one profiled forward: device busy share and device time by kernel;
+   index_select + matmul), and each again in bf16 (the Trainer's forward
+   runs them in bf16); the whole forward per stream, and one profiled
+   forward: device busy share and device time by kernel;
 7. backward kernels vs their plain versions at every launch shape of one
    training step (64 clips, T=300), fp32 and bf16: K2 temporal-shift
    grad_input and K3 position grad at the K1 shapes, K5 Shift-GCN dx and
    K6 shear at the K4 shapes;
 8. one full-width train step (fp32, 64 clips x T=300) on the kernel path
-   vs the plain path from the same seeded state and batch: loss, every
-   true gradient, the ypos steps, and a gradient on every parameter;
+   vs the plain backward (every launcher plain but K4, so both sides share
+   one forward) from the same seeded state and batch: loss, every true
+   gradient, the ypos steps, and a gradient on every parameter; the loss
+   also vs the whole plain path, whose gradient gap is printed beside the
+   gap that 2^-22 noise on the plain K4's output makes;
 9. ``Trainer.start()`` on ``configs/mediapipe/train_joint.yaml`` unchanged
    in model and batch (bf16 activations, batch 64, T=300) for one epoch
    of 8 steps on synthetic data, with eval and save; the launch counters
@@ -63,6 +69,9 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_SIMT_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
+# K4/K5 multiply on the tensor cores with fp32 accuracy: three TF32
+# products (495 TFLOP/s dense) per fp32-accurate multiply-add
+TF32_3X_FLOPS = 495e12 / 3
 N_WINDOWS, T_WINDOW, V = 64, 300, 33
 REPORT_KEYS = ["total_frames", "num_windows", "fall_detected",
                "max_fall_probability", "fall_intervals",
@@ -83,6 +92,13 @@ KERNEL_ROWS = {
 TRAIN_CONFIG = "configs/mediapipe/train_joint.yaml"
 GY_RAW_TOL = 2e-5      # of sum|terms|: K3 vs its plain version (phases 7, 8)
 STEP_GRAD_TOL = 1e-5   # of scale: a true gradient, kernel vs plain step
+# biases that feed a train-mode BN normalizing over their broadcast axes:
+# its mean subtraction cancels them, so their exact gradient is 0 and the
+# step computes roundoff; each is held at STEP_GRAD_TOL of the scale of its
+# layer's weight gradient, whose terms are of the same size
+ZERO_GRAD_BIASES = {"gcn1.Linear_bias": "gcn1.Linear_weight",
+                    "down.0.bias": "down.0.weight",
+                    "residual.conv.bias": "residual.conv.weight"}
 TRAIN_CLIPS, VAL_CLIPS = 512, 128
 # launches per train step of the 10-unit model: each unit runs K1 twice
 # and K4 once forward; backward K2, K3 once per K1, K5 once per K4 (every
@@ -97,10 +113,10 @@ PROFILE_GROUPS = (
     ("K1 temporal shift", ("tshift_kernel<",)),
     ("K2 grad_input", ("tshift_grad_input_kernel",)),
     ("K3 position grad", ("tshift_position_",)),
-    ("K4 shift_gcn", ("shift_gcn_kernel<float, false>",
-                      "shift_gcn_kernel<__nv_bfloat16, false>")),
-    ("K5 dx", ("shift_gcn_kernel<float, true>",
-               "shift_gcn_kernel<__nv_bfloat16, true>")),
+    ("K4 shift_gcn", ("shift_gcn_mma_kernel<float, false",
+                      "shift_gcn_mma_kernel<__nv_bfloat16, false")),
+    ("K5 dx", ("shift_gcn_mma_kernel<float, true",
+               "shift_gcn_mma_kernel<__nv_bfloat16, true")),
     ("K6 shear", ("shear_in_kernel",)),
     ("cuBLAS / cuDNN", ("gemm", "xmma", "cutlass", "sm90_", "convolve")),
     ("reductions", ("reduce_kernel",)),
@@ -245,10 +261,52 @@ def k1_cost_ms(n, t_in, c, stride, itemsize=4):
 
 
 def k4_cost_ms(r, c, d, itemsize=4):
-    """(bytes time, operations time) of one launch at fp32 SIMT rate."""
+    """(bytes time, operations time) of one launch, the operations on the
+    tensor cores at the 3xTF32 rate."""
     moved = (r * V * c + r * V * d) * itemsize + (V * c + c * d + d) * 4
     flops = 2.0 * r * V * c * d
-    return moved / HBM_BYTES_PER_S * 1e3, flops / FP32_SIMT_FLOPS * 1e3
+    return moved / HBM_BYTES_PER_S * 1e3, flops / TF32_3X_FLOPS * 1e3
+
+
+def k4_simt_ms(r, c, d):
+    """The same flops at the fp32 SIMT rate, the bound of the SIMT
+    template K4 and K5 replaced; printed beside the tensor-core bound."""
+    return 2.0 * r * V * c * d / FP32_SIMT_FLOPS * 1e3
+
+
+def sass_report(path: str):
+    """{function label: (HMMA instructions, registers)} of the K4/K5
+    functions in the library at ``path``, or None without ``cuobjdump``."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+
+    def dump(flag):
+        return subprocess.run([tool, flag, path], capture_output=True,
+                              text=True, check=True, timeout=300).stdout
+
+    def label(mangled):
+        kind = "K5" if "Lb1E" in mangled else "K4"
+        dtype = "bf16" if "bfloat16" in mangled else "fp32"
+        tile = re.search(r"Li(\d+)E", mangled)
+        return f"{kind} {dtype} {tile.group(1) if tile else '?'}-col"
+
+    report, fn = {}, None
+    for line in dump("-sass").splitlines():
+        if "Function :" in line:
+            fn = line.split("Function :")[1].strip()
+            if "shift_gcn_mma_kernel" in fn:
+                report[label(fn)] = [0, None]
+        elif fn and "shift_gcn_mma_kernel" in fn and "HMMA" in line:
+            report[label(fn)][0] += 1
+    for fn, regs in re.findall(r"Function ([^\s:]+):\s*REG:(\d+)",
+                               dump("-res-usage")):
+        if "shift_gcn_mma_kernel" in fn:
+            report.setdefault(label(fn), [0, None])[1] = int(regs)
+    return {k: tuple(v) for k, v in sorted(report.items())}
 
 
 def shift_conv_library(x: torch.Tensor, ypos: torch.Tensor, stride: int):
@@ -282,9 +340,10 @@ def shift_conv_library(x: torch.Tensor, ypos: torch.Tensor, stride: int):
 
 
 @contextmanager
-def plain_path():
+def plain_path(keep=()):
     """Route the six raw kernel launchers (forward and backward) to their
-    plain versions; the autograd Functions around them stay."""
+    plain versions, but those named in ``keep``; the autograd Functions
+    around them stay."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
     from shift_gcn_torch.ops import temporal_shift as ts
@@ -297,7 +356,8 @@ def plain_path():
              (sk, "shift_gcn_forward", ss.shift_gcn_transform),
              (sk, "shift_gcn_dx", ss.shift_gcn_dx_reference),
              (sk, "shear_in", ss.shear_in_reference))
-    patches = [mock.patch.object(mod, name, fn) for mod, name, fn in swaps]
+    patches = [mock.patch.object(mod, name, fn) for mod, name, fn in swaps
+               if name not in keep]
     for patch in patches:
         patch.start()
     try:
@@ -553,6 +613,8 @@ def check_train_step(config, rng, dev, seed: int):
     """Phase 8: one fp32 train step's loss and gradients, kernel path vs
     plain path, from the same seeded state and batch."""
     from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
     from shift_gcn_torch.ops import temporal_shift as ts
     from shift_gcn_torch.train.state import cross_entropy
 
@@ -586,28 +648,64 @@ def check_train_step(config, rng, dev, seed: int):
                  for n, p in model.named_parameters()}
         return loss.item(), grads, raws
 
+    def perturbed_k4(*args):
+        # the plain K4 with 2^-22 relative noise, the size of K4's 3xTF32
+        # difference from cuBLAS
+        out = ss.shift_gcn_transform(*args)
+        noise = torch.randn(out.shape, device=out.device,
+                            generator=torch.Generator(device=out.device)
+                            .manual_seed(seed))
+        return out * (1.0 + 2.0 ** -22 * noise)
+
+    def rel_gap(a, b):
+        """Largest gap of a true gradient between two runs, of its scale."""
+        return max(float((a[n] - b[n]).abs().max())
+                   / max(float(b[n].abs().max()), 1e-30) for n in a
+                   if not n.endswith(("xpos", "ypos", *ZERO_GRAD_BIASES)))
+
     loss, grads, raws = run()
-    with plain_path():
+    # The backward kernels against their plain versions on one forward: K4
+    # runs on both sides.  The train step turns any fp32-order difference
+    # in the forward into gradient differences of up to ~1e-3 of scale
+    # (ReLU inputs within roundoff of 0 flip; each flip moves one term of
+    # sums over ~6e5 terms): the whole plain path, and that path with
+    # 2^-22 noise on K4's output, show it below.
+    with plain_path(keep=("shift_gcn_forward",)):
         loss_p, grads_p, raws_p = run()
+    with plain_path():
+        loss_full, grads_full, _ = run()
+        with mock.patch.object(sk, "shift_gcn_forward", perturbed_k4):
+            _, grads_noise, _ = run()
     missing = [n for n, g in grads.items() if g is None]
     if missing:
         fail(f"no gradient on the kernel path for {missing[:5]}")
-    if not abs(loss - loss_p) <= 1e-5 * abs(loss_p):
-        fail(f"train step loss {loss} vs plain {loss_p}")
-    worst = 0.0
+    for name, ref in (("plain backward", loss_p), ("plain", loss_full)):
+        if not abs(loss - ref) <= 1e-5 * abs(ref):
+            fail(f"train step loss {loss} vs {name} path {ref}")
+    worst = zero_worst = 0.0
     ypos_equal = ypos_total = 0
     for name, g in grads.items():
         gp = grads_p[name]
+        bias = next((b for b in ZERO_GRAD_BIASES if name.endswith(b)), None)
         if name.endswith("xpos"):
             if bool(g.any()):
                 fail(f"{name}: nonzero xpos gradient")
         elif name.endswith("ypos"):
             ypos_equal += int((g == gp).sum())
             ypos_total += g.numel()
+        elif bias is not None:
+            weight = name[:-len(bias)] + ZERO_GRAD_BIASES[bias]
+            scale = max(float(grads_p[weight].abs().max()), 1e-30)
+            rel = max(float(g.abs().max()), float(gp.abs().max())) / scale
+            if not rel <= STEP_GRAD_TOL:
+                fail(f"{name}: gradient {rel:.3g} of its layer's weight "
+                     "gradient scale, exact value 0")
+            zero_worst = max(zero_worst, rel)
         else:
-            # fp32 through 10 units: the kernels' summation orders differ
-            # from cuBLAS and the plain gathers only in roundoff (3.4e-7
-            # measured on an H100); 1e-5 of each gradient's largest entry
+            # fp32 through 10 units: the backward kernels differ from the
+            # plain versions only in roundoff (summation order; K5's
+            # 3xTF32 splits, ~2^-22 relative); 1e-5 of each gradient's
+            # largest entry
             rel = float((g - gp).abs().max()) / max(
                 float(gp.abs().max()), 1e-30)
             if not rel <= STEP_GRAD_TOL:
@@ -634,14 +732,19 @@ def check_train_step(config, rng, dev, seed: int):
         ties += int((~clear).sum())
         differ += int((~same).sum())
     print(f"[step] fp32 train step, {N_WINDOWS} clips x T={T_WINDOW}: loss "
-          f"{loss:.6f} vs plain {loss_p:.6f}; true gradients max "
-          f"|diff|/scale {worst:.3g} (tol {STEP_GRAD_TOL:g}); gy_raw gap "
+          f"{loss:.7f} vs {loss_p:.7f} plain backward, {loss_full:.7f} "
+          f"plain; true gradients vs the plain backward max |diff|/scale "
+          f"{worst:.3g} (tol {STEP_GRAD_TOL:g}); biases ahead of a train BN "
+          f"at most {zero_worst:.3g} of their weight gradient's scale; vs "
+          f"the whole plain path {rel_gap(grads, grads_full):.3g}, plain path "
+          f"with 2^-22 noise on K4 vs plain "
+          f"{rel_gap(grads_noise, grads_full):.3g}; gy_raw gap "
           f"at most {gy_ratio:.3g} of its bound ({GY_RAW_TOL:g} of "
           f"sum|terms|), {ties} channels inside it; ypos steps equal on "
           f"{ypos_equal} of {ypos_total} channels ({differ} differ, all "
           "inside the bound); every parameter has a gradient, xpos's is "
           "zero")
-    del model, grads, grads_p
+    del model, grads, grads_p, grads_full, grads_noise
     torch.cuda.empty_cache()
     return worst, gy_ratio
 
@@ -751,6 +854,7 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
                                      "temporal_shift_position_grad",
                                      "shift_gcn_dx", "shear_in")}
     bf16 = dict.fromkeys(totals, 0.0)
+    k5_extra = {"simt": 0.0, "bound_bf16": 0.0}
 
     def add(kernel, count, ms, plain, lib, cost, ms_bf16):
         for i, val in enumerate((ms, plain, max(cost), lib) + cost):
@@ -815,6 +919,8 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
             time_ms(lambda: ss.shift_gcn_dx_reference(g, gate, w)),
             time_ms(library), k4_cost_ms(r, d, c),
             time_ms(lambda: sk.shift_gcn_dx(gb, gate, w)))
+        k5_extra["simt"] += count * k4_simt_ms(r, d, c)
+        k5_extra["bound_bf16"] += count * max(k4_cost_ms(r, d, c, itemsize=2))
         del g, gb
     for t, c in sorted(set(k6_shapes)):
         count = k6_shapes.count((t, c))
@@ -841,10 +947,13 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
                 "shift_gcn_dx": len(k4_shapes), "shear_in": len(k6_shapes)}
     for kernel, (ms, plain, bound, lib, bytes_ms, ops_ms) in totals.items():
         by = "operations" if ops_ms > bytes_ms else "bytes"
+        extra = "" if kernel != "shift_gcn_dx" else (
+            f", at bf16 I/O {k5_extra['bound_bf16']:.4f}, fp32 SIMT "
+            f"{k5_extra['simt']:.4f}")
         print(f"[time] {kernel} per train step ({per_step[kernel]} launches, "
               f"{N_WINDOWS} clips x T={T_WINDOW}): {ms:.4f} ms fp32, "
-              f"{bf16[kernel]:.4f} ms bf16 (bound {bound:.4f} by {by}, "
-              f"plain {plain:.4f}, library {lib:.4f}) | {card}")
+              f"{bf16[kernel]:.4f} ms bf16 (bound {bound:.4f} by {by}"
+              f"{extra}, plain {plain:.4f}, library {lib:.4f}) | {card}")
     return totals, bf16
 
 
@@ -934,6 +1043,14 @@ def main() -> None:
     print(f"[build] {len(kernels.SOURCES)} sources, "
           f"{len(kernels.KERNELS)} kernels in "
           f"{time.perf_counter() - t0:.1f} s")
+    sass = sass_report(str(kernels.build_all()["shift_gcn"]))
+    if sass is None:
+        print("[build] no cuobjdump: the K4/K5 HMMA count is not read")
+    else:
+        if len(sass) != 8 or any(h == 0 for h, _ in sass.values()):
+            fail(f"K4/K5 functions without tensor-core instructions: {sass}")
+        print("[build] K4/K5 functions, HMMA instructions / registers: "
+              + ", ".join(f"{k} {h}/{r}" for k, (h, r) in sass.items()))
 
     # 3./4. each kernel vs its plain version at the forward's launches --
     config = ModelConfig(num_class=2, num_point=V, num_person=1,
@@ -979,9 +1096,10 @@ def main() -> None:
             want = spatial_shift.shift_gcn_transform(x, gate, w, b)
             torch.cuda.synchronize()
             err, scale = max_err(got, want)
-            # fp32: the same contraction summed in another order (cuBLAS vs
-            # the kernel's k-loop); bf16: the two fp32 sums may round to
-            # neighbouring bf16 values
+            # fp32: the kernel's 3xTF32 tensor-core products (each operand
+            # split into two TF32 parts, the small*small term dropped, ~2^-22
+            # relative) summed in another order than cuBLAS's fp32; bf16:
+            # the two fp32 sums may round to neighbouring bf16 values
             tol = (2e-5 if dtype == torch.float32 else 2 ** -7) * scale
             if not err <= tol:
                 fail(f"shift_gcn {dtype} T={t} C={c} D={d}: max|err| "
@@ -1022,7 +1140,8 @@ def main() -> None:
             fail("frame probabilities are not finite values per frame")
         serve_err = max(serve_err, float(np.abs(
             probs - np.asarray(plain["frame_probabilities"])).max()))
-    # fp32 end to end; the only differences are K4's summation order
+    # fp32 end to end; the only differences are K4's 3xTF32 rounding and
+    # summation order
     if not serve_err <= 1e-4:
         fail(f"serving probabilities differ from the plain path by "
              f"{serve_err:.3g} > 1e-4")
@@ -1036,6 +1155,9 @@ def main() -> None:
     # per stream forward: kernel, plain, bound, library, bytes, operations
     totals = {"temporal_shift": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0],
               "shift_gcn": [0.0, 0.0, 0.0, 0.0, 0.0, 0.0]}
+    # per stream forward in bf16: kernel ms, bound at bf16 I/O
+    fwd_bf16 = {"temporal_shift": [0.0, 0.0], "shift_gcn": [0.0, 0.0]}
+    k4_simt = 0.0
     for shape in sorted(set(k1_shapes)):
         t, c, stride = shape
         count = k1_shapes.count(shape)
@@ -1051,14 +1173,22 @@ def main() -> None:
         plain = time_ms(lambda: temporal_shift.temporal_shift_reference(
             x, ypos, stride))
         lib = time_ms(library)
+        xb = x.bfloat16()
+        ms16 = time_ms(lambda: temporal_shift.temporal_shift(xb, ypos,
+                                                             stride))
+        bound16 = max(k1_cost_ms(N_WINDOWS, t, c, stride, itemsize=2))
         cost = k1_cost_ms(N_WINDOWS, t, c, stride)
         bound = max(cost)
         for i, val in ((0, ms), (1, plain), (2, bound), (3, lib),
                        (4, cost[0]), (5, cost[1])):
             totals["temporal_shift"][i] += count * val
+        fwd_bf16["temporal_shift"][0] += count * ms16
+        fwd_bf16["temporal_shift"][1] += count * bound16
         print(f"[time] temporal_shift T={t} C={c} s={stride} x{count}: "
               f"{ms:.4f} ms (bound {bound:.4f}, plain {plain:.4f}, "
-              f"depthwise conv2d {lib:.4f}) | {card}")
+              f"depthwise conv2d {lib:.4f}); bf16 {ms16:.4f} ms (bound "
+              f"{bound16:.4f}) | {card}")
+        del x, xb
     for shape in sorted(set(k4_shapes)):
         t, c, d = shape
         count = k4_shapes.count(shape)
@@ -1085,15 +1215,31 @@ def main() -> None:
         plain = time_ms(lambda: spatial_shift.shift_gcn_transform(
             x, gate, w, b))
         lib = time_ms(library)
+        xb = x.bfloat16()
+        ms16 = time_ms(lambda: shift_gcn_kernel.fused_shift_gcn(xb, gate, w,
+                                                                b))
+        bound16 = max(k4_cost_ms(rr, c, d, itemsize=2))
         cost = k4_cost_ms(rr, c, d)
         bound = max(cost)
         for i, val in ((0, ms), (1, plain), (2, bound), (3, lib),
                        (4, cost[0]), (5, cost[1])):
             totals["shift_gcn"][i] += count * val
+        fwd_bf16["shift_gcn"][0] += count * ms16
+        fwd_bf16["shift_gcn"][1] += count * bound16
+        simt = k4_simt_ms(rr, c, d)
+        k4_simt += count * simt
         by = "operations" if cost[1] > cost[0] else "bytes"
         print(f"[time] shift_gcn T={t} C={c} D={d} x{count}: {ms:.4f} ms "
-              f"(bound {bound:.4f} by {by}, plain "
-              f"{plain:.4f}, index_select+matmul {lib:.4f}) | {card}")
+              f"(bound {bound:.4f} by {by}, fp32 SIMT {simt:.4f}, plain "
+              f"{plain:.4f}, index_select+matmul {lib:.4f}); bf16 "
+              f"{ms16:.4f} ms (bound {bound16:.4f}) | {card}")
+        del x, xb
+    for name, (ms, _, bound, lib, _, _) in totals.items():
+        simt = f", fp32 SIMT {k4_simt:.4f}" if name == "shift_gcn" else ""
+        print(f"[time] {name} per stream forward: {ms:.4f} ms fp32 (bound "
+              f"{bound:.4f}{simt}, library {lib:.4f}), "
+              f"{fwd_bf16[name][0]:.4f} ms bf16 (bound "
+              f"{fwd_bf16[name][1]:.4f}) | {card}")
 
     model = Model(config)
     model.load_state_dict(state_dicts["joint"], strict=True)
@@ -1150,7 +1296,9 @@ def main() -> None:
           f"fp32 {k32:.4g}/{p32:.4g}, bf16 {k16:.4g}/{p16:.4g}; busy "
           f"{'n/a' if busy is None else f'{100 * busy:.1f}%'}; trainer "
           f"{epoch['clips_per_sec']:.1f} clips/s, feeder "
-          f"{100 * epoch['dataloader_share']:.1f}%; bf16 K2,K3,K5,K6 "
+          f"{100 * epoch['dataloader_share']:.1f}%; bf16 K1,K4 "
+          f"{fwd_bf16['temporal_shift'][0]:.4g} "
+          f"{fwd_bf16['shift_gcn'][0]:.4g}, K2,K3,K5,K6 "
           + " ".join(f"{train_bf16[k]:.4g}" for k in train_totals)
           + f"; grads {grad_gap:.2g}, gy_raw {gy_ratio:.2g}")
     print(card)

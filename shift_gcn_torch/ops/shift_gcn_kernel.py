@@ -49,9 +49,9 @@ def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name}: {pname} must be a contiguous fp32 "
                              f"{shape} tensor on {x.device}")
-    if x.shape[1] > 160:
+    if x.shape[1] > 144:
         raise ValueError(f"{name}: V={x.shape[1]} exceeds the kernel's "
-                         "160-row frame tile")
+                         "144-row frame tile")
 
 
 def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,

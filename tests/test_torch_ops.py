@@ -421,3 +421,81 @@ def test_batch_norm_train_matches_reference(feature_dims, reduce_axes,
                                    atol=FP32_TOL, rtol=FP32_TOL)
     assert int(bn.num_batches_tracked) == int(
         new_state["num_batches_tracked"]) == 5
+
+
+# ---------------------------------------------------------------------------
+# K4/K5 on the tensor cores: the 3xTF32 arithmetic and the gate identity
+# ---------------------------------------------------------------------------
+
+
+def _tf32_rna(a: np.ndarray) -> np.ndarray:
+    """Round fp32 to TF32 (10-bit mantissa), to nearest, ties away from
+    zero: cvt.rna.tf32.f32, as the kernel does it on the integer pipe."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+def _mma_tf32(a: np.ndarray, b: np.ndarray, passes: int) -> np.ndarray:
+    """a (M, K) @ b (K, N) as the kernel's mma.sync k8 steps: fp32
+    accumulator, TF32 operands (products exact), 3 passes (a_small*b_big,
+    a_big*b_small, then a_big*b_big) or 1 (a_big*b_big)."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+    terms = ([(a_small, b_big), (a_big, b_small), (a_big, b_big)]
+             if passes == 3 else [(a_big, b_big)])
+    acc = np.zeros((a.shape[0], b.shape[1]), np.float32)
+    for k0 in range(0, a.shape[1], 8):
+        for p, q in terms:
+            step = p[:, k0:k0 + 8].astype(np.float64) @ q[k0:k0 + 8].astype(
+                np.float64)
+            acc = (acc + step).astype(np.float32)
+    return acc
+
+
+@pytest.mark.parametrize("kernel", ["K4", "K5"])
+def test_3xtf32_product_meets_fp32_tolerance(kernel):
+    # Why K4/K5 do three TF32 products: at C = D = 256, with inputs drawn as
+    # chip_smoke.py draws them, 3xTF32 stays within the card check's fp32
+    # tolerance (2e-5 of scale) of an fp64 product; one TF32 product, which
+    # keeps ~3 decimal digits, does not.
+    rng = np.random.default_rng(30)
+    r, v, c, d = 60, 33, 256, 256
+    idx = (np.arange(v)[:, None] + np.arange(c)[None, :]) % v
+    if kernel == "K4":
+        x = rng.standard_normal((r, v, c)).astype(np.float32)
+        gate = (np.tanh(rng.standard_normal((v, c))) + 1.0).astype(np.float32)
+        a = (x[:, idx, np.arange(c)] * gate).reshape(r * v, c)  # h in fp32
+        b = (rng.standard_normal((c, d)) * d ** -0.5).astype(np.float32)
+    else:
+        g = rng.standard_normal((r, v, d)).astype(np.float32)
+        a = g[:, idx, np.arange(d)].reshape(r * v, d)  # shear_in(g)
+        b = (rng.standard_normal((c, d)) * d ** -0.5).astype(np.float32).T
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    tol = 2e-5 * max(1.0, float(np.abs(want).max()))
+    err3 = float(np.abs(_mma_tf32(a, b, 3) - want).max())
+    err1 = float(np.abs(_mma_tf32(a, b, 1) - want).max())
+    assert err3 <= tol / 20, (err3, tol)
+    assert err1 > tol, (err1, tol)
+
+
+@pytest.mark.parametrize("v", [25, 33])
+@pytest.mark.parametrize("c", [3, 64, 130])
+def test_gate_identity_of_the_shear(v, c):
+    # shear_in(x) * gate == shear_in(x * shear_out(gate)): the move the JAX
+    # dx path makes with spatial_shift(gate, -1) (shift_gcn_kernel.py
+    # _run_dx), which lets K4 read the gate at the fragment row's own joint
+    # and K5 multiply by it at the source joint of its store
+    rng = np.random.default_rng(v * 1000 + c)
+    x = rng.standard_normal((4, v, c)).astype(np.float32)
+    gate = (np.tanh(rng.standard_normal((v, c))) + 1.0).astype(np.float32)
+    lhs = np.asarray(sgk._shear_in(jnp.asarray(x), v) * jnp.asarray(gate))
+    rhs = np.asarray(sgk._shear_in(
+        jnp.asarray(x) * jax_spatial_shift(jnp.asarray(gate), -1), v))
+    np.testing.assert_array_equal(lhs, rhs)
+    xt, gt = torch.from_numpy(x), torch.from_numpy(gate)
+    port = spatial_shift.spatial_shift(
+        xt * spatial_shift.spatial_shift(gt, -1), +1)
+    np.testing.assert_array_equal(port.numpy(), lhs)
+    np.testing.assert_array_equal(
+        (spatial_shift.spatial_shift(xt, +1) * gt).numpy(), lhs)
