@@ -26,9 +26,11 @@ Phases, in order; any failure exits non-zero:
    runs them in bf16); the whole forward per stream, and one profiled
    forward: device busy share and device time by kernel;
 7. backward kernels vs their plain versions at every launch shape of one
-   training step (64 clips, T=300), fp32 and bf16: K2 temporal-shift
-   grad_input and K3 position grad at the K1 shapes, K5 Shift-GCN dx and
-   K6 shear at the K4 shapes;
+   training step (64 clips, T=300), fp32 and bf16: the fused temporal-shift
+   backward (K2 grad_input and K3 position grad in one kernel) at the K1
+   shapes, also with shifts outside its staged window, its gy_raw
+   bit-equal across two launches and its one-output forms bit-equal to
+   it; K5 Shift-GCN dx and K6 shear at the K4 shapes;
 8. one full-width train step (fp32, 64 clips x T=300) on the kernel path
    vs the plain backward (every launcher plain but K4, so both sides share
    one forward) from the same seeded state and batch: loss, every true
@@ -41,8 +43,10 @@ Phases, in order; any failure exits non-zero:
    must equal the stated per-step counts x 8 plus the eval forwards, and
    the saved checkpoint must reproduce the best-score pickle;
 10. training timings: each backward kernel per step beside its bound, its
-   plain version and a library call; the train step on the kernel path
-   vs the plain path, fp32 and bf16; one profiled train step.
+   plain version and a library call (the fused backward: the sum of the
+   two library calls for grad_input and the position grad), also at
+   spread-out shifts; the train step on the kernel path vs the plain
+   path, fp32 and bf16; one profiled train step.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -83,14 +87,13 @@ SGCN_PALLAS = "shift_gcn_tpu/ops/pallas/shift_gcn_kernel.py"
 # kernel -> (source, the TPU kernel it replaces)
 KERNEL_ROWS = {
     "temporal_shift": (K1_SOURCE, f"{TSHIFT_PALLAS}:88"),
-    "temporal_shift_grad_input": (K1_SOURCE, f"{TSHIFT_PALLAS}:192"),
-    "temporal_shift_position_grad": (K1_SOURCE, f"{TSHIFT_PALLAS}:195"),
+    "temporal_shift_backward": (K1_SOURCE, f"{TSHIFT_PALLAS}:192"),
     "shift_gcn": (K4_SOURCE, f"{SGCN_PALLAS}:88"),
     "shift_gcn_dx": (K4_SOURCE, f"{SGCN_PALLAS}:143"),
     "shear_in": (K4_SOURCE, f"{SGCN_PALLAS}:158"),
 }
 TRAIN_CONFIG = "configs/mediapipe/train_joint.yaml"
-GY_RAW_TOL = 2e-5      # of sum|terms|: K3 vs its plain version (phases 7, 8)
+GY_RAW_TOL = 2e-5      # of sum|terms|: gy_raw vs its plain version (phases 7, 8)
 STEP_GRAD_TOL = 1e-5   # of scale: a true gradient, kernel vs plain step
 # biases that feed a train-mode BN normalizing over their broadcast axes:
 # its mean subtraction cancels them, so their exact gradient is 0 and the
@@ -101,18 +104,17 @@ ZERO_GRAD_BIASES = {"gcn1.Linear_bias": "gcn1.Linear_weight",
                     "residual.conv.bias": "residual.conv.weight"}
 TRAIN_CLIPS, VAL_CLIPS = 512, 128
 # launches per train step of the 10-unit model: each unit runs K1 twice
-# and K4 once forward; backward K2, K3 once per K1, K5 once per K4 (every
-# unit's input needs its gradient: unit 1's is data_bn's output), K6 on
-# the unit's input and on its cotangent
-PER_STEP = {"temporal_shift": 20, "temporal_shift_grad_input": 20,
-            "temporal_shift_position_grad": 20, "shift_gcn": 10,
-            "shift_gcn_dx": 10, "shear_in": 20}
+# and K4 once forward; backward the fused K2+K3 once per K1, K5 once per
+# K4 (every unit's input needs its gradient: unit 1's is data_bn's
+# output), K6 on the unit's input and on its cotangent
+PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
+            "shift_gcn": 10, "shift_gcn_dx": 10, "shear_in": 20}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
 # device kernels by the name they show in the profiler, first match wins
 PROFILE_GROUPS = (
     ("K1 temporal shift", ("tshift_kernel<",)),
-    ("K2 grad_input", ("tshift_grad_input_kernel",)),
-    ("K3 position grad", ("tshift_position_",)),
+    ("K2+K3 fused backward", ("tshift_backward_kernel",
+                              "tshift_position_final_kernel")),
     ("K4 shift_gcn", ("shift_gcn_mma_kernel<float, false",
                       "shift_gcn_mma_kernel<__nv_bfloat16, false")),
     ("K5 dx", ("shift_gcn_mma_kernel<float, true",
@@ -341,14 +343,17 @@ def shift_conv_library(x: torch.Tensor, ypos: torch.Tensor, stride: int):
 
 @contextmanager
 def plain_path(keep=()):
-    """Route the six raw kernel launchers (forward and backward) to their
-    plain versions, but those named in ``keep``; the autograd Functions
-    around them stay."""
+    """Route the raw kernel launchers (forward and backward, the fused
+    temporal-shift backward and its one-output forms) to their plain
+    versions, but those named in ``keep``; the autograd Functions around
+    them stay."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
     from shift_gcn_torch.ops import temporal_shift as ts
 
     swaps = ((ts, "temporal_shift_forward", ts.temporal_shift_reference),
+             (ts, "temporal_shift_backward",
+              ts.temporal_shift_backward_reference),
              (ts, "temporal_shift_grad_input",
               ts.temporal_shift_grad_input_reference),
              (ts, "temporal_shift_position_grad",
@@ -422,7 +427,8 @@ def profile_call(fn, label: str, card: str, top: int = 10):
 
 
 def train_shapes(config, t: int):
-    """Per launch of one train step: K2/K3 (t_in, c, stride) as K1's;
+    """Per launch of one train step: the fused K2+K3 (t_in, c, stride) as
+    K1's;
     K5 (t, c, d) as K4's; K6 (t, channels) on each unit's input and on
     its cotangent."""
     k1, k4 = forward_shapes(config, t)
@@ -430,19 +436,13 @@ def train_shapes(config, t: int):
     return k1, k4, k6
 
 
-def k2_cost_ms(n, t_in, c, stride, itemsize=4):
-    """K2: read the cotangent, write grad_input; 3 flops per output."""
-    out = n * t_in * V * c
-    moved = (n * (t_in // stride) * V * c + out) * itemsize + c * 4
-    return moved / HBM_BYTES_PER_S * 1e3, 3.0 * out / FP32_SIMT_FLOPS * 1e3
-
-
-def k3_cost_ms(n, t_in, c, stride, itemsize=4):
-    """K3: read x and the cotangent, write C floats; 3 flops per
-    cotangent element."""
-    g = n * (t_in // stride) * V * c
-    moved = (n * t_in * V * c + g) * itemsize + 2 * c * 4
-    return moved / HBM_BYTES_PER_S * 1e3, 3.0 * g / FP32_SIMT_FLOPS * 1e3
+def k23_cost_ms(n, t_in, c, stride, itemsize=4):
+    """The fused K2+K3: read x and the cotangent, write grad_input and C
+    floats; 6 flops per input element (1 - f, two products and a sum for
+    dx; b - a and a multiply-add for gy_raw)."""
+    x = n * t_in * V * c
+    moved = (2 * x + n * (t_in // stride) * V * c) * itemsize + 2 * c * 4
+    return moved / HBM_BYTES_PER_S * 1e3, 6.0 * x / FP32_SIMT_FLOPS * 1e3
 
 
 def k6_cost_ms(r, c, in_size=4):
@@ -505,64 +505,101 @@ def depthwise_taps(ypos, stride: int, dtype):
     return w.to(dtype).view(c, 1, 2 * radius + 1, 1), radius
 
 
+def check_fused_backward(x, g, ypos, stride: int, label: str):
+    """The fused K2+K3 vs its plain version on one input: dx at 1e-6 (fp32)
+    or 2^-8 (bf16) of scale, gy_raw within GY_RAW_TOL of the sum of its
+    |terms|, the ypos steps equal on every channel clear of that bound;
+    a second launch bit-equal, and the one-output launchers bit-equal to
+    the fused one.  Returns (dx max|err|, gy_raw max|err|, channels at a
+    tie)."""
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    t = x.shape[1]
+    dx, raw = ts.temporal_shift_backward(x, g, ypos, stride)
+    dx2, raw2 = ts.temporal_shift_backward(x, g, ypos, stride)
+    dx_only = ts.temporal_shift_grad_input(g, ypos, stride, t)
+    raw_only = ts.temporal_shift_position_grad(x, g, ypos, stride)
+    want_dx, raw_ref = ts.temporal_shift_backward_reference(
+        x, g, ypos, stride)
+    torch.cuda.synchronize()
+    err, scale = max_err(dx, want_dx)
+    # fp32: identical rounding steps; bf16: one bf16 rounding
+    tol = (1e-6 if x.dtype == torch.float32 else 2 ** -8) * scale
+    if not err <= tol:
+        fail(f"K2+K3 {label}: dx max|err| {err:.3g} > {tol:.3g}")
+    # the same fp32 terms summed in another order (over input frames,
+    # x[k] * (b - a)): the error is bounded by a few ulps of the sum of
+    # |terms| (fp32 eps 6e-8 times the ~log depth of either order);
+    # GY_RAW_TOL leaves margin
+    _, x0, x1 = ts._source_frames(x, ypos, stride)
+    abs_sum = ((x1 - x0).abs() * g.float().abs()).mean(0).sum((0, 1))
+    bound = GY_RAW_TOL * abs_sum
+    diff = (raw - raw_ref).abs()
+    if not bool((diff <= bound).all()):
+        fail(f"K2+K3 {label}: gy_raw off by "
+             f"{float((diff / bound).max()):.3g} x its bound")
+    clear = raw_ref.abs() > bound
+    steps = ts.constraint_step(raw) == ts.constraint_step(raw_ref)
+    if not bool(steps[clear].all()):
+        fail(f"K2+K3 {label}: a ypos step differs on a channel clear of a "
+             "tie")
+    if not (torch.equal(raw, raw2) and torch.equal(dx, dx2)):
+        fail(f"K2+K3 {label}: two launches on one input differ")
+    if not (torch.equal(dx, dx_only) and torch.equal(raw, raw_only)):
+        fail(f"K2+K3 {label}: a one-output launch differs from the fused "
+             "one")
+    return err, float(diff.max()), int((~clear).sum())
+
+
 def check_backward_kernels(config, gen, rng, dev):
     """Phase 7: each backward kernel vs its plain version at every launch
-    shape of one train step, fp32 and bf16.  Returns the fp32 max |err|
-    per kernel."""
+    shape of one train step, fp32 and bf16; the fused K2+K3 also with
+    shifts far outside its staged window, with 1-element lanes and at
+    V=144 (K4's largest), where fewer frames fit in shared memory.
+    Returns the fp32 max |err| per kernel (the fused one's over dx and
+    gy_raw)."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
-    from shift_gcn_torch.ops import temporal_shift as ts
 
     k1_shapes, k4_shapes, k6_shapes = train_shapes(config, T_WINDOW)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
-        worst = {"temporal_shift_grad_input": 0.0,
-                 "temporal_shift_position_grad": 0.0, "shift_gcn_dx": 0.0,
+        worst = {"temporal_shift_backward": 0.0, "shift_gcn_dx": 0.0,
                  "shear_in": 0.0}
+        gy_worst = 0.0
         ties = channels = 0
-        for t, c, stride in sorted(set(k1_shapes)):
-            x = torch.randn(N_WINDOWS, t, V, c, generator=gen,
+        cases = [(shape, "U(-1, 1)") for shape in sorted(set(k1_shapes))]
+        # shifts the staged window cannot hold: lo at +-20 and a spread of
+        # 14 frames across the slab, at stride 1 and 2
+        far = [max(sh for sh in k1_shapes if sh[2] == st) for st in (1, 2)]
+        cases += [(shape, "far") for shape in far]
+        # C not a multiple of 4 and an odd T: the 1-element-lane path
+        odd = (T_WINDOW // 4, 130, 2)
+        cases.append((odd, "C=130"))
+        wide_v = [(T_WINDOW // 4, 128, st) for st in (1, 2)]
+        cases += [(shape, "V=144") for shape in wide_v]
+        for (t, c, stride), kind in cases:
+            v = 144 if kind == "V=144" else V
+            x = torch.randn(N_WINDOWS, t, v, c, generator=gen,
                             device=dev).to(dtype)
-            g = torch.randn(N_WINDOWS, t // stride, V, c, generator=gen,
+            g = torch.randn(N_WINDOWS, t // stride, v, c, generator=gen,
                             device=dev).to(dtype)
-            y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
-            y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near +-(8-1)
+            if kind in ("far", "V=144"):
+                y = rng.uniform(-7.0, 7.0, c).astype(np.float32)
+                y[:4] = (20.3, -20.3, 7.4, -7.4)
+            else:
+                y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
+                y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near +-(8-1)
             ypos = torch.from_numpy(y).to(dev)
-            got = ts.temporal_shift_grad_input(g, ypos, stride, t)
-            want = ts.temporal_shift_grad_input_reference(g, ypos, stride, t)
-            err, scale = max_err(got, want)
-            # fp32: identical rounding steps; bf16: one bf16 rounding
-            tol = (1e-6 if dtype == torch.float32 else 2 ** -8) * scale
-            if not err <= tol:
-                fail(f"K2 {name} T={t} C={c} s={stride}: max|err| "
-                     f"{err:.3g} > {tol:.3g}")
-            worst["temporal_shift_grad_input"] = max(
-                worst["temporal_shift_grad_input"], err)
-
-            raw = ts.temporal_shift_position_grad(x, g, ypos, stride)
-            raw_ref = ts.temporal_shift_position_grad_reference(
-                x, g, ypos, stride)
-            # the same fp32 terms summed in another order: the error is
-            # bounded by a few ulps of the sum of |terms| (fp32 eps 6e-8
-            # times the ~log depth of either order); GY_RAW_TOL leaves margin
-            _, x0, x1 = ts._source_frames(x, ypos, stride)
-            abs_sum = ((x1 - x0).abs() * g.float().abs()).mean(0).sum((0, 1))
-            bound = GY_RAW_TOL * abs_sum
-            diff = (raw - raw_ref).abs()
-            if not bool((diff <= bound).all()):
-                fail(f"K3 {name} T={t} C={c} s={stride}: gy_raw off by "
-                     f"{float((diff / bound).max()):.3g} x its bound")
-            clear = raw_ref.abs() > bound
-            steps = ts.constraint_step(raw) == ts.constraint_step(raw_ref)
-            if not bool(steps[clear].all()):
-                fail(f"K3 {name}: a ypos step differs on a channel clear "
-                     "of a tie")
-            ties += int((~clear).sum())
+            err, gy_err, tie = check_fused_backward(
+                x, g, ypos, stride, f"{name} T={t} C={c} s={stride} {kind}")
+            worst["temporal_shift_backward"] = max(
+                worst["temporal_shift_backward"], err)
+            gy_worst = max(gy_worst, gy_err)
+            ties += tie
             channels += c
-            worst["temporal_shift_position_grad"] = max(
-                worst["temporal_shift_position_grad"], float(diff.max()))
-            del x, g, got, want, x0, x1
+            del x, g
         for t, c, d in sorted(set(k4_shapes)):
             r = N_WINDOWS * t
             g = torch.randn(r, V, d, generator=gen, device=dev).to(dtype)
@@ -586,17 +623,23 @@ def check_backward_kernels(config, gen, rng, dev):
             if err != 0.0:
                 fail(f"K6 {name} T={t} C={c}: max|err| {err:.3g} != 0")
         torch.cuda.synchronize()
-        print(f"[k2k3] {name}: {len(set(k1_shapes))} train shapes (T, C, s) "
-              f"{sorted(set(k1_shapes))}: K2 max|err| "
-              f"{worst['temporal_shift_grad_input']:.3g}, K3 max|gy_raw err| "
-              f"{worst['temporal_shift_position_grad']:.3g} (bound {GY_RAW_TOL:g} of "
-              f"sum|terms|), ypos channels at a tie {ties} of {channels}")
+        print(f"[k2k3] {name}: fused backward at {len(set(k1_shapes))} train "
+              f"shapes (T, C, s) {sorted(set(k1_shapes))}, at {far} with "
+              f"far shifts, at {odd} and at {wide_v} with V=144: dx "
+              f"max|err| "
+              f"{worst['temporal_shift_backward']:.3g}, max|gy_raw err| "
+              f"{gy_worst:.3g} (bound {GY_RAW_TOL:g} of sum|terms|), ypos "
+              f"channels at a tie {ties} of {channels}; gy_raw and dx "
+              "bit-equal across two launches and to the one-output "
+              "launches")
         print(f"[k5k6] {name}: K5 at {len(set(k4_shapes))} shapes (T, C, D) "
               f"{sorted(set(k4_shapes))} max|err| "
               f"{worst['shift_gcn_dx']:.3g}; K6 at {len(set(k6_shapes))} "
               "shapes, exact")
         if dtype == torch.float32:
-            errs = worst
+            # the fused kernel's row: the larger of its two outputs' errors
+            errs = dict(worst, temporal_shift_backward=max(
+                worst["temporal_shift_backward"], gy_worst))
         torch.cuda.empty_cache()
     return errs
 
@@ -626,21 +669,21 @@ def check_train_step(config, rng, dev, seed: int):
 
     def run():
         raws = []
-        inner = ts.temporal_shift_position_grad
+        inner = ts.temporal_shift_backward
 
         def recorded(x_, g_, ypos_, stride_):
-            out = inner(x_, g_, ypos_, stride_)
+            dx, out = inner(x_, g_, ypos_, stride_)
             # gy_raw and the sum of |terms| its rounding scales with
             _, x0, x1 = ts._source_frames(x_, ypos_, stride_)
             raws.append((out.clone(), ((x1 - x0).abs() * g_.float().abs())
                          .mean(0).sum((0, 1))))
-            return out
+            return dx, out
 
         model.load_state_dict(start)
         model.train()
         model.zero_grad(set_to_none=True)
-        with mock.patch.object(ts, "temporal_shift_position_grad",
-                               recorded):
+        # the Function gets gy_raw from the fused backward
+        with mock.patch.object(ts, "temporal_shift_backward", recorded):
             loss = cross_entropy(model(x), y)
             loss.backward()
         torch.cuda.synchronize()
@@ -850,11 +893,13 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
     from shift_gcn_torch.ops import temporal_shift as ts
 
     k1_shapes, k4_shapes, k6_shapes = train_shapes(config, T_WINDOW)
-    totals = {k: [0.0] * 6 for k in ("temporal_shift_grad_input",
-                                     "temporal_shift_position_grad",
+    totals = {k: [0.0] * 6 for k in ("temporal_shift_backward",
                                      "shift_gcn_dx", "shear_in")}
     bf16 = dict.fromkeys(totals, 0.0)
     k5_extra = {"simt": 0.0, "bound_bf16": 0.0}
+    # the fused K2+K3: bf16 bound; fp32 and bf16 times at ypos U(-7, 7)
+    k23_extra = {"bound_bf16": 0.0, "wide": 0.0, "wide_bf16": 0.0}
+    k6_bound_bf16 = 0.0
 
     def add(kernel, count, ms, plain, lib, cost, ms_bf16):
         for i, val in enumerate((ms, plain, max(cost), lib) + cost):
@@ -869,6 +914,8 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
         xb, gb = x.bfloat16(), g.bfloat16()
         ypos = torch.from_numpy(
             rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+        wide = torch.from_numpy(
+            rng.uniform(-7, 7, c).astype(np.float32)).to(dev)
         lib2 = shift_conv_transpose_library(g, ypos, stride, t)
         lib3 = position_grad_library(x, g, ypos, stride)
         err2, _ = max_err(lib2(), ts.temporal_shift_grad_input_reference(
@@ -878,21 +925,19 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
         if not (err2 <= 1e-5 and err3 <= 1e-4 * scale3):
             fail(f"K2/K3 library yardsticks disagree ({err2:.3g}, "
                  f"{err3:.3g})")
-        add("temporal_shift_grad_input", count,
-            time_ms(lambda: ts.temporal_shift_grad_input(g, ypos, stride, t)),
-            time_ms(lambda: ts.temporal_shift_grad_input_reference(
-                g, ypos, stride, t)), time_ms(lib2),
-            k2_cost_ms(N_WINDOWS, t, c, stride),
-            time_ms(lambda: ts.temporal_shift_grad_input(
-                gb, ypos, stride, t)))
-        add("temporal_shift_position_grad", count,
-            time_ms(lambda: ts.temporal_shift_position_grad(
-                x, g, ypos, stride)),
-            time_ms(lambda: ts.temporal_shift_position_grad_reference(
-                x, g, ypos, stride)), time_ms(lib3),
-            k3_cost_ms(N_WINDOWS, t, c, stride),
-            time_ms(lambda: ts.temporal_shift_position_grad(
+        add("temporal_shift_backward", count,
+            time_ms(lambda: ts.temporal_shift_backward(x, g, ypos, stride)),
+            time_ms(lambda: ts.temporal_shift_backward_reference(
+                x, g, ypos, stride)), time_ms(lib2) + time_ms(lib3),
+            k23_cost_ms(N_WINDOWS, t, c, stride),
+            time_ms(lambda: ts.temporal_shift_backward(
                 xb, gb, ypos, stride)))
+        k23_extra["bound_bf16"] += count * max(
+            k23_cost_ms(N_WINDOWS, t, c, stride, itemsize=2))
+        k23_extra["wide"] += count * time_ms(
+            lambda: ts.temporal_shift_backward(x, g, wide, stride))
+        k23_extra["wide_bf16"] += count * time_ms(
+            lambda: ts.temporal_shift_backward(xb, gb, wide, stride))
         del x, g, xb, gb
     for t, c, d in sorted(set(k4_shapes)):
         count = k4_shapes.count((t, c, d))
@@ -940,16 +985,22 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
             time_ms(lambda: ss.shear_in_reference(x)),
             time_ms(library), k6_cost_ms(r, c),
             time_ms(lambda: sk.shear_in(xb)))
+        k6_bound_bf16 += count * max(k6_cost_ms(r, c, in_size=2))
         del x, xb
     torch.cuda.empty_cache()
-    per_step = {"temporal_shift_grad_input": len(k1_shapes),
-                "temporal_shift_position_grad": len(k1_shapes),
+    per_step = {"temporal_shift_backward": len(k1_shapes),
                 "shift_gcn_dx": len(k4_shapes), "shear_in": len(k6_shapes)}
+    extras = {
+        "temporal_shift_backward":
+            f", at bf16 I/O {k23_extra['bound_bf16']:.4f}; at ypos "
+            f"U(-7, 7) {k23_extra['wide']:.4f} fp32, "
+            f"{k23_extra['wide_bf16']:.4f} bf16",
+        "shift_gcn_dx": f", at bf16 I/O {k5_extra['bound_bf16']:.4f}, "
+                        f"fp32 SIMT {k5_extra['simt']:.4f}",
+        "shear_in": f", at bf16 input {k6_bound_bf16:.4f}"}
     for kernel, (ms, plain, bound, lib, bytes_ms, ops_ms) in totals.items():
         by = "operations" if ops_ms > bytes_ms else "bytes"
-        extra = "" if kernel != "shift_gcn_dx" else (
-            f", at bf16 I/O {k5_extra['bound_bf16']:.4f}, fp32 SIMT "
-            f"{k5_extra['simt']:.4f}")
+        extra = extras[kernel]
         print(f"[time] {kernel} per train step ({per_step[kernel]} launches, "
               f"{N_WINDOWS} clips x T={T_WINDOW}): {ms:.4f} ms fp32, "
               f"{bf16[kernel]:.4f} ms bf16 (bound {bound:.4f} by {by}"
@@ -1285,9 +1336,10 @@ def main() -> None:
     print("[note] kernel ms / plain_ms / bound_ms / library_ms, fp32: "
           "temporal_shift and shift_gcn per stream forward at "
           f"{N_WINDOWS} windows x T={T_WINDOW}, launches from the serving "
-          "run; the four backward kernels per train step at "
-          f"{N_WINDOWS} clips x T={T_WINDOW}, launches from the Trainer "
-          "run; summary: phases 6, 8, 9 and 10")
+          "run; the three backward kernels (the fused K2+K3, K5, K6) per "
+          f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
+          "the Trainer run, the fused kernel's library_ms the sum of two "
+          "calls; summary: phases 6, 8, 9 and 10")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -1298,7 +1350,7 @@ def main() -> None:
           f"{epoch['clips_per_sec']:.1f} clips/s, feeder "
           f"{100 * epoch['dataloader_share']:.1f}%; bf16 K1,K4 "
           f"{fwd_bf16['temporal_shift'][0]:.4g} "
-          f"{fwd_bf16['shift_gcn'][0]:.4g}, K2,K3,K5,K6 "
+          f"{fwd_bf16['shift_gcn'][0]:.4g}, K2+K3,K5,K6 "
           + " ".join(f"{train_bf16[k]:.4g}" for k in train_totals)
           + f"; grads {grad_gap:.2g}, gy_raw {gy_ratio:.2g}")
     print(card)

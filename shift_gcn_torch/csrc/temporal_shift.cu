@@ -1,11 +1,12 @@
 // Fractional temporal shift: forward (K1) and its constraint backward
-// (K2 grad_input, K3 position grad).
+// (K2 grad_input and K3 position grad, fused into one pass).
 //
 // Replaces the Pallas TPU kernel of the reference package,
 // ops/pallas/temporal_shift_kernel.py::_tshift_kernel, in its three uses:
 // hat mode through temporal_shift_pallas / _fwd (K1), hat mode on the
-// zero-dilated cotangent with negated positions from _bwd (K2), and diff
-// mode plus the fp32 reduction from _bwd (K3).  Per channel c:
+// zero-dilated cotangent with negated positions from _bwd :192-193 (K2),
+// and diff mode plus the fp32 reduction from _bwd :195-197 (K3).  Per
+// channel c:
 //
 //   y      = ypos[c] + (stride != 1 ? 0.5 : 0)
 //   lo     = floor(y),  f = y - lo
@@ -14,33 +15,72 @@
 //
 // with reads outside [0, T_in) taken as zero.
 //
-// All three are bound by memory on the H100: a few flops per element
+// Both kernels are bound by memory on the H100: a few flops per element
 // against one read of each input and one write of each output, so the
-// floor is the bytes over 3.35 TB/s.  Designs:
+// floor is the bytes over 3.35 TB/s.
 //
 // K1  A block owns one output frame row (n, t) and its threads walk the
 //     V*C elements of that row: stores fully coalesced, loads coalesced
 //     within each group of channels that share a source frame.  The
 //     Pallas version zero-padded T and summed 2*max_shift+2 taps; here
 //     each output reads its two source frames directly.
-// K2  The exact transpose of K1, one thread per input element with the
-//     same row walk: input frame t gathers (1 - f) * g[(t - lo) / s] and
-//     f * g[(t - lo - 1) / s], each only where the offset is a
-//     non-negative multiple of s below T_out * s (the stride-2 evenness
-//     rule).  The Pallas version built the zero-dilated cotangent in
-//     memory and ran the forward with -y; nothing is dilated here.
-// K3  gy_raw[c] = sum_{t,v} mean_n (x[t*s+lo+1] - x[t*s+lo]) * g[t] in
-//     fp32, in a fixed order with no floating-point atomics: the sign of
-//     gy_raw at a tie sits at roundoff scale, so a run-to-run order would
-//     make training nondeterministic.  Pass 1: a block owns a chunk of
-//     (n, t, v) rows and 32 channels (one warp's coalesced 32 channels x
-//     8 row lanes), each lane sums its rows in order, the 8 lanes are
-//     summed in order into one scratch row of per-chunk partials.  Pass
-//     2: per channel, 8 lanes sum the chunk partials in order, then the
-//     lanes in order, divided by N.
 //
-// Math is fp32, I/O fp32 or bf16.  In K1 and K2 products and the sum are
-// rounded separately (__fmul_rn/__fadd_rn) so the result equals the
+// Backward (tshift_backward_kernel).  Input frame k of channel c gathers
+// two cotangent taps, a = g[(k - lo) / s] and b = g[(k - lo - 1) / s],
+// each zero unless its offset is a non-negative multiple of s below
+// T_out * s (the stride-2 evenness rule):
+//   K2  dx[k] = (1 - f) a + f b, the exact transpose of K1.  The Pallas
+//       version built the zero-dilated cotangent in memory and ran the
+//       forward with -y; nothing is dilated here.
+//   K3  gy_raw[c] = (1/N) sum_{n,t,v} (x[t*s+lo+1] - x[t*s+lo]) g[t]
+//                 = (1/N) sum_{n,k,v} x[k] (b - a),
+//       the same sum re-indexed over input frames: an x frame outside
+//       [0, T_in) is zero in the first form and never a k in the second,
+//       a tap outside [0, T_out) is zero in both.  So one lane that holds
+//       x[k], a and b produces both outputs, and x and g are read once.
+//       The input-frame order is used because it is the order in which
+//       the lane already holds its operands.
+// The sum is fp32 in a fixed order, with no floating-point atomics: the
+// sign of gy_raw at a tie sits at roundoff scale, so a run-to-run order
+// would make training nondeterministic.  Each block sums its tile's
+// (frames x V) terms per channel (each lane over its joints in order,
+// then the lanes in order) into one row of a scratch matrix; a final pass
+// sums the rows in block order and divides by N.
+//
+// What the design does about the bytes bound (the two kernels it replaces
+// ran slower in bf16 than in fp32, bound by instructions and scattered
+// 2-byte accesses):
+// - Template on the dtype, the stride (1, 2; "% s" and "/ s" compile to
+//   a mask and a shift) and on which outputs are wanted (dx, gy_raw or
+//   both), so the dx-only and gy-only launchers run the same code.
+// - A block owns a tile, not a row: clip n, a slab of channels that is
+//   one 128-byte row (32 fp32 or 64 bf16: no lane idles at C = 64, 128,
+//   256), all V joints, and a run of input frames (16 in fp32, 8 in
+//   bf16).  Its 384 lanes are (4-channel vector, frame, joint group of
+//   3): a lane computes its channels' taps once and walks its 11 joints
+//   (V=33) with plain increments, 4 joints in flight; x and dx move as
+//   16-byte (fp32) or 8-byte (bf16) vectors.  No floating-point atomics.
+// - A vector's channels take their taps from different frames, so g
+//   cannot be gathered as vectors: the frames the tile reads (the run
+//   plus a halo, from the slab's range of lo, at most run/s + 8) are
+//   staged into shared memory as they lie with cp.async, with a zero frame
+//   after them for taps outside [0, T_out) or of the wrong parity, and
+//   each lane reads its channels' taps from there without a branch.  A
+//   lane with a tap outside the staged window takes a second copy of the
+//   walk that reads such taps from device memory: correct at any ypos,
+//   only slower.  Shared memory at V=33: 106 KB (fp32, stride 1; two
+//   blocks an SM), 72 KB (bf16, stride 1; three).  Where V is so large
+//   that run/s + 8 frames do not fit in a block's shared memory, fewer
+//   are staged and more taps take the device-memory walk.
+// - C not a multiple of 4, or unaligned tensors: the same template with
+//   1-element lanes and 8-channel slabs.
+// The choices were timed against 8-element bf16 lanes, other unroll
+// depths, a 4-frame halo and prefetching the next joint's x (root PERF.md).
+// On an H100 SXM at 700 W the pass runs at 70% of its bytes bound in fp32
+// and 61% in bf16 at the training shapes (chip_smoke.py phase 10).
+//
+// Math is fp32, I/O fp32 or bf16.  In K1 and dx the products and the sum
+// are rounded separately (__fmul_rn/__fadd_rn) so the result equals the
 // plain PyTorch version bit for bit in fp32.
 
 #include <cuda_bf16.h>
@@ -58,9 +98,8 @@ __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-constexpr int kThreads = 256;
-constexpr int kLaneCh = 32;               // K3: channels per block
-constexpr int kLaneRows = kThreads / kLaneCh;  // K3: row lanes per block
+constexpr int kThreads = 256;  // K1
+constexpr int kLaneCh = 32;    // final pass of gy_raw: channels per block
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -90,93 +129,300 @@ tshift_kernel(const T* __restrict__ x, const float* __restrict__ ypos,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Backward: K2 (grad_input) and K3's partial sums in one pass
+// ---------------------------------------------------------------------------
+
+constexpr int kGroups = 3;      // joint groups (11 joints a lane at V=33)
+constexpr int kBwdThreads = 384;
+constexpr int kVec = 4;         // elements a lane moves: 16 B fp32, 8 B bf16
+constexpr int kHalo = 8;        // staged cotangent frames beyond kRun / S
+constexpr int kPadBytes = 32;   // after each staged frame; keeps rows aligned
+constexpr int kMinRun = 8;      // the shortest run of any tile shape
+constexpr int kUnroll = 4;      // joints a lane has in flight
+constexpr int kFinalRows = 32;  // final pass: row lanes per channel
+constexpr int kStaticBytes = 1024;  // the tile kernel's static shared memory
+
+// A tile's shape for I/O type T and VEC elements a lane: kCv lanes across a
+// slab of CS channels, kRun input frames, kGroups joint groups; 384 lanes.
+// At VEC = 4 a slab row is 128 bytes: fp32 8 lanes x 16 frames, bf16 16
+// lanes x 8 frames.  At VEC = 1 (C not a multiple of 4, or unaligned
+// tensors): 8 lanes x 16 frames.
+template <typename T, int VEC>
+struct Tile {
+  static constexpr int kCv =
+      VEC == 1 ? 8 : 128 / (VEC * static_cast<int>(sizeof(T)));
+  static constexpr int kRun = kBwdThreads / (kCv * kGroups);
+  static constexpr int CS = kCv * VEC;
+};
+// temporal_shift_backward_rows sizes the scratch by the shortest run
+static_assert(Tile<__nv_bfloat16, kVec>::kRun == kMinRun &&
+                  Tile<float, kVec>::kRun >= kMinRun &&
+                  Tile<float, 1>::kRun >= kMinRun &&
+                  Tile<__nv_bfloat16, 1>::kRun >= kMinRun,
+              "kMinRun is the shortest run of any tile shape");
+
+__device__ __forceinline__ void load_vec(const float* p, float (&o)[4]) {
+  const float4 t = __ldcs(reinterpret_cast<const float4*>(p));
+  o[0] = t.x;
+  o[1] = t.y;
+  o[2] = t.z;
+  o[3] = t.w;
+}
+// bf16 -> fp32 is exact: the bf16 bits are the high half of the fp32 bits
+__device__ __forceinline__ void unpack_bf16(uint32_t w, float& lo,
+                                            float& hi) {
+  lo = __uint_as_float(w << 16);
+  hi = __uint_as_float(w & 0xffff0000u);
+}
+__device__ __forceinline__ void load_vec(const __nv_bfloat16* p,
+                                         float (&o)[4]) {
+  const uint2 t = __ldcs(reinterpret_cast<const uint2*>(p));
+  unpack_bf16(t.x, o[0], o[1]);
+  unpack_bf16(t.y, o[2], o[3]);
+}
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tshift_grad_input_kernel(const T* __restrict__ g,
-                         const float* __restrict__ ypos, T* __restrict__ out,
-                         int t_in, int t_out, int vc, int c, int stride,
-                         float offset) {
-  const int row = blockIdx.x;  // n * t_in + t
-  const int n = row / t_in;
-  const int t = row - n * t_in;
-  const T* gn = g + static_cast<int64_t>(n) * t_out * vc;
-  T* orow = out + static_cast<int64_t>(row) * vc;
-  const int k_end = t_out * stride;
-  for (int e = threadIdx.x; e < vc; e += kThreads) {
-    const int ch = e % c;
-    const float y = ypos[ch] + offset;
-    const float lo_f = floorf(y);
-    const float f = y - lo_f;
-    const int k0 = t - static_cast<int>(lo_f);  // reads output frame k0/s
-    const int k1 = k0 - 1;
-    const float a = (k0 >= 0 && k0 < k_end && k0 % stride == 0)
-                        ? load_f(gn + static_cast<int64_t>(k0 / stride) * vc + e)
-                        : 0.0f;
-    const float b = (k1 >= 0 && k1 < k_end && k1 % stride == 0)
-                        ? load_f(gn + static_cast<int64_t>(k1 / stride) * vc + e)
-                        : 0.0f;
-    store_f(orow + e, __fadd_rn(__fmul_rn(1.0f - f, a), __fmul_rn(f, b)));
+__device__ __forceinline__ void load_vec(const T* p, float (&o)[1]) {
+  o[0] = load_f(p);
+}
+__device__ __forceinline__ void store_vec(float* p, const float (&o)[4]) {
+  __stcs(reinterpret_cast<float4*>(p), make_float4(o[0], o[1], o[2], o[3]));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(lo))) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(__float2bfloat16_rn(hi)))
+          << 16);
+}
+__device__ __forceinline__ void store_vec(__nv_bfloat16* p,
+                                          const float (&o)[4]) {
+  __stcs(reinterpret_cast<uint2*>(p),
+         make_uint2(pack_bf16(o[0], o[1]), pack_bf16(o[2], o[3])));
+}
+template <typename T>
+__device__ __forceinline__ void store_vec(T* p, const float (&o)[1]) {
+  store_f(p, o[0]);
+}
+
+// one vector of VEC elements from device memory into shared memory:
+// cp.async of 16 (fp32) or 8 (bf16) bytes, or a plain copy of one element
+template <int VEC, typename T>
+__device__ __forceinline__ void stage_vec(T* dst, const T* src) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  if constexpr (VEC * sizeof(T) == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d),
+                 "l"(src));
+  } else if constexpr (VEC * sizeof(T) == 8) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(d),
+                 "l"(src));
+  } else {
+    *dst = *src;
   }
 }
 
-// pass 1: partial[chunk, c] = sum over the chunk's (n, t, v) rows of
-// (x[t*s+lo+1] - x[t*s+lo]) * g, lanes in order
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-tshift_position_partial_kernel(const T* __restrict__ x,
-                               const T* __restrict__ g,
-                               const float* __restrict__ ypos,
-                               float* __restrict__ partial, int t_in,
-                               int t_out, int v, int c, int stride,
-                               float offset, int rows, int rows_per_chunk) {
-  __shared__ float lanes[kLaneRows][kLaneCh];
-  const int ch = blockIdx.y * kLaneCh + threadIdx.x;
-  const int chunk = blockIdx.x;
-  const int r_begin = chunk * rows_per_chunk;
-  const int r_end = min(rows, r_begin + rows_per_chunk);
-  float acc = 0.0f;
-  if (ch < c) {
-    const int lo = static_cast<int>(floorf(ypos[ch] + offset));
-    for (int r = r_begin + threadIdx.y; r < r_end; r += kLaneRows) {
-      const int j = r % v;         // r = (n * t_out + t) * v + j
-      const int nt = r / v;
-      const int n = nt / t_out;
-      const int t = nt - n * t_out;
-      const int t0 = t * stride + lo;
-      const int t1 = t0 + 1;
-      const int64_t base = static_cast<int64_t>(n) * t_in;
-      const float x0 =
-          (t0 >= 0 && t0 < t_in)
-              ? load_f(x + ((base + t0) * v + j) * static_cast<int64_t>(c) + ch)
-              : 0.0f;
-      const float x1 =
-          (t1 >= 0 && t1 < t_in)
-              ? load_f(x + ((base + t1) * v + j) * static_cast<int64_t>(c) + ch)
-              : 0.0f;
-      const float gv = load_f(g + static_cast<int64_t>(r) * c + ch);
-      acc = fmaf(x1 - x0, gv, acc);
+template <int S>
+__device__ __forceinline__ int floor_div(int a) {
+  return S == 1 ? a : (a >> 1);  // arithmetic shift: floor for a < 0 too
+}
+
+// Where a lane reads the tap of cotangent offset kk (= output frame kk / S
+// where that is whole): a staged element at joint 0, or the zero frame
+// staged after the window (zero outside [0, T_out * S) and, at stride 2,
+// at odd kk), both >= 0; or, for a frame outside the staged window,
+// -1 - frame (read from device memory).
+template <int S>
+__device__ __forceinline__ int tap_offset(int kk, int t_out, int w0, int nq,
+                                          int zero, int fs, int slot) {
+  if (kk < 0 || kk >= t_out * S || kk % S != 0) return zero + slot;
+  const int q = kk / S;
+  return (q >= w0 && q - w0 < nq) ? (q - w0) * fs + slot : -1 - q;
+}
+
+// The lane's joint walk: dx[k] = (1 - f) a + f b, and the gy_raw terms
+// x[k] * (b - a) summed per channel in joint order.  kSpill: some tap lies
+// outside the staged window and is read from device memory.
+template <typename T, int VEC, bool DX, bool GY, bool kSpill>
+__device__ __forceinline__ void walk_joints(
+    const T* __restrict__ x, const T* __restrict__ win,
+    const T* __restrict__ gn, T* __restrict__ dx, const int (&oa)[VEC],
+    const int (&ob)[VEC], const float (&frac)[VEC], float (&acc)[VEC],
+    int64_t row, int ch, int j_begin, int j_end, int cs, int v, int c) {
+  auto tap = [&](int o, int j, int i) -> float {
+    if (!kSpill || o >= 0) return load_f(win + o + j * cs);
+    return load_f(gn + i + (static_cast<int64_t>(-1 - o) * v + j) * c);
+  };
+#pragma unroll kUnroll
+  for (int j = j_begin; j < j_end; ++j) {
+    const int64_t e = (row + j) * c + ch;
+    float xv[VEC];
+    if constexpr (GY) load_vec(x + e, xv);
+    float a[VEC], b[VEC];
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      a[i] = tap(oa[i], j, i);
+      b[i] = tap(ob[i], j, i);
+    }
+    if constexpr (DX) {
+      float d[VEC];
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) {
+        d[i] = __fadd_rn(__fmul_rn(1.0f - frac[i], a[i]),
+                         __fmul_rn(frac[i], b[i]));
+      }
+      store_vec(dx + e, d);
+    }
+    if constexpr (GY) {
+#pragma unroll
+      for (int i = 0; i < VEC; ++i) acc[i] = fmaf(xv[i], b[i] - a[i], acc[i]);
     }
   }
-  lanes[threadIdx.y][threadIdx.x] = acc;
+}
+
+// Block: clip n, input frames [k0, k0 + kRun), channels [c0, c0 + CS),
+// all V joints.  Lane (cv, f, jg) owns the VEC channels c0 + cv*VEC.., the
+// input frame k0 + f and the joints of group jg: its taps' frames are fixed
+// per channel, so the index math is done once and the joint walk is plain
+// increments.
+template <typename T, int S, int VEC, bool DX, bool GY>
+__global__ void __launch_bounds__(kBwdThreads, 2)
+tshift_backward_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                       const float* __restrict__ ypos, T* __restrict__ dx,
+                       float* __restrict__ partial, int t_in, int t_out,
+                       int v, int c, int runs, int w, float offset) {
+  using Shape = Tile<T, VEC>;
+  constexpr int kCv = Shape::kCv;
+  constexpr int kRun = Shape::kRun;
+  constexpr int CS = Shape::CS;
+  constexpr int PAD = kPadBytes / static_cast<int>(sizeof(T));
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* win = reinterpret_cast<T*>(smem);  // [w + 1][V * CS + PAD], frame w 0
+  __shared__ int lo_s[CS];
+  __shared__ float frac_s[CS];
+  __shared__ int range_s[2];
+
+  const int tid = threadIdx.x;
+  const int cv = tid % kCv;
+  const int f = (tid / kCv) % kRun;
+  const int jg = tid / (kCv * kRun);
+  const int tile = blockIdx.x;  // n * runs + run
+  const int n = tile / runs;
+  const int k0 = (tile - n * runs) * kRun;
+  const int c0 = blockIdx.y * CS;
+  const int ch = c0 + cv * VEC;  // the lane's first channel
+  const int k = k0 + f;          // the lane's input frame
+  const int fs = v * CS + PAD;   // staged frame stride
+
+  // 1. lo and frac per channel, lo clamped where every tap of the channel
+  //    is out of range whatever its value; then the slab's range of lo
+  if (tid < CS) {
+    int lo = 0;
+    float fr = 0.0f;
+    if (c0 + tid < c) {
+      const float y = ypos[c0 + tid] + offset;
+      const float lo_f = floorf(y);
+      fr = y - lo_f;
+      lo = min(max(static_cast<int>(lo_f), -(t_out * S + 1)), t_in + 1);
+    }
+    lo_s[tid] = lo;
+    frac_s[tid] = fr;
+  }
   __syncthreads();
-  if (threadIdx.y == 0 && ch < c) {
-    float s = 0.0f;
+  if (tid < 32) {
+    int lo_min = 0x7fffffff, lo_max = -0x7fffffff - 1;
+    for (int i = tid; i < CS && c0 + i < c; i += 32) {
+      lo_min = min(lo_min, lo_s[i]);
+      lo_max = max(lo_max, lo_s[i]);
+    }
 #pragma unroll
-    for (int k = 0; k < kLaneRows; ++k) s += lanes[k][threadIdx.x];
-    partial[static_cast<int64_t>(chunk) * c + ch] = s;
+    for (int m = 16; m > 0; m >>= 1) {
+      lo_min = min(lo_min, __shfl_xor_sync(0xffffffffu, lo_min, m));
+      lo_max = max(lo_max, __shfl_xor_sync(0xffffffffu, lo_max, m));
+    }
+    if (tid == 0) {
+      range_s[0] = lo_min;
+      range_s[1] = lo_max;
+    }
+  }
+  __syncthreads();
+
+  // 2. stage the cotangent frames [w0, w0 + nq) that the tile's taps read,
+  //    at most w of them, as they lie (V rows of CS channels a frame), and
+  //    a zero frame after them
+  const int k_last = min(k0 + kRun, t_in) - 1;
+  const int w0 = max(floor_div<S>(k0 - range_s[1] - 1), 0);
+  const int nq = max(
+      0, min(min(floor_div<S>(k_last - range_s[0]), t_out - 1) - w0 + 1, w));
+  const int zero = w * fs;
+  for (int r = tid; r < v * CS; r += kBwdThreads) win[zero + r] = T(0.0f);
+  if (ch < c) {
+    const T* src = g + (static_cast<int64_t>(n) * t_out + w0) * v * c + ch;
+    for (int r = tid / kCv; r < nq * v; r += kBwdThreads / kCv) {
+      stage_vec<VEC>(win + r * CS + (r / v) * PAD + cv * VEC,
+                     src + static_cast<int64_t>(r) * c);
+    }
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+
+  // 3. meanwhile, each channel's two taps (a at k - lo, b at k - lo - 1)
+  float frac[VEC];
+  int oa[VEC], ob[VEC];
+  bool spill = false;
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) {
+    const int slot = cv * VEC + i;
+    const int ka = k - lo_s[slot];
+    frac[i] = frac_s[slot];
+    oa[i] = tap_offset<S>(ka, t_out, w0, nq, zero, fs, slot);
+    ob[i] = tap_offset<S>(ka - 1, t_out, w0, nq, zero, fs, slot);
+    spill |= oa[i] < 0 || ob[i] < 0;
+  }
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  __syncthreads();
+
+  // 4. walk the lane's joints
+  float acc[VEC];
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) acc[i] = 0.0f;
+  if (ch < c && k < t_in) {
+    const int per_group = (v + kGroups - 1) / kGroups;
+    const int j_begin = jg * per_group;
+    const int j_end = min(v, j_begin + per_group);
+    const int64_t row = (static_cast<int64_t>(n) * t_in + k) * v;
+    const T* gn = g + static_cast<int64_t>(n) * t_out * v * c + ch;
+    if (spill) {
+      walk_joints<T, VEC, DX, GY, true>(x, win, gn, dx, oa, ob, frac, acc,
+                                        row, ch, j_begin, j_end, CS, v, c);
+    } else {
+      walk_joints<T, VEC, DX, GY, false>(x, win, gn, dx, oa, ob, frac, acc,
+                                         row, ch, j_begin, j_end, CS, v, c);
+    }
+  }
+
+  // 5. the tile's partial row: lanes summed per channel in lane order
+  if constexpr (GY) {
+    __syncthreads();  // every lane is done with the window
+    float* red = reinterpret_cast<float*>(smem);  // [kRun * kGroups][CS]
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) red[(tid / kCv) * CS + cv * VEC + i] = acc[i];
+    __syncthreads();
+    if (tid < CS && c0 + tid < c) {
+      float s = 0.0f;
+      for (int r = 0; r < kRun * kGroups; ++r) s += red[r * CS + tid];
+      partial[static_cast<int64_t>(tile) * c + c0 + tid] = s;
+    }
   }
 }
 
-// pass 2: gy_raw[c] = (sum over chunks of partial[chunk, c]) / N
-__global__ void __launch_bounds__(kThreads)
+// pass 2: gy_raw[c] = (sum of the tiles' partial rows, in order) / N; row
+// lane l sums rows l, l + kFinalRows, ..., then the lanes are summed in order
+__global__ void __launch_bounds__(kLaneCh * kFinalRows)
 tshift_position_final_kernel(const float* __restrict__ partial,
-                             float* __restrict__ out, int chunks, int c,
+                             float* __restrict__ out, int rows, int c,
                              float n) {
-  __shared__ float lanes[kLaneRows][kLaneCh];
+  __shared__ float lanes[kFinalRows][kLaneCh + 1];
   const int ch = blockIdx.x * kLaneCh + threadIdx.x;
   float acc = 0.0f;
   if (ch < c) {
-    for (int k = threadIdx.y; k < chunks; k += kLaneRows) {
+    for (int k = threadIdx.y; k < rows; k += kFinalRows) {
       acc += partial[static_cast<int64_t>(k) * c + ch];
     }
   }
@@ -185,9 +431,96 @@ tshift_position_final_kernel(const float* __restrict__ partial,
   if (threadIdx.y == 0 && ch < c) {
     float s = 0.0f;
 #pragma unroll
-    for (int k = 0; k < kLaneRows; ++k) s += lanes[k][threadIdx.x];
+    for (int k = 0; k < kFinalRows; ++k) s += lanes[k][threadIdx.x];
     out[ch] = s / n;
   }
+}
+
+// Launches the tile kernel; returns its error and sets *rows to the number
+// of partial rows it writes (one per tile).
+template <typename T, int S, int VEC, bool DX, bool GY>
+cudaError_t launch_backward(const void* x, const void* g, const void* ypos,
+                            void* dx, void* partial, int n, int t_in,
+                            int t_out, int v, int c, int* rows,
+                            cudaStream_t s) {
+  using Shape = Tile<T, VEC>;
+  const int runs = (t_in + Shape::kRun - 1) / Shape::kRun;
+  // staged frames: the run plus the halo, fewer where V is so large that
+  // they do not fit (taps outside the window are read from device memory)
+  int device = 0, optin = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  }
+  if (err != cudaSuccess) return err;
+  const int64_t frame = static_cast<int64_t>(v) * Shape::CS * sizeof(T) +
+                        kPadBytes;
+  // frames that fit beside the zero frame
+  const int64_t fit = (optin - kStaticBytes) / frame - 1;
+  if (fit < 1) return cudaErrorInvalidValue;
+  const int w = static_cast<int>(
+      fit < Shape::kRun / S + kHalo ? fit : Shape::kRun / S + kHalo);
+  const size_t window = static_cast<size_t>((w + 1) * frame);
+  const size_t reduce = GY ? sizeof(float) * kBwdThreads * VEC : 0;
+  const size_t bytes = window > reduce ? window : reduce;
+  auto kernel = tshift_backward_kernel<T, S, VEC, DX, GY>;
+  if (bytes > 48 * 1024) {
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
+    if (err != cudaSuccess) return err;
+  }
+  *rows = n * runs;
+  const dim3 grid(n * runs, (c + Shape::CS - 1) / Shape::CS);
+  kernel<<<grid, kBwdThreads, bytes, s>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(ypos), static_cast<T*>(dx),
+      static_cast<float*>(partial), t_in, t_out, v, c, runs, w,
+      S != 1 ? 0.5f : 0.0f);
+  return cudaGetLastError();
+}
+
+template <typename T, int S, int VEC>
+cudaError_t backward_outputs(const void* x, const void* g, const void* ypos,
+                             void* dx, void* partial, bool gy, int n,
+                             int t_in, int t_out, int v, int c, int* rows,
+                             cudaStream_t s) {
+  if (dx != nullptr && gy) {
+    return launch_backward<T, S, VEC, true, true>(x, g, ypos, dx, partial, n,
+                                                  t_in, t_out, v, c, rows, s);
+  }
+  if (dx != nullptr) {
+    return launch_backward<T, S, VEC, true, false>(
+        x, g, ypos, dx, partial, n, t_in, t_out, v, c, rows, s);
+  }
+  return launch_backward<T, S, VEC, false, true>(x, g, ypos, dx, partial, n,
+                                                 t_in, t_out, v, c, rows, s);
+}
+
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// the vector path where C and every pointer allow it, else 1-element lanes
+template <typename T>
+cudaError_t backward_dispatch(const void* x, const void* g, const void* ypos,
+                              void* dx, void* partial, bool gy, int n,
+                              int t_in, int t_out, int v, int c, int stride,
+                              int* rows, cudaStream_t s) {
+  constexpr int kBytes = kVec * static_cast<int>(sizeof(T));
+  const bool vec = c % kVec == 0 && aligned(x, kBytes) &&
+                   aligned(g, kBytes) && aligned(dx, kBytes);
+  if (stride == 1) {
+    return vec ? backward_outputs<T, 1, kVec>(x, g, ypos, dx, partial, gy, n,
+                                              t_in, t_out, v, c, rows, s)
+               : backward_outputs<T, 1, 1>(x, g, ypos, dx, partial, gy, n,
+                                           t_in, t_out, v, c, rows, s);
+  }
+  return vec ? backward_outputs<T, 2, kVec>(x, g, ypos, dx, partial, gy, n,
+                                            t_in, t_out, v, c, rows, s)
+             : backward_outputs<T, 2, 1>(x, g, ypos, dx, partial, gy, n,
+                                         t_in, t_out, v, c, rows, s);
 }
 
 }  // namespace
@@ -213,55 +546,43 @@ extern "C" int temporal_shift_forward(const void* x, const void* ypos,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int temporal_shift_grad_input(const void* g, const void* ypos,
-                                         void* out, int n, int t_in,
-                                         int t_out, int v, int c, int stride,
-                                         int is_bf16, void* stream) {
-  const int rows = n * t_in;
-  if (rows == 0 || v * c == 0) return 0;
-  const float offset = stride != 1 ? 0.5f : 0.0f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16) {
-    tshift_grad_input_kernel<__nv_bfloat16><<<rows, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(ypos),
-        static_cast<__nv_bfloat16*>(out), t_in, t_out, v * c, c, stride,
-        offset);
-  } else {
-    tshift_grad_input_kernel<float><<<rows, kThreads, 0, s>>>(
-        static_cast<const float*>(g), static_cast<const float*>(ypos),
-        static_cast<float*>(out), t_in, t_out, v * c, c, stride, offset);
-  }
-  return static_cast<int>(cudaGetLastError());
+// Rows of the partial-sum scratch that temporal_shift_backward may need
+// for gy_raw: one per tile, at most n * ceil(t_in / kMinRun).
+extern "C" int temporal_shift_backward_rows(int n, int t_in) {
+  return n * ((t_in + kMinRun - 1) / kMinRun);
 }
 
-extern "C" int temporal_shift_position_grad(
-    const void* x, const void* g, const void* ypos, void* partial, void* out,
-    int n, int t_in, int t_out, int v, int c, int stride, int is_bf16,
-    int chunks, void* stream) {
-  if (c == 0) return 0;
-  const int rows = n * t_out * v;
-  if (chunks < 1) return static_cast<int>(cudaErrorInvalidValue);
-  const int rows_per_chunk = (rows + chunks - 1) / chunks;
-  const float offset = stride != 1 ? 0.5f : 0.0f;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 block(kLaneCh, kLaneRows);
-  const dim3 grid1(chunks, (c + kLaneCh - 1) / kLaneCh);
-  if (is_bf16) {
-    tshift_position_partial_kernel<__nv_bfloat16><<<grid1, block, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(g), static_cast<const float*>(ypos),
-        static_cast<float*>(partial), t_in, t_out, v, c, stride, offset, rows,
-        rows_per_chunk);
-  } else {
-    tshift_position_partial_kernel<float><<<grid1, block, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(g),
-        static_cast<const float*>(ypos), static_cast<float*>(partial), t_in,
-        t_out, v, c, stride, offset, rows, rows_per_chunk);
+// dx (grad_input, may be null), gy (gy_raw, may be null; then partial may
+// be null too) from the forward input x (may be null without gy) and the
+// cotangent g.  partial: temporal_shift_backward_rows(n, t_in) x c fp32.
+extern "C" int temporal_shift_backward(const void* x, const void* g,
+                                       const void* ypos, void* dx,
+                                       void* partial, void* gy, int n,
+                                       int t_in, int t_out, int v, int c,
+                                       int stride, int is_bf16,
+                                       void* stream) {
+  if ((stride != 1 && stride != 2) || (dx == nullptr && gy == nullptr) ||
+      (gy != nullptr && (x == nullptr || partial == nullptr))) {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  tshift_position_final_kernel<<<(c + kLaneCh - 1) / kLaneCh, block, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(out), chunks, c,
+  if (c == 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rows = 0;
+  if (n > 0 && t_in > 0 && v > 0) {
+    const cudaError_t err =
+        is_bf16 ? backward_dispatch<__nv_bfloat16>(x, g, ypos, dx, partial,
+                                                   gy != nullptr, n, t_in,
+                                                   t_out, v, c, stride, &rows,
+                                                   s)
+                : backward_dispatch<float>(x, g, ypos, dx, partial,
+                                           gy != nullptr, n, t_in, t_out, v,
+                                           c, stride, &rows, s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (gy == nullptr) return 0;
+  tshift_position_final_kernel<<<(c + kLaneCh - 1) / kLaneCh,
+                                 dim3(kLaneCh, kFinalRows), 0, s>>>(
+      static_cast<const float*>(partial), static_cast<float*>(gy), rows, c,
       static_cast<float>(n));
   return static_cast<int>(cudaGetLastError());
 }

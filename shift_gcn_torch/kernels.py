@@ -31,16 +31,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # kernel -> the source that holds it
 KERNELS: Dict[str, str] = {
-    "temporal_shift": "temporal_shift",                # K1, forward
-    "temporal_shift_grad_input": "temporal_shift",     # K2
-    "temporal_shift_position_grad": "temporal_shift",  # K3
-    "shift_gcn": "shift_gcn",                          # K4, forward
-    "shift_gcn_dx": "shift_gcn",                       # K5
-    "shear_in": "shift_gcn",                           # K6
+    "temporal_shift": "temporal_shift",           # K1, forward
+    "temporal_shift_backward": "temporal_shift",  # K2 and K3, fused
+    "shift_gcn": "shift_gcn",                     # K4, forward
+    "shift_gcn_dx": "shift_gcn",                  # K5
+    "shear_in": "shift_gcn",                      # K6
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
-# kernel, and nowhere else (K3's two passes count as one launch).
+# kernel, and nowhere else (the fused backward's partial-sum pass and its
+# final pass count as one launch).
 # Callers reset them with reset_launches().
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -111,12 +111,11 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         signatures = {
             # (x, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
             "temporal_shift_forward": [ptr, ptr, ptr] + [i32] * 7 + [ptr],
-            # (g, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
-            "temporal_shift_grad_input": [ptr, ptr, ptr] + [i32] * 7 + [ptr],
-            # (x, g, ypos, partial, out, n, t_in, t_out, v, c, stride,
-            #  is_bf16, chunks, stream)
-            "temporal_shift_position_grad":
-                [ptr] * 5 + [i32] * 8 + [ptr],
+            # (x, g, ypos, dx, partial, gy, n, t_in, t_out, v, c, stride,
+            #  is_bf16, stream); dx or gy (with partial) may be null
+            "temporal_shift_backward": [ptr] * 6 + [i32] * 7 + [ptr],
+            # (n, t_in) -> rows of the backward's partial-sum scratch
+            "temporal_shift_backward_rows": [i32] * 2,
         }
     else:
         signatures = {

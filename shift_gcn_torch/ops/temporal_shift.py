@@ -10,15 +10,19 @@ T_out = T // s.  Layout is channels-last (N, T, V, C).
 
 The backward is the reference's constraint backward, not the derivative:
 
-- grad_input is the exact transpose of the forward (K2): input frame t
-  gathers (1 - f) * g[(t - lo) / s] and f * g[(t - lo - 1) / s], each
-  only where the offset is a non-negative multiple of s below T_out * s
-  (the stride-2 evenness rule);
+- grad_input is the exact transpose of the forward (K2): input frame k
+  gathers (1 - f) * a + f * b with a = g[(k - lo) / s] and
+  b = g[(k - lo - 1) / s], each only where the offset is a non-negative
+  multiple of s below T_out * s (the stride-2 evenness rule);
 - the position gradient is a fixed step: with
   gy_raw[c] = sum_{t,v} mean_n (x[t*s + lo + 1] - x[t*s + lo]) * g[t]
   (K3, fp32), ypos moves by 0.01 * sign(gy_raw), or 1e-4 where gy_raw is
   exactly 0 (``constraint_step``);
 - xpos gets a zero gradient.
+
+On the card K2 and K3 are one kernel: re-indexed over input frames,
+gy_raw[c] = (1/N) sum_{n,k,v} x[k] * (b - a), so one pass over x and g
+gives both (``temporal_shift_backward``).
 
 The joint-axis position ``xpos`` is treated as exactly zero in the
 forward: its init is U(-1e-8, 1e-8), its gradient is zero and weight
@@ -32,12 +36,14 @@ that radius, so the two agree by construction.
 
 ``temporal_shift`` is the entry point.  When autograd records it (grad
 mode on and an input requires grad) it runs ``TemporalShiftFunction``;
-otherwise the forward alone.  Each of the three raw launchers
-(``temporal_shift_forward`` K1, ``temporal_shift_grad_input`` K2,
-``temporal_shift_position_grad`` K3) runs its plain PyTorch version on a
-CPU tensor and its hand-written kernel (``csrc/temporal_shift.cu``) on a
-CUDA tensor, or raises; called in grad mode on an input that requires
-grad, each raises (``kernels.refuse_grad``).
+otherwise the forward alone.  The raw launchers are
+``temporal_shift_forward`` (K1), ``temporal_shift_backward`` (K2 and K3
+fused: dx and gy_raw) and its one-output forms
+``temporal_shift_grad_input`` and ``temporal_shift_position_grad``, which
+launch the same kernel with the other output switched off.  Each runs its
+plain PyTorch version on a CPU tensor and its hand-written kernel
+(``csrc/temporal_shift.cu``) on a CUDA tensor, or raises; called in grad
+mode on an input that requires grad, each raises (``kernels.refuse_grad``).
 """
 
 from __future__ import annotations
@@ -121,6 +127,14 @@ def temporal_shift_position_grad_reference(x: torch.Tensor, g: torch.Tensor,
     return ((x1 - x0) * g.float()).mean(0).sum((0, 1))
 
 
+def temporal_shift_backward_reference(x: torch.Tensor, g: torch.Tensor,
+                                      ypos: torch.Tensor, stride: int):
+    """The fused backward's plain version: (grad_input in x.dtype, gy_raw
+    (C,) fp32) as K2's and K3's plain versions give them."""
+    return (temporal_shift_grad_input_reference(g, ypos, stride, x.shape[1]),
+            temporal_shift_position_grad_reference(x, g, ypos, stride))
+
+
 def constraint_step(gy_raw: torch.Tensor) -> torch.Tensor:
     """The reference constraint kernel's position update: 0.01 in the
     direction of gy_raw's sign, or 1e-4 where gy_raw is exactly 0.
@@ -167,59 +181,78 @@ def temporal_shift_forward(x: torch.Tensor, ypos: torch.Tensor,
     return out
 
 
+def _launch_backward(x: Optional[torch.Tensor], g: torch.Tensor,
+                     ypos: torch.Tensor, stride: int, t_in: int,
+                     want_dx: bool, want_gy: bool):
+    """The fused backward kernel on CUDA tensors: (dx or None, gy_raw or
+    None).  x is read only for gy_raw."""
+    name = "temporal_shift_backward"
+    _check_cuda(name, g, ypos)
+    n, t_out, v, c = g.shape
+    if stride not in (1, 2):
+        raise ValueError(f"{name}: stride {stride} is not 1 or 2")
+    if t_out != t_in // stride:
+        raise ValueError(f"{name}: T_out={t_out} is not t_in // stride = "
+                         f"{t_in // stride}")
+    if n * t_in * v * c >= 2 ** 31:
+        raise ValueError(f"{name}: tensor too large for 32-bit indexing")
+    if want_gy and (x.shape != (n, t_in, v, c) or x.dtype != g.dtype
+                    or x.device != g.device or not x.is_contiguous()):
+        raise ValueError(f"{name}: x must be a contiguous {g.dtype} "
+                         f"{(n, t_in, v, c)} tensor")
+    lib = kernels.library("temporal_shift")
+    dx = (torch.empty((n, t_in, v, c), dtype=g.dtype, device=g.device)
+          if want_dx else None)
+    partial = gy = None
+    if want_gy:
+        rows = max(1, lib.temporal_shift_backward_rows(n, t_in))
+        partial = torch.empty((rows, c), dtype=torch.float32,
+                              device=g.device)
+        gy = torch.empty((c,), dtype=torch.float32, device=g.device)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    status = lib.temporal_shift_backward(
+        ptr(x) if want_gy else None, g.data_ptr(), ypos.data_ptr(), ptr(dx),
+        ptr(partial), ptr(gy), n, t_in, t_out, v, c, stride,
+        int(g.dtype == torch.bfloat16), kernels.stream(g))
+    kernels.check(status, name)
+    kernels.LAUNCHES[name] += 1
+    return dx, gy
+
+
+def temporal_shift_backward(x: torch.Tensor, g: torch.Tensor,
+                            ypos: torch.Tensor, stride: int):
+    """K2 and K3 fused: from the forward input x (N, T, V, C) and the
+    cotangent g (N, T // stride, V, C), (grad_input (N, T, V, C) in
+    x.dtype, gy_raw (C,) fp32) in one pass over x and g."""
+    kernels.refuse_grad("temporal_shift_backward", x, g, ypos)
+    if x.device.type == "cpu":
+        return temporal_shift_backward_reference(x, g, ypos, stride)
+    return _launch_backward(x, g, ypos, stride, x.shape[1], True, True)
+
+
 def temporal_shift_grad_input(g: torch.Tensor, ypos: torch.Tensor,
                               stride: int, t_in: int) -> torch.Tensor:
-    """K2: cotangent (N, T_out, V, C) -> grad_input (N, t_in, V, C)."""
+    """K2 alone: cotangent (N, T_out, V, C) -> grad_input (N, t_in, V, C);
+    the fused kernel with gy_raw switched off."""
     kernels.refuse_grad("temporal_shift_grad_input", g, ypos)
     if g.device.type == "cpu":
         return temporal_shift_grad_input_reference(g, ypos, stride, t_in)
-    _check_cuda("temporal_shift_grad_input", g, ypos)
-    n, t_out, v, c = g.shape
-    if t_out != t_in // stride:
-        raise ValueError(f"temporal_shift_grad_input: T_out={t_out} is not "
-                         f"t_in // stride = {t_in // stride}")
-    if n * t_in * v * c >= 2 ** 31:
-        raise ValueError("temporal_shift_grad_input: tensor too large for "
-                         "32-bit indexing")
-    out = torch.empty((n, t_in, v, c), dtype=g.dtype, device=g.device)
-    status = kernels.library("temporal_shift").temporal_shift_grad_input(
-        g.data_ptr(), ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c,
-        stride, int(g.dtype == torch.bfloat16), kernels.stream(g))
-    kernels.check(status, "temporal_shift_grad_input")
-    kernels.LAUNCHES["temporal_shift_grad_input"] += 1
-    return out
-
-
-# K3 splits the N*T_out*V rows into chunks of this many rows; each chunk's
-# per-channel partial sum lands in a scratch row, reduced in order after
-K3_ROWS_PER_CHUNK = 1024
+    return _launch_backward(None, g, ypos, stride, t_in, True, False)[0]
 
 
 def temporal_shift_position_grad(x: torch.Tensor, g: torch.Tensor,
                                  ypos: torch.Tensor,
                                  stride: int) -> torch.Tensor:
-    """K3: gy_raw (C,) fp32 from the forward input x (N, T, V, C) and the
-    cotangent g (N, T // stride, V, C); two passes in a fixed order."""
+    """K3 alone: gy_raw (C,) fp32 from the forward input x (N, T, V, C)
+    and the cotangent g (N, T // stride, V, C); the fused kernel with dx
+    switched off."""
     kernels.refuse_grad("temporal_shift_position_grad", x, g, ypos)
     if x.device.type == "cpu":
         return temporal_shift_position_grad_reference(x, g, ypos, stride)
-    _check_cuda("temporal_shift_position_grad", x, ypos)
-    n, t_in, v, c = x.shape
-    t_out = t_in // stride
-    if (g.shape != (n, t_out, v, c) or g.dtype != x.dtype
-            or g.device != x.device or not g.is_contiguous()):
-        raise ValueError("temporal_shift_position_grad: g must be a "
-                         f"contiguous {x.dtype} {(n, t_out, v, c)} tensor")
-    chunks = max(1, -(-n * t_out * v // K3_ROWS_PER_CHUNK))
-    partial = torch.empty((chunks, c), dtype=torch.float32, device=x.device)
-    out = torch.empty((c,), dtype=torch.float32, device=x.device)
-    status = kernels.library("temporal_shift").temporal_shift_position_grad(
-        x.data_ptr(), g.data_ptr(), ypos.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), n, t_in, t_out, v, c, stride,
-        int(x.dtype == torch.bfloat16), chunks, kernels.stream(x))
-    kernels.check(status, "temporal_shift_position_grad")
-    kernels.LAUNCHES["temporal_shift_position_grad"] += 1
-    return out
+    return _launch_backward(x, g, ypos, stride, x.shape[1], False, True)[1]
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +261,9 @@ def temporal_shift_position_grad(x: torch.Tensor, g: torch.Tensor,
 
 
 class TemporalShiftFunction(torch.autograd.Function):
-    """Forward K1; backward K2 (grad_input), K3 + ``constraint_step``
-    (ypos) and a zero xpos gradient."""
+    """Forward K1; backward K2 (grad_input) and K3 + ``constraint_step``
+    (ypos), in one fused launch when both are needed, and a zero xpos
+    gradient."""
 
     @staticmethod
     def forward(ctx, x, xpos, ypos, stride):
@@ -243,16 +277,20 @@ class TemporalShiftFunction(torch.autograd.Function):
     def backward(ctx, g):
         x, ypos = ctx.saved_tensors
         g = g.contiguous()
-        grad_x = grad_xpos = grad_ypos = None
-        if ctx.needs_input_grad[0]:
+        want_x, want_xpos, want_ypos = ctx.needs_input_grad[:3]
+        grad_x = grad_xpos = grad_ypos = gy_raw = None
+        if want_x and want_ypos:
+            grad_x, gy_raw = temporal_shift_backward(x, g, ypos, ctx.stride)
+        elif want_x:
             grad_x = temporal_shift_grad_input(g, ypos, ctx.stride,
                                                x.shape[1])
-        if ctx.needs_input_grad[1]:
+        elif want_ypos:
+            gy_raw = temporal_shift_position_grad(x, g, ypos, ctx.stride)
+        if gy_raw is not None:
+            grad_ypos = constraint_step(gy_raw)
+        if want_xpos:
             shape, dtype, device = ctx.xpos_meta
             grad_xpos = torch.zeros(shape, dtype=dtype, device=device)
-        if ctx.needs_input_grad[2]:
-            grad_ypos = constraint_step(
-                temporal_shift_position_grad(x, g, ypos, ctx.stride))
         return grad_x, grad_xpos, grad_ypos, None
 
 

@@ -187,6 +187,10 @@ def test_cpu_path_launches_no_kernel():
         x.reshape(4, 33, 3), torch.ones(33, 3), w, torch.zeros(5)
     ).sum().backward()
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
+    # K2 and K3 count as one fused kernel
+    assert "temporal_shift_backward" in kernels.LAUNCHES
+    assert not {"temporal_shift_grad_input",
+                "temporal_shift_position_grad"} & set(kernels.LAUNCHES)
     assert all(count == 0 for count in kernels.LAUNCHES.values())
 
 
@@ -239,6 +243,123 @@ def test_temporal_shift_grads_match_pallas(interpret, stride, t, c):
     np.testing.assert_array_equal(ypt.grad.numpy(), np.asarray(want[2]))
 
 
+@pytest.mark.parametrize("stride,t,c", [
+    (1, 16, 3), (1, 17, 130), (1, 32, 8),
+    (2, 16, 8), (2, 17, 3), (2, 32, 130)])
+def test_fused_temporal_shift_backward_matches_pallas(interpret, monkeypatch,
+                                                      stride, t, c):
+    # the fused launcher returns exactly what K2's and K3's plain versions
+    # give, and the Function reaches both gradients through that one call
+    rng = np.random.default_rng(200 * t + c + stride)
+    x = rng.standard_normal((2, t, 5, c)).astype(np.float32)
+    ypos = rng.uniform(-3, 3, c).astype(np.float32)
+    ypos[:2] = (2.0, -1.0)  # integer shifts: f = 0
+    g = rng.standard_normal((2, t // stride, 5, c)).astype(np.float32)
+    xt, yt, gt = map(torch.from_numpy, (x, ypos, g))
+    dx, gy_raw = temporal_shift.temporal_shift_backward(xt, gt, yt, stride)
+    assert dx.shape == xt.shape and gy_raw.dtype == torch.float32
+    np.testing.assert_array_equal(
+        dx.numpy(), temporal_shift.temporal_shift_grad_input_reference(
+            gt, yt, stride, t).numpy())
+    np.testing.assert_array_equal(
+        gy_raw.numpy(), temporal_shift.temporal_shift_position_grad_reference(
+            xt, gt, yt, stride).numpy())
+
+    def loss(x_, yp_):
+        return jnp.sum(tsk.temporal_shift_pallas(
+            x_, jnp.zeros(c), yp_, stride) * g)
+
+    want = jax.jit(jax.grad(loss, argnums=(0, 1)))(jnp.asarray(x),
+                                                   jnp.asarray(ypos))
+    calls = []
+    fused = temporal_shift.temporal_shift_backward
+    monkeypatch.setattr(temporal_shift, "temporal_shift_backward",
+                        lambda *a: calls.append(a) or fused(*a))
+    for name in ("temporal_shift_grad_input", "temporal_shift_position_grad"):
+        monkeypatch.setattr(temporal_shift, name, None)
+    xg, yg = _torch_params(x, ypos)
+    temporal_shift.temporal_shift(xg, yg, stride).backward(gt)
+    assert len(calls) == 1
+    np.testing.assert_allclose(xg.grad.numpy(), np.asarray(want[0]),
+                               atol=FP32_TOL, rtol=FP32_TOL)
+    np.testing.assert_array_equal(yg.grad.numpy(), np.asarray(want[1]))
+
+
+@pytest.mark.parametrize("needs", ["x", "ypos"])
+def test_temporal_shift_backward_one_output(monkeypatch, needs):
+    # with one gradient wanted, the Function makes that output's call only
+    rng = np.random.default_rng(13)
+    x = torch.from_numpy(rng.standard_normal((2, 8, 3, 4)).astype(
+        np.float32)).requires_grad_(needs == "x")
+    ypos = torch.tensor([0.3, -1.2, 2.0, 0.7], requires_grad=needs == "ypos")
+    g = torch.from_numpy(rng.standard_normal((2, 4, 3, 4)).astype(
+        np.float32))
+    monkeypatch.setattr(temporal_shift, "temporal_shift_backward", None)
+    temporal_shift.temporal_shift(x, ypos, 2).backward(g)
+    if needs == "x":
+        np.testing.assert_array_equal(
+            x.grad.numpy(), temporal_shift.temporal_shift_grad_input_reference(
+                g, ypos.detach(), 2, 8).numpy())
+        assert ypos.grad is None
+    else:
+        np.testing.assert_array_equal(
+            ypos.grad.numpy(), temporal_shift.constraint_step(
+                temporal_shift.temporal_shift_position_grad_reference(
+                    x, g, ypos.detach(), 2)).numpy())
+        assert x.grad is None
+
+
+def _gy_raw_output_frames(x, g, ypos, stride):
+    """gy_raw in float64 as the reference sums it: over output frames t,
+    (x[t*s + lo + 1] - x[t*s + lo]) * g[t], zero outside [0, T)."""
+    n, t_in = x.shape[:2]
+    want = np.zeros(x.shape[-1], np.float64)
+    for c, y in enumerate(ypos):
+        lo = int(np.floor(np.float32(y) + np.float32(0.5 if stride != 1
+                                                     else 0.0)))
+        for tt in range(g.shape[1]):
+            t0 = tt * stride + lo
+            x1 = x[:, t0 + 1, :, c] if 0 <= t0 + 1 < t_in else 0.0
+            x0 = x[:, t0, :, c] if 0 <= t0 < t_in else 0.0
+            want[c] += np.sum((x1 - x0) * g[:, tt, :, c]) / n
+    return want
+
+
+@pytest.mark.parametrize("stride,t", [(1, 9), (1, 16), (2, 9), (2, 16)])
+def test_gy_raw_reindexed_over_input_frames(stride, t):
+    # the identity the fused kernel rests on: summed over input frames k,
+    # gy_raw = (1/N) sum x[k] * (b - a) with a = g[(k - lo) / s] and
+    # b = g[(k - lo - 1) / s], each zero unless its offset is a
+    # non-negative multiple of s below T_out * s
+    rng = np.random.default_rng(40 + 10 * t + stride)
+    ypos = np.array([0.0, 3.0, -2.0, 7.4, -7.4, 0.35, -0.8, 20.3, -20.3,
+                     t + 0.5, -(t + 1.5)], np.float32)
+    c = ypos.size
+    x = rng.standard_normal((3, t, 2, c))
+    g = rng.standard_normal((3, t // stride, 2, c))
+    t_out = t // stride
+    got = np.zeros(c, np.float64)
+    for ch, y in enumerate(ypos):
+        lo = int(np.floor(np.float32(y) + np.float32(0.5 if stride != 1
+                                                     else 0.0)))
+
+        def tap(kk):
+            ok = 0 <= kk < t_out * stride and kk % stride == 0
+            return g[:, kk // stride, :, ch] if ok else 0.0
+
+        for k in range(t):
+            a, b = tap(k - lo), tap(k - lo - 1)
+            got[ch] += np.sum(x[:, k, :, ch] * (b - a)) / 3
+    want = _gy_raw_output_frames(x, g, ypos, stride)
+    np.testing.assert_allclose(got, want, atol=1e-12)
+    plain = temporal_shift.temporal_shift_position_grad_reference(
+        torch.from_numpy(x).float(), torch.from_numpy(g).float(),
+        torch.from_numpy(ypos), stride)
+    np.testing.assert_allclose(plain.numpy(), got, atol=1e-5)
+    # shifts past both ends of the clip read nothing
+    assert got[-4:].tolist() == [0.0] * 4
+
+
 def test_cpu_temporal_shift_gives_constraint_step():
     # on the CPU the plain version runs inside the Function: ypos gets the
     # reference's fixed step, not the derivative plain autograd would give
@@ -282,15 +403,8 @@ def test_temporal_shift_plain_backward_is_transpose(stride, t):
     got = temporal_shift.temporal_shift_grad_input_reference(
         g, ypos, stride, t)
     np.testing.assert_allclose(got.numpy(), x.grad.numpy(), atol=1e-6)
-    xn, gn = x.detach().numpy(), g.numpy()
-    want = np.zeros(5, np.float64)
-    for c, y in enumerate(ypos.tolist()):
-        lo = int(np.floor(y + (0.5 if stride != 1 else 0.0)))
-        for tt in range(t // stride):
-            t0 = tt * stride + lo
-            a = xn[:, t0 + 1, :, c] if 0 <= t0 + 1 < t else 0.0
-            b = xn[:, t0, :, c] if 0 <= t0 < t else 0.0
-            want[c] += np.sum((a - b) * gn[:, tt, :, c]) / 3
+    want = _gy_raw_output_frames(x.detach().numpy(), g.numpy(),
+                                 ypos.numpy(), stride)
     got = temporal_shift.temporal_shift_position_grad_reference(
         x.detach(), g, ypos, stride)
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5)
@@ -364,12 +478,14 @@ def test_shift_gcn_plain_backward(dtype):
         x, torch.zeros(3), 1, 4),
     lambda x: temporal_shift.temporal_shift_position_grad(
         x, x.detach(), torch.zeros(3), 1),
+    lambda x: temporal_shift.temporal_shift_backward(
+        x, x.detach(), torch.zeros(3), 1),
     lambda x: shift_gcn_kernel.shift_gcn_forward(
         x[0], torch.ones(4, 3), torch.zeros(3, 2), torch.zeros(2)),
     lambda x: shift_gcn_kernel.shift_gcn_dx(
         x[0], torch.ones(4, 3), torch.zeros(3, 3)),
     lambda x: shift_gcn_kernel.shear_in(x[0]),
-], ids=["K1", "K2", "K3", "K4", "K5", "K6"])
+], ids=["K1", "K2", "K3", "K2K3", "K4", "K5", "K6"])
 def test_raw_launchers_refuse_grad(launcher):
     # a raw launcher's output has no grad_fn: outside its Function, in
     # grad mode, it raises instead of cutting the gradient
