@@ -8,7 +8,7 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles every kernel of ``shift_gcn_torch/csrc`` (one nvcc per
    source, in parallel) and prints the seconds it took, and, where the
    toolkit has ``cuobjdump``, the tensor-core (HMMA) instructions and the
-   registers of each K4/K5 function of the built library;
+   registers of each K4/K5/K6 function of the built library;
 3. temporal shift kernel vs its plain PyTorch version at every (T, C,
    stride) one forward of the serving model launches it with (64 windows,
    V=33), fp32 and bf16;
@@ -30,7 +30,8 @@ Phases, in order; any failure exits non-zero:
    backward (K2 grad_input and K3 position grad in one kernel) at the K1
    shapes, also with shifts outside its staged window, its gy_raw
    bit-equal across two launches and its one-output forms bit-equal to
-   it; K5 Shift-GCN dx and K6 shear at the K4 shapes;
+   it; K5 Shift-GCN dx and K6, the weight gradients (dgate, dW, dbias),
+   at the K4 shapes, K6 also at V=144, and bit-equal across two launches;
 8. one full-width train step (fp32, 64 clips x T=300) on the kernel path
    vs the plain backward (every launcher plain but K4, so both sides share
    one forward) from the same seeded state and batch: loss, every true
@@ -44,8 +45,9 @@ Phases, in order; any failure exits non-zero:
    the saved checkpoint must reproduce the best-score pickle;
 10. training timings: each backward kernel per step beside its bound, its
    plain version and a library call (the fused backward: the sum of the
-   two library calls for grad_input and the position grad), also at
-   spread-out shifts; the train step on the kernel path vs the plain
+   two library calls for grad_input and the position grad, also at
+   spread-out shifts; K6: two ``index_select`` shears, a ``bmm`` and the
+   three reductions); the train step on the kernel path vs the plain
    path, fp32 and bf16; one profiled train step.
 
 The last four lines are a JSON object with one entry per kernel, a
@@ -73,9 +75,10 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM HBM3
 FP32_SIMT_FLOPS = 67e12        # H100 SXM fp32 outside the tensor cores
-# K4/K5 multiply on the tensor cores with fp32 accuracy: three TF32
+# K4/K5/K6 multiply on the tensor cores with fp32 accuracy: three TF32
 # products (495 TFLOP/s dense) per fp32-accurate multiply-add
 TF32_3X_FLOPS = 495e12 / 3
+BF16_FLOPS = 989e12  # dense bf16 tensor-core rate: exact bf16 products
 N_WINDOWS, T_WINDOW, V = 64, 300, 33
 REPORT_KEYS = ["total_frames", "num_windows", "fall_detected",
                "max_fall_probability", "fall_intervals",
@@ -90,10 +93,11 @@ KERNEL_ROWS = {
     "temporal_shift_backward": (K1_SOURCE, f"{TSHIFT_PALLAS}:192"),
     "shift_gcn": (K4_SOURCE, f"{SGCN_PALLAS}:88"),
     "shift_gcn_dx": (K4_SOURCE, f"{SGCN_PALLAS}:143"),
-    "shear_in": (K4_SOURCE, f"{SGCN_PALLAS}:158"),
+    "shift_gcn_wgrad": (K4_SOURCE, f"{SGCN_PALLAS}:158"),
 }
 TRAIN_CONFIG = "configs/mediapipe/train_joint.yaml"
 GY_RAW_TOL = 2e-5      # of sum|terms|: gy_raw vs its plain version (phases 7, 8)
+WGRAD_TOL = 2e-5       # of scale: K6's outputs vs its plain version (phase 7)
 STEP_GRAD_TOL = 1e-5   # of scale: a true gradient, kernel vs plain step
 # biases that feed a train-mode BN normalizing over their broadcast axes:
 # its mean subtraction cancels them, so their exact gradient is 0 and the
@@ -106,9 +110,9 @@ TRAIN_CLIPS, VAL_CLIPS = 512, 128
 # launches per train step of the 10-unit model: each unit runs K1 twice
 # and K4 once forward; backward the fused K2+K3 once per K1, K5 once per
 # K4 (every unit's input needs its gradient: unit 1's is data_bn's
-# output), K6 on the unit's input and on its cotangent
+# output), K6 once per K4
 PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
-            "shift_gcn": 10, "shift_gcn_dx": 10, "shear_in": 20}
+            "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
 # device kernels by the name they show in the profiler, first match wins
 PROFILE_GROUPS = (
@@ -119,7 +123,7 @@ PROFILE_GROUPS = (
                       "shift_gcn_mma_kernel<__nv_bfloat16, false")),
     ("K5 dx", ("shift_gcn_mma_kernel<float, true",
                "shift_gcn_mma_kernel<__nv_bfloat16, true")),
-    ("K6 shear", ("shear_in_kernel",)),
+    ("K6 weight gradients", ("wgrad_partial_kernel", "wgrad_final_kernel")),
     ("cuBLAS / cuDNN", ("gemm", "xmma", "cutlass", "sm90_", "convolve")),
     ("reductions", ("reduce_kernel",)),
     ("copies and casts", ("copy",)),
@@ -277,7 +281,7 @@ def k4_simt_ms(r, c, d):
 
 
 def sass_report(path: str):
-    """{function label: (HMMA instructions, registers)} of the K4/K5
+    """{function label: (HMMA instructions, registers)} of the K4/K5/K6
     functions in the library at ``path``, or None without ``cuobjdump``."""
     import re
     import shutil
@@ -291,22 +295,27 @@ def sass_report(path: str):
                               text=True, check=True, timeout=300).stdout
 
     def label(mangled):
-        kind = "K5" if "Lb1E" in mangled else "K4"
         dtype = "bf16" if "bfloat16" in mangled else "fp32"
+        if "wgrad_partial_kernel" in mangled:
+            return f"K6 {dtype}"
+        kind = "K5" if "Lb1E" in mangled else "K4"
         tile = re.search(r"Li(\d+)E", mangled)
         return f"{kind} {dtype} {tile.group(1) if tile else '?'}-col"
+
+    def tensor_kernel(fn):
+        return "shift_gcn_mma_kernel" in fn or "wgrad_partial_kernel" in fn
 
     report, fn = {}, None
     for line in dump("-sass").splitlines():
         if "Function :" in line:
             fn = line.split("Function :")[1].strip()
-            if "shift_gcn_mma_kernel" in fn:
+            if tensor_kernel(fn):
                 report[label(fn)] = [0, None]
-        elif fn and "shift_gcn_mma_kernel" in fn and "HMMA" in line:
+        elif fn and tensor_kernel(fn) and "HMMA" in line:
             report[label(fn)][0] += 1
     for fn, regs in re.findall(r"Function ([^\s:]+):\s*REG:(\d+)",
                                dump("-res-usage")):
-        if "shift_gcn_mma_kernel" in fn:
+        if tensor_kernel(fn):
             report.setdefault(label(fn), [0, None])[1] = int(regs)
     return {k: tuple(v) for k, v in sorted(report.items())}
 
@@ -360,7 +369,7 @@ def plain_path(keep=()):
               ts.temporal_shift_position_grad_reference),
              (sk, "shift_gcn_forward", ss.shift_gcn_transform),
              (sk, "shift_gcn_dx", ss.shift_gcn_dx_reference),
-             (sk, "shear_in", ss.shear_in_reference))
+             (sk, "shift_gcn_wgrad", ss.shift_gcn_wgrad_reference))
     patches = [mock.patch.object(mod, name, fn) for mod, name, fn in swaps
                if name not in keep]
     for patch in patches:
@@ -428,12 +437,8 @@ def profile_call(fn, label: str, card: str, top: int = 10):
 
 def train_shapes(config, t: int):
     """Per launch of one train step: the fused K2+K3 (t_in, c, stride) as
-    K1's;
-    K5 (t, c, d) as K4's; K6 (t, channels) on each unit's input and on
-    its cotangent."""
-    k1, k4 = forward_shapes(config, t)
-    k6 = [shape for t_, c, d in k4 for shape in ((t_, c), (t_, d))]
-    return k1, k4, k6
+    K1's; K5 and K6 (t, c, d) as K4's."""
+    return forward_shapes(config, t)
 
 
 def k23_cost_ms(n, t_in, c, stride, itemsize=4):
@@ -445,10 +450,13 @@ def k23_cost_ms(n, t_in, c, stride, itemsize=4):
     return moved / HBM_BYTES_PER_S * 1e3, 6.0 * x / FP32_SIMT_FLOPS * 1e3
 
 
-def k6_cost_ms(r, c, in_size=4):
-    """K6: read each element once, write it once in fp32."""
-    moved = r * V * c * (in_size + 4)
-    return moved / HBM_BYTES_PER_S * 1e3, r * V * c / FP32_SIMT_FLOPS * 1e3
+def k6_cost_ms(r, c, d, itemsize=4, flops_per_s=TF32_3X_FLOPS):
+    """K6: read x, the cotangent, gate and W once, write dgate, dW and
+    dbias once; 2*R*V*C*D flops at ``flops_per_s`` (fp32-accurate
+    products: the 3xTF32 rate; of bf16 inputs: exact at the bf16 rate)."""
+    moved = (r * V * c + r * V * d) * itemsize + (2 * (V * c + c * d) + d) * 4
+    flops = 2.0 * r * V * c * d
+    return moved / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
 
 
 def shift_conv_transpose_library(g, ypos, stride: int, t_in: int):
@@ -551,22 +559,47 @@ def check_fused_backward(x, g, ypos, stride: int, label: str):
     return err, float(diff.max()), int((~clear).sum())
 
 
+def check_wgrad(x, g, gate, w, label: str) -> float:
+    """K6 vs its plain version on one input: dgate, dW and dbias each
+    within WGRAD_TOL of its scale (another summation order over R, and
+    3xTF32 products for fp32 inputs; bf16 inputs multiply exactly on both
+    sides), and a second launch bit-equal.  Returns the largest max |err|
+    of the three."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+
+    got = sk.shift_gcn_wgrad(x, g, gate, w)
+    again = sk.shift_gcn_wgrad(x, g, gate, w)
+    want = ss.shift_gcn_wgrad_reference(x, g, gate, w)
+    torch.cuda.synchronize()
+    worst = 0.0
+    for name, a, b, ref in zip(("dgate", "dW", "dbias"), got, again, want):
+        err, scale = max_err(a, ref)
+        if not err <= WGRAD_TOL * scale:
+            fail(f"K6 {label}: {name} max|err| {err:.3g} > "
+                 f"{WGRAD_TOL * scale:.3g}")
+        if not torch.equal(a, b):
+            fail(f"K6 {label}: {name} differs between two launches")
+        worst = max(worst, err)
+    return worst
+
+
 def check_backward_kernels(config, gen, rng, dev):
     """Phase 7: each backward kernel vs its plain version at every launch
     shape of one train step, fp32 and bf16; the fused K2+K3 also with
     shifts far outside its staged window, with 1-element lanes and at
-    V=144 (K4's largest), where fewer frames fit in shared memory.
-    Returns the fp32 max |err| per kernel (the fused one's over dx and
-    gy_raw)."""
+    V=144 (K4's largest), where fewer frames fit in shared memory; K6 also
+    at V=144, where a block takes a group of the joints.  Returns the fp32
+    max |err| per kernel (the fused one's over dx and gy_raw)."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
 
-    k1_shapes, k4_shapes, k6_shapes = train_shapes(config, T_WINDOW)
+    k1_shapes, k4_shapes = train_shapes(config, T_WINDOW)
     errs = {}
     for dtype in (torch.float32, torch.bfloat16):
         name = str(dtype)[6:]
         worst = {"temporal_shift_backward": 0.0, "shift_gcn_dx": 0.0,
-                 "shear_in": 0.0}
+                 "shift_gcn_wgrad": 0.0}
         gy_worst = 0.0
         ties = channels = 0
         cases = [(shape, "U(-1, 1)") for shape in sorted(set(k1_shapes))]
@@ -615,13 +648,20 @@ def check_backward_kernels(config, gen, rng, dev):
                 fail(f"K5 {name} T={t} C={c} D={d}: max|err| {err:.3g} > "
                      f"{tol:.3g}")
             worst["shift_gcn_dx"] = max(worst["shift_gcn_dx"], err)
-        for t, c in sorted(set(k6_shapes)):
-            x = torch.randn(N_WINDOWS * t, V, c, generator=gen,
-                            device=dev).to(dtype)
-            # a gather and a widening to fp32: exact
-            err, _ = max_err(sk.shear_in(x), ss.shear_in_reference(x))
-            if err != 0.0:
-                fail(f"K6 {name} T={t} C={c}: max|err| {err:.3g} != 0")
+        # K6 at every train shape (unit 1's C=3 among them), and at V=144
+        wide_k6 = (T_WINDOW // 4, 128, 128, 144)
+        for t, c, d, v in [(*shape, V) for shape in sorted(set(k4_shapes))
+                           ] + [wide_k6]:
+            r = N_WINDOWS * t
+            x = torch.randn(r, v, c, generator=gen, device=dev).to(dtype)
+            g = torch.randn(r, v, d, generator=gen, device=dev).to(dtype)
+            gate = torch.tanh(torch.randn(v, c, generator=gen,
+                                          device=dev)) + 1.0
+            w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+            worst["shift_gcn_wgrad"] = max(
+                worst["shift_gcn_wgrad"],
+                check_wgrad(x, g, gate, w, f"{name} T={t} C={c} D={d} V={v}"))
+            del x, g
         torch.cuda.synchronize()
         print(f"[k2k3] {name}: fused backward at {len(set(k1_shapes))} train "
               f"shapes (T, C, s) {sorted(set(k1_shapes))}, at {far} with "
@@ -634,8 +674,10 @@ def check_backward_kernels(config, gen, rng, dev):
               "launches")
         print(f"[k5k6] {name}: K5 at {len(set(k4_shapes))} shapes (T, C, D) "
               f"{sorted(set(k4_shapes))} max|err| "
-              f"{worst['shift_gcn_dx']:.3g}; K6 at {len(set(k6_shapes))} "
-              "shapes, exact")
+              f"{worst['shift_gcn_dx']:.3g}; K6 at the same shapes and at "
+              f"(T, C, D, V) {wide_k6}: max|err| of dgate, dW, dbias "
+              f"{worst['shift_gcn_wgrad']:.3g} (tol {WGRAD_TOL:g} of "
+              "scale), bit-equal across two launches")
         if dtype == torch.float32:
             # the fused kernel's row: the larger of its two outputs' errors
             errs = dict(worst, temporal_shift_backward=max(
@@ -892,14 +934,16 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
     from shift_gcn_torch.ops import spatial_shift as ss
     from shift_gcn_torch.ops import temporal_shift as ts
 
-    k1_shapes, k4_shapes, k6_shapes = train_shapes(config, T_WINDOW)
+    k1_shapes, k4_shapes = train_shapes(config, T_WINDOW)
     totals = {k: [0.0] * 6 for k in ("temporal_shift_backward",
-                                     "shift_gcn_dx", "shear_in")}
+                                     "shift_gcn_dx", "shift_gcn_wgrad")}
     bf16 = dict.fromkeys(totals, 0.0)
     k5_extra = {"simt": 0.0, "bound_bf16": 0.0}
     # the fused K2+K3: bf16 bound; fp32 and bf16 times at ypos U(-7, 7)
     k23_extra = {"bound_bf16": 0.0, "wide": 0.0, "wide_bf16": 0.0}
-    k6_bound_bf16 = 0.0
+    # K6 on bf16 inputs: bound at the 3xTF32 rate and at the bf16 rate,
+    # the library composition's time
+    k6_extra = {"bound_bf16": 0.0, "bound_bf16_rate": 0.0, "library": 0.0}
 
     def add(kernel, count, ms, plain, lib, cost, ms_bf16):
         for i, val in enumerate((ms, plain, max(cost), lib) + cost):
@@ -967,29 +1011,47 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
         k5_extra["simt"] += count * k4_simt_ms(r, d, c)
         k5_extra["bound_bf16"] += count * max(k4_cost_ms(r, d, c, itemsize=2))
         del g, gb
-    for t, c in sorted(set(k6_shapes)):
-        count = k6_shapes.count((t, c))
+    for t, c, d in sorted(set(k4_shapes)):
+        count = k4_shapes.count((t, c, d))
         r = N_WINDOWS * t
         x = torch.randn(r, V, c, generator=gen, device=dev)
-        xb = x.bfloat16()
-        idx_in = torch.from_numpy(spatial_flat_index(c, +1)).to(dev)
+        g = torch.randn(r, V, d, generator=gen, device=dev)
+        xb, gb = x.bfloat16(), g.bfloat16()
+        gate = torch.tanh(torch.randn(V, c, generator=gen, device=dev)) + 1
+        w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+        idx_c = torch.from_numpy(spatial_flat_index(c, +1)).to(dev)
+        idx_d = torch.from_numpy(spatial_flat_index(d, +1)).to(dev)
 
-        def library():
-            return x.view(r, V * c).index_select(1, idx_in).view(r, V, c)
+        def library(xx, gg):
+            # the composition K6 replaced: two index_select shears into
+            # fp32, one per-joint fp32 bmm, three reductions
+            sx = xx.view(r, V * c).index_select(1, idx_c).view(
+                r, V, c).float()
+            gz = gg.view(r, V * d).index_select(1, idx_d).view(
+                r, V, d).float()
+            m = torch.bmm(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
+            return ((m * w[None]).sum(-1), (m * gate[:, :, None]).sum(0),
+                    gz.sum((0, 1)))
 
-        err, _ = max_err(library(), ss.shear_in_reference(x))
-        if err != 0.0:
-            fail(f"K6 library yardstick disagrees ({err:.3g})")
-        add("shear_in", count,
-            time_ms(lambda: sk.shear_in(x)),
-            time_ms(lambda: ss.shear_in_reference(x)),
-            time_ms(library), k6_cost_ms(r, c),
-            time_ms(lambda: sk.shear_in(xb)))
-        k6_bound_bf16 += count * max(k6_cost_ms(r, c, in_size=2))
-        del x, xb
+        for got, want in zip(library(x, g),
+                             ss.shift_gcn_wgrad_reference(x, g, gate, w)):
+            err, scale = max_err(got, want)
+            if not err <= 1e-4 * scale:
+                fail(f"K6 library yardstick disagrees ({err:.3g})")
+        add("shift_gcn_wgrad", count,
+            time_ms(lambda: sk.shift_gcn_wgrad(x, g, gate, w)),
+            time_ms(lambda: ss.shift_gcn_wgrad_reference(x, g, gate, w)),
+            time_ms(lambda: library(x, g)), k6_cost_ms(r, c, d),
+            time_ms(lambda: sk.shift_gcn_wgrad(xb, gb, gate, w)))
+        k6_extra["bound_bf16"] += count * max(k6_cost_ms(r, c, d, 2))
+        k6_extra["bound_bf16_rate"] += count * max(
+            k6_cost_ms(r, c, d, 2, BF16_FLOPS))
+        k6_extra["library"] += count * time_ms(lambda: library(xb, gb))
+        del x, g, xb, gb
     torch.cuda.empty_cache()
     per_step = {"temporal_shift_backward": len(k1_shapes),
-                "shift_gcn_dx": len(k4_shapes), "shear_in": len(k6_shapes)}
+                "shift_gcn_dx": len(k4_shapes),
+                "shift_gcn_wgrad": len(k4_shapes)}
     extras = {
         "temporal_shift_backward":
             f", at bf16 I/O {k23_extra['bound_bf16']:.4f}; at ypos "
@@ -997,7 +1059,10 @@ def time_backward_kernels(config, gen, rng, dev, card: str):
             f"{k23_extra['wide_bf16']:.4f} bf16",
         "shift_gcn_dx": f", at bf16 I/O {k5_extra['bound_bf16']:.4f}, "
                         f"fp32 SIMT {k5_extra['simt']:.4f}",
-        "shear_in": f", at bf16 input {k6_bound_bf16:.4f}"}
+        "shift_gcn_wgrad":
+            f", at bf16 I/O {k6_extra['bound_bf16']:.4f} (3xTF32 rate) / "
+            f"{k6_extra['bound_bf16_rate']:.4f} (bf16 rate), library at "
+            f"bf16 I/O {k6_extra['library']:.4f}"}
     for kernel, (ms, plain, bound, lib, bytes_ms, ops_ms) in totals.items():
         by = "operations" if ops_ms > bytes_ms else "bytes"
         extra = extras[kernel]
@@ -1096,11 +1161,12 @@ def main() -> None:
           f"{time.perf_counter() - t0:.1f} s")
     sass = sass_report(str(kernels.build_all()["shift_gcn"]))
     if sass is None:
-        print("[build] no cuobjdump: the K4/K5 HMMA count is not read")
+        print("[build] no cuobjdump: the K4/K5/K6 HMMA count is not read")
     else:
-        if len(sass) != 8 or any(h == 0 for h, _ in sass.values()):
-            fail(f"K4/K5 functions without tensor-core instructions: {sass}")
-        print("[build] K4/K5 functions, HMMA instructions / registers: "
+        if len(sass) != 10 or any(h == 0 for h, _ in sass.values()):
+            fail(f"K4/K5/K6 functions without tensor-core instructions: "
+                 f"{sass}")
+        print("[build] K4/K5/K6 functions, HMMA instructions / registers: "
               + ", ".join(f"{k} {h}/{r}" for k, (h, r) in sass.items()))
 
     # 3./4. each kernel vs its plain version at the forward's launches --
@@ -1339,7 +1405,8 @@ def main() -> None:
           "run; the three backward kernels (the fused K2+K3, K5, K6) per "
           f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
           "the Trainer run, the fused kernel's library_ms the sum of two "
-          "calls; summary: phases 6, 8, 9 and 10")
+          "calls, K6's that of index_select x2 + bmm + three reductions; "
+          "summary: phases 6, 8, 9 and 10")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))

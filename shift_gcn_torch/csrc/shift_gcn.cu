@@ -1,12 +1,13 @@
 // Fused spatial Shift-GCN transform: forward (K4), input gradient (K5)
-// and the shear recompute of the weight gradients (K6).
+// and the weight gradients (K6).
 //
 // Replaces the Pallas TPU kernels of the reference package,
 // ops/pallas/shift_gcn_kernel.py: _fwd_kernel reached through
 // fused_shift_gcn / _run_fwd (K4), the same kernel reached through
 // _run_dx for the input gradient (K5), and _shear_gate_kernel reached
-// through _run_shear_gate from the backward (K6).  For x (R, V, C),
-// gate (V, C), W (C, D), bias (D):
+// through _run_shear_gate from the backward, with the XLA einsums of
+// _fused_bwd that consume it (K6).  For x (R, V, C), gate (V, C),
+// W (C, D), bias (D):
 //
 //   h[r, u, c]   = x[r, (u + c) % V, c] * gate[u, c]       (shear in, gate)
 //   z[r, u, d]   = sum_c h[r, u, c] * W[c, d] + bias[d]
@@ -17,20 +18,25 @@
 //   dz[r, u, c]  = sum_d g[r, (u + d) % V, d] * W[c, d]
 //   dx[r, w, c]  = dz[r, u, c] * gate[u, c],  u = (w - c) % V
 //
-// K6: out[r, u, c] = x[r, (u + c) % V, c] in fp32.  The reference's
-// shear-gate kernel also multiplies by gate[u, c]; here that multiply is
-// folded into the weight-gradient reduction over the (V, C, D) per-joint
-// product (ops/shift_gcn_kernel.py), so K6 is the bare shear.
+// K6, from the per-joint product over all frames
 //
-// fp32 accumulation; x, g and outputs are fp32 or bf16, gate/W/bias fp32.
+//   M[u, c, d]   = sum_r x[r, (u + c) % V, c] * g[r, (u + d) % V, d]
+//   dW[c, d]     = sum_u gate[u, c] * M[u, c, d]
+//   dgate[u, c]  = sum_d M[u, c, d] * W[c, d]
+//   dbias[d]     = sum_{r, v} g[r, v, d]   (the shear permutes a frame)
+//
+// dgate comes from the ungated shear, never as h / gate.
+//
+// fp32 accumulation; x and g (and K4/K5's outputs) are fp32 or bf16,
+// gate/W/bias and K6's outputs fp32.
 //
 // Bound on the H100.  K4 and K5 do 2*R*V*C*D flops on the tensor cores
 // with fp32 accuracy (3xTF32: three TF32 products per multiply-add, so
 // 495 / 3 = 165 TFLOP/s) and move (R*V*C + R*V*D) activations once.  The
 // larger of the two times is the bound: at the forward's shapes the
 // operations term for C, D >= 128 and the bytes term for the narrow
-// layers (C=3, and D=64 at bf16 I/O).  K6 is bound by memory: one load
-// and one store per element.
+// layers (C=3, and D=64 at bf16 I/O).  K6 does the same 2*R*V*C*D flops
+// on the same two activations, so its bound is K4's at the same shapes.
 //
 // K4/K5 design: one template, shift_gcn_mma_kernel<T, kDx, kBN>; K5 is
 // its kDx instantiation (A = the cotangent, B = W^T, the gate multiplies
@@ -97,18 +103,68 @@
 // slower: the build, not the mma, limits the kernel, so a cheaper build
 // comes before any overlap.
 //
-// K6 design: one thread per output element, grid-stride; the output is
-// written in order (coalesced), the sheared read stays inside one frame
-// (V*C elements, cache-resident).  The output is fp32 for fp32 or bf16
-// input: it feeds the weight-gradient products, which run in fp32.
-
+// K6 design: for each joint u, M[u] is a (C x D) product over a very deep
+// K (R up to 19200 frames) with tiny M and N, so the reduction over R is
+// split across blocks.  One launch is two kernels:
+//   partial  block (frame chunk p, joint group, 32-channel c tile,
+//            32-channel d tile); 11 warps at most, each owning up to 3
+//            joints of the group (33 joints a group: the whole frame at
+//            V <= 33) and their 32 x 32 M tiles in registers (96 fp32
+//            accumulators a thread).  Each stage copies kF whole frames
+//            (8 fp32, 16 bf16) of the x c tile and the g d tile with
+//            16-byte cp.async as they lie into a 2-stage ring (1 stage
+//            where two do not fit: V > 33), so the slab is read from
+//            device memory once per (tile pair) and holds every joint's
+//            diagonal.  The shear is applied when a warp loads its
+//            fragments from the slab: joint u0 + uu, channel c0 + cc
+//            reads staged row uu + cc (mod the staged window).  Rows are
+//            32 elements and each staged frame is padded by 8, which
+//            keeps those reads free of bank conflicts in fp32 (2-way in
+//            bf16).  Each staged element feeds exactly one joint, so it
+//            is loaded and split once, in registers.  mma.sync with fp32
+//            accumulation, M = c, N = d, K = frames: fp32 inputs run
+//            m16n8k8 TF32 three times a k8 step (small*big, big*small,
+//            big*big, as K4); bf16 inputs run one m16n8k16 bf16 mma a
+//            stage (products exact in fp32), a register packing two
+//            frames.  The tensor cores' fp32 accumulator does not round
+//            to nearest (it drops low bits, biased toward zero: a first
+//            build that accumulated a whole chunk of up to 2400 frames in
+//            it was off its plain version by up to 1.9e-5 of scale in
+//            fp32, growing with the chunk), so each warp sums one
+//            stage's products per joint from zero and adds them to its
+//            accumulators in fp32.  Every warp runs all its joints and
+//            tiles without a branch (a tile past C or D multiplies zeros,
+//            a missing joint repeats joint 0, and the epilogue drops
+//            both): with the branches each tile was a basic block of its
+//            own, which kept loads from being hoisted, and fp32 ran about
+//            a third slower.  The epilogue forms the block's share of
+//            dgate (its joints, its d tile: sum over d of M * W, the four
+//            lanes of a quad summed in a fixed butterfly), of dW (sum
+//            over its joints of gate * M, per warp, then over the warps
+//            in order) and, in the blocks of c tile 0, of dbias (the B
+//            values summed as they are loaded), into scratch.  No M is
+//            written out.
+//   final    sums the partials in a fixed order: over the frame chunks
+//            and then the joint groups (dW, dbias) or d tiles (dgate).
+// No floating-point atomics: two launches on one input are bit-equal.
+// The split of R (parts, frames a chunk) is chosen by the wrapper from
+// the shapes alone (about 132 blocks, one wave on an H100), so the
+// summation order does not depend on the card.  Bound: as K4 (the
+// operations term for the wide layers).  The 32 x 32 tile is the
+// accumulator limit at 33 joints (96 of the 168 registers a thread can
+// have at 11 warps).  It re-reads each x slab D/32 times and each g slab
+// C/32 times from L2 (the blocks of one chunk run side by side), about
+// 13.8 GB a fp32 train step, and that staging, not the tensor cores or
+// the fragment build, takes most of the kernel's time on an H100: a third
+// ring stage, or one bulk copy (the copy engine) a staged row in place of
+// the 16-byte cp.async, did not speed it up.  Fewer L2 bytes (larger
+// tiles, or blocks of a cluster sharing a slab) are the lever.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kThreads = 256;     // K6 block
 constexpr int kRows = 144;        // frames * V rows per tile, at most
 constexpr int kK = 32;            // input channels per pipeline stage
 constexpr int kMmaThreads = 384;  // 12 warps: 3 along rows x 4 along columns
@@ -226,6 +282,25 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0,
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// bf16 inputs: D += A * B, products exact in fp32, fp32 accumulation
+__device__ __forceinline__ void mma_bf16(float (&c)[4], uint32_t a0,
+                                         uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+// the two bf16 values of a packed pair, widened to fp32 (exact)
+__device__ __forceinline__ float bf16_lo(uint32_t pair) {
+  return __uint_as_float(pair << 16);
+}
+__device__ __forceinline__ float bf16_hi(uint32_t pair) {
+  return __uint_as_float(pair & 0xffff0000u);
 }
 
 // Store the tile's rows of z (staged in zs) with the out-shear folded in:
@@ -584,19 +659,439 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
   cp_async_wait<0>();
 }
 
+// ---------------------------------------------------------------------------
+// K6: the weight gradients (see the design note at the top)
+// ---------------------------------------------------------------------------
+
+constexpr int kWgTile = 32;       // channels of a c tile and of a d tile
+constexpr int kWgJoints = 3;      // joints a warp
+constexpr int kWgMaxWarps = 11;
+constexpr int kWgGroup = kWgMaxWarps * kWgJoints;  // joints a block, at most
+constexpr int kWgLd = 32;         // staged row stride, elements
+constexpr int kWgFramePad = 8;    // elements after each staged frame
+constexpr int kWgRedLd = kWgTile + 1;
+constexpr int kWgFinalThreads = 256;
+constexpr int kSmemMax = 232448;  // dynamic shared memory a block, sm_90
+
+// frames a pipeline stage: one mma k step, k8 TF32 (fp32) or k16 (bf16)
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-shear_in_kernel(const T* __restrict__ x, float* __restrict__ out,
-                int64_t total, int v, int c) {
-  const int64_t vc = static_cast<int64_t>(v) * c;
-  for (int64_t i = blockIdx.x * static_cast<int64_t>(kThreads) + threadIdx.x;
-       i < total; i += static_cast<int64_t>(gridDim.x) * kThreads) {
-    const int64_t frame = i / vc;
-    const int uc = static_cast<int>(i - frame * vc);
-    const int u = uc / c;
-    const int ch = uc - u * c;
-    out[i] = load_f(x + frame * vc + static_cast<int64_t>((u + ch) % v) * c +
-                    ch);
+__host__ __device__ constexpr int wg_frames() {
+  return sizeof(T) == 4 ? 8 : 16;
+}
+
+struct WgradGeom {
+  int r, v, c, d;
+  int groups, joints, window;  // joint groups, joints a group, rows staged
+  int c_tiles, d_tiles;
+  int parts, chunk;            // frame chunks, frames a chunk
+  int warps, stages;
+  bool vec_x, vec_g;
+};
+
+// Scratch (fp32): dW partials [parts][groups][C][D], then dgate partials
+// [parts][d_tiles][V][C], then dbias partials [parts][groups][D].
+__host__ __device__ inline int64_t wg_dgate_offset(const WgradGeom& s) {
+  return static_cast<int64_t>(s.parts) * s.groups * s.c * s.d;
+}
+__host__ __device__ inline int64_t wg_bias_offset(const WgradGeom& s) {
+  return wg_dgate_offset(s) +
+         static_cast<int64_t>(s.parts) * s.d_tiles * s.v * s.c;
+}
+__host__ __device__ inline int64_t wg_scratch(const WgradGeom& s) {
+  return wg_bias_offset(s) + static_cast<int64_t>(s.parts) * s.groups * s.d;
+}
+__host__ __device__ inline int64_t wg_blocks(const WgradGeom& s) {
+  return static_cast<int64_t>(s.parts) * s.groups * s.c_tiles * s.d_tiles;
+}
+// Staged frame stride, elements: the pad puts frame t's rows 8 banks from
+// frame t - 1's, so a fragment load (lanes along 8 rows and 4 frames)
+// meets no bank conflict in fp32 (2-way in bf16).
+__host__ __device__ inline int wg_fs(const WgradGeom& s) {
+  return s.window * kWgLd + kWgFramePad;
+}
+
+// Copy kF frames (from f0; frames at or past f_end read zero) of the
+// window rows (base + slot) % V, slot < window, channels [ch0, ch0 + 32)
+// of src (R, V, n) into dst [frame][slot][kWgLd], frames wg_fs(s) apart.
+// Channels past n and the frame pads are never written: the ring is zeroed
+// once.  Lanes run along a row's pieces (16-byte vectors, or elements);
+// each thread keeps its piece and steps its (frame, slot) without a
+// division.
+template <typename T>
+__device__ __forceinline__ void wg_stage(const T* __restrict__ src, T* dst,
+                                         int f0, int f_end, int base,
+                                         int ch0, int n, const WgradGeom& s,
+                                         bool vec) {
+  constexpr int kF = wg_frames<T>();
+  constexpr int kVec = vec_elems<T>();
+  const int width = min(kWgTile, n - ch0);
+  const int pieces = vec ? width / kVec : width;  // n % kVec == 0 if vec
+  const int step = blockDim.x / pieces;  // rows a pass
+  if (static_cast<int>(threadIdx.x) >= step * pieces) return;
+  const int j = threadIdx.x % pieces;
+  int m = threadIdx.x / pieces;
+  int f = m / s.window;
+  int slot = m - f * s.window;
+  const int ch = ch0 + (vec ? j * kVec : j);
+  T* out = dst + (vec ? j * kVec : j);
+  const int fs = wg_fs(s);
+  for (; m < kF * s.window; m += step) {
+    int row = base + slot;
+    row -= row >= s.v ? s.v : 0;
+    const bool in = f0 + f < f_end;
+    const T* from =
+        in ? src + (static_cast<int64_t>(f0 + f) * s.v + row) * n + ch : src;
+    if (vec) {
+      cp_async16(out + f * fs + slot * kWgLd, from, in);
+    } else if constexpr (sizeof(T) == 4) {
+      cp_async4(out + f * fs + slot * kWgLd, from, in);
+    } else {
+      out[f * fs + slot * kWgLd] = in ? *from : zero_of<T>();
+    }
+    slot += step;
+    while (slot >= s.window) {
+      slot -= s.window;
+      ++f;
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kWgMaxWarps * 32, 1)
+wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
+                     const float* __restrict__ gate,
+                     const float* __restrict__ w, float* __restrict__ part,
+                     WgradGeom s) {
+  constexpr int kF = wg_frames<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int fs = wg_fs(s);
+  const int slab = kF * fs;  // elements of one staged slab
+  T* ring = reinterpret_cast<T*>(smem);  // slot k: x slab, then g slab
+
+  int b = blockIdx.x;
+  const int dti = b % s.d_tiles;
+  b /= s.d_tiles;
+  const int cti = b % s.c_tiles;
+  b /= s.c_tiles;
+  const int jg = b % s.groups;
+  const int p = b / s.groups;
+  const int u0 = jg * s.joints;
+  const int nj = min(s.joints, s.v - u0);
+  const int c0 = cti * kWgTile;
+  const int d0 = dti * kWgTile;
+  const int f_begin = p * s.chunk;
+  const int f_end = min(s.r, f_begin + s.chunk);
+  const int steps = f_end > f_begin ? (f_end - f_begin + kF - 1) / kF : 0;
+  const int base_x = (u0 + c0) % s.v;
+  const int base_g = (u0 + d0) % s.v;
+  const bool want_bias = cti == 0;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int gq = lane >> 2;
+  const int tq = lane & 3;
+
+  {  // channels past C / D are never copied: zero the ring once
+    uint4* z = reinterpret_cast<uint4*>(smem);
+    const int n16 = s.stages * 2 * slab * static_cast<int>(sizeof(T)) / 16;
+    for (int i = tid; i < n16; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  __syncthreads();
+
+  auto issue = [&](int st, int slot) {
+    T* xs = ring + 2 * slot * slab;
+    const int f0 = f_begin + st * kF;
+    wg_stage(x, xs, f0, f_end, base_x, c0, s.c, s, s.vec_x);
+    wg_stage(g, xs + slab, f0, f_end, base_g, d0, s.d, s, s.vec_g);
+  };
+
+  // the staged slot of fragment row / column k of joint uu is uu + k (mod
+  // the window); k mod the window is taken once here
+  int cm[2][2], dm[4];
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) cm[mi][h] = (mi * 16 + gq + 8 * h) % s.window;
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) dm[ni] = (ni * 8 + gq) % s.window;
+  // Every warp runs both m16 tiles and all four n8 tiles, without a
+  // branch: a tile past C or D multiplies the ring's zeros, and the
+  // epilogue drops its channels.
+
+  // the warp's joints; a warp short of kWgJoints runs joint 0 in the dead
+  // slot, so the loop has no branch, and drops that slot's sums
+  int uus[kWgJoints];
+  bool live[kWgJoints];
+#pragma unroll
+  for (int jj = 0; jj < kWgJoints; ++jj) {
+    const int uu = warp + nw * jj;
+    live[jj] = uu < nj;
+    uus[jj] = live[jj] ? uu : 0;
+  }
+
+  float acc[kWgJoints][2][4][4];
+#pragma unroll
+  for (int jj = 0; jj < kWgJoints; ++jj)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[jj][mi][ni][q] = 0.0f;
+  float bacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+
+  // Two stages: one is copied while the other is multiplied (one slot, the
+  // copy and the multiply in turn, where two do not fit).
+  const bool two = s.stages == 2;
+  if (steps > 0) issue(0, 0);
+  cp_async_commit();
+  for (int st = 0; st < steps; ++st) {
+    cp_async_wait<0>();
+    // stage st has landed, and every warp is done with the other slot
+    __syncthreads();
+    if (two) {
+      if (st + 1 < steps) issue(st + 1, (st + 1) & 1);
+      cp_async_commit();
+    }
+    const T* xs = ring + 2 * (two ? st & 1 : 0) * slab;
+    const T* gs = xs + slab;
+#pragma unroll
+    for (int jj = 0; jj < kWgJoints; ++jj) {
+      const int uu = uus[jj];
+      // this stage's share of the joint's M, summed by the tensor cores
+      // from zero, then added to the block's sum in fp32 (see the design
+      // note: the tensor cores' accumulator does not round to nearest)
+      float sa[2][4][4];
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) sa[mi][ni][q] = 0.0f;
+      if constexpr (sizeof(T) == 4) {
+        // one k8 step: frames tq (k rows t) and tq + 4 (k rows t + 4)
+        const int row_lo = tq * fs;
+        const int row_hi = row_lo + 4 * fs;
+        // B = the sheared cotangent: b0 = B[t][g], b1 = B[t + 4][g]
+        uint32_t bbig[4][2], bsmall[4][2];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          int sl = uu + dm[ni];
+          sl -= sl >= s.window ? s.window : 0;
+          const int col = ni * 8 + gq;
+          const float v0 = gs[row_lo + sl * kWgLd + col];
+          const float v1 = gs[row_hi + sl * kWgLd + col];
+          if (want_bias && live[jj]) bacc[ni] += v0 + v1;
+          split(v0, bbig[ni][0], bsmall[ni][0]);
+          split(v1, bbig[ni][1], bsmall[ni][1]);
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // A = the sheared input, rows c: a0 (g, t), a1 (g + 8, t),
+          // a2 (g, t + 4), a3 (g + 8, t + 4)
+          uint32_t abig[4], asmall[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int h = q & 1;
+            int sl = uu + cm[mi][h];
+            sl -= sl >= s.window ? s.window : 0;
+            split(xs[(q >> 1 ? row_hi : row_lo) + sl * kWgLd + mi * 16 + gq +
+                     8 * h],
+                  abig[q], asmall[q]);
+          }
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni) {
+            float(&c)[4] = sa[mi][ni];
+            mma_tf32(c, asmall[0], asmall[1], asmall[2], asmall[3],
+                     bbig[ni][0], bbig[ni][1]);
+            mma_tf32(c, abig[0], abig[1], abig[2], abig[3], bsmall[ni][0],
+                     bsmall[ni][1]);
+            mma_tf32(c, abig[0], abig[1], abig[2], abig[3], bbig[ni][0],
+                     bbig[ni][1]);
+          }
+        }
+      } else {
+        // one m16n8k16 step over the stage's 16 frames, k index j = frame
+        // j: a register packs the pair of frames (2t, 2t + 1) or
+        // (2t + 8, 2t + 9), the lower frame in the low half
+        const uint16_t* xh = reinterpret_cast<const uint16_t*>(xs);
+        const uint16_t* gh = reinterpret_cast<const uint16_t*>(gs);
+        const int row_lo = 2 * tq * fs;
+        const int row_hi = row_lo + 8 * fs;
+        auto pair = [&](const uint16_t* slab_h, int at) {
+          const uint32_t lo = slab_h[at];
+          const uint32_t hi = slab_h[at + fs];
+          return lo | (hi << 16);
+        };
+        // B = the sheared cotangent: b0 = B[2t, 2t + 1][g],
+        // b1 = B[2t + 8, 2t + 9][g]
+        uint32_t bq[4][2];
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+          int sl = uu + dm[ni];
+          sl -= sl >= s.window ? s.window : 0;
+          const int col = ni * 8 + gq;
+          bq[ni][0] = pair(gh, row_lo + sl * kWgLd + col);
+          bq[ni][1] = pair(gh, row_hi + sl * kWgLd + col);
+          if (want_bias && live[jj])
+            bacc[ni] += (bf16_lo(bq[ni][0]) + bf16_hi(bq[ni][0])) +
+                        (bf16_lo(bq[ni][1]) + bf16_hi(bq[ni][1]));
+        }
+#pragma unroll
+        for (int mi = 0; mi < 2; ++mi) {
+          // A = the sheared input, rows c: a0 (g, 2t..), a1 (g + 8, 2t..),
+          // a2 (g, 2t + 8..), a3 (g + 8, 2t + 8..)
+          uint32_t a[4];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int h = q & 1;
+            int sl = uu + cm[mi][h];
+            sl -= sl >= s.window ? s.window : 0;
+            a[q] = pair(xh, (q >> 1 ? row_hi : row_lo) + sl * kWgLd +
+                                mi * 16 + gq + 8 * h);
+          }
+#pragma unroll
+          for (int ni = 0; ni < 4; ++ni)
+            mma_bf16(sa[mi][ni], a[0], a[1], a[2], a[3], bq[ni][0],
+                     bq[ni][1]);
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) acc[jj][mi][ni][q] += sa[mi][ni][q];
+    }
+    if (!two) {
+      __syncthreads();  // the one slot is free
+      if (st + 1 < steps) issue(st + 1, 0);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the epilogue reuses it
+
+  // accumulator q of acc[jj][mi][ni]: channel c0 + mi*16 + gq + 8*(q >> 1),
+  // output channel d0 + ni*8 + 2*tq + (q & 1)
+  constexpr unsigned kAll = 0xffffffffu;
+  float* dgate_part = part + wg_dgate_offset(s);
+  // dgate: per joint, sum over the tile's d of M * W; the quad's four
+  // lanes (its d columns) summed in a fixed butterfly
+#pragma unroll
+  for (int jj = 0; jj < kWgJoints; ++jj) {
+    if (!live[jj]) break;
+    const int uu = uus[jj];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int c = c0 + mi * 16 + gq + 8 * h;
+        float val = 0.0f;
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int d = d0 + ni * 8 + 2 * tq + e;
+            const float wv = c < s.c && d < s.d ? __ldg(w + c * s.d + d)
+                                                : 0.0f;
+            val += acc[jj][mi][ni][2 * h + e] * wv;
+          }
+        }
+        val += __shfl_xor_sync(kAll, val, 1);
+        val += __shfl_xor_sync(kAll, val, 2);
+        if (tq == 0 && c < s.c)
+          dgate_part[((static_cast<int64_t>(p) * s.d_tiles + dti) * s.v +
+                      u0 + uu) * s.c + c] = val;
+      }
+    }
+  }
+  // dW: per warp, sum over its joints of gate * M; dbias: per warp, the
+  // quad's frames summed in a fixed butterfly; both then over the warps
+  float* red = reinterpret_cast<float*>(smem);  // [warp][32][kWgRedLd]
+  float* red_b = red + nw * kWgTile * kWgRedLd;  // [warp][32]
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int cl = mi * 16 + gq + 8 * h;
+      float gv[kWgJoints];
+#pragma unroll
+      for (int jj = 0; jj < kWgJoints; ++jj)
+        gv[jj] = live[jj] && c0 + cl < s.c
+                     ? __ldg(gate + (u0 + uus[jj]) * s.c + c0 + cl)
+                     : 0.0f;
+#pragma unroll
+      for (int ni = 0; ni < 4; ++ni) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float sum = 0.0f;
+#pragma unroll
+          for (int jj = 0; jj < kWgJoints; ++jj)
+            sum += gv[jj] * acc[jj][mi][ni][2 * h + e];
+          red[(warp * kWgTile + cl) * kWgRedLd + ni * 8 + 2 * tq + e] = sum;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int ni = 0; ni < 4; ++ni) {
+    float val = bacc[ni];
+    val += __shfl_xor_sync(kAll, val, 1);
+    val += __shfl_xor_sync(kAll, val, 2);
+    if (tq == 0) red_b[warp * kWgTile + ni * 8 + gq] = val;
+  }
+  __syncthreads();
+  float* dw_part =
+      part + (static_cast<int64_t>(p) * s.groups + jg) * s.c * s.d;
+  for (int e = tid; e < kWgTile * kWgTile; e += blockDim.x) {
+    const int cl = e / kWgTile;
+    const int dl = e % kWgTile;
+    if (c0 + cl >= s.c || d0 + dl >= s.d) continue;
+    float sum = red[cl * kWgRedLd + dl];
+    for (int k = 1; k < nw; ++k)
+      sum += red[(k * kWgTile + cl) * kWgRedLd + dl];
+    dw_part[(c0 + cl) * s.d + d0 + dl] = sum;
+  }
+  if (want_bias && tid < kWgTile && d0 + tid < s.d) {
+    float sum = red_b[tid];
+    for (int k = 1; k < nw; ++k) sum += red_b[k * kWgTile + tid];
+    part[wg_bias_offset(s) + (static_cast<int64_t>(p) * s.groups + jg) * s.d +
+         d0 + tid] = sum;
+  }
+}
+
+// Sum the partials in a fixed order: dW and dbias over (chunk, joint
+// group), dgate over (chunk, d tile).
+__global__ void __launch_bounds__(kWgFinalThreads)
+wgrad_final_kernel(const float* __restrict__ part, float* __restrict__ dgate,
+                   float* __restrict__ dw, float* __restrict__ dbias,
+                   WgradGeom s) {
+  const int64_t ncd = static_cast<int64_t>(s.c) * s.d;
+  const int64_t nvc = static_cast<int64_t>(s.v) * s.c;
+  const int64_t total = ncd + nvc + s.d;
+  const float* dg_part = part + wg_dgate_offset(s);
+  const float* b_part = part + wg_bias_offset(s);
+  for (int64_t i = blockIdx.x * static_cast<int64_t>(kWgFinalThreads) +
+                   threadIdx.x;
+       i < total; i += static_cast<int64_t>(gridDim.x) * kWgFinalThreads) {
+    float sum = 0.0f;
+    if (i < ncd) {
+      for (int k = 0; k < s.parts * s.groups; ++k) sum += part[k * ncd + i];
+      dw[i] = sum;
+    } else if (i < ncd + nvc) {
+      const int64_t j = i - ncd;
+      for (int k = 0; k < s.parts * s.d_tiles; ++k)
+        sum += dg_part[k * nvc + j];
+      dgate[j] = sum;
+    } else {
+      const int64_t j = i - ncd - nvc;
+      for (int k = 0; k < s.parts * s.groups; ++k)
+        sum += b_part[k * s.d + j];
+      dbias[j] = sum;
+    }
   }
 }
 
@@ -656,6 +1151,70 @@ int launch(const void* x, const void* gate, const void* w, const void* bias,
                                           stream);
 }
 
+// The shape of one K6 launch, but for the stage count and the 16-byte
+// paths; false if the arguments are out of range.
+bool wg_geom(int r, int v, int c, int d, int parts, int chunk,
+             WgradGeom& s) {
+  if (v < 1 || v > kRows || c < 1 || d < 1 || r < 0 || parts < 1 ||
+      chunk < 1 || static_cast<int64_t>(parts) * chunk < r)
+    return false;
+  s.r = r;
+  s.v = v;
+  s.c = c;
+  s.d = d;
+  s.groups = (v + kWgGroup - 1) / kWgGroup;
+  s.joints = (v + s.groups - 1) / s.groups;
+  s.window = v < s.joints + kWgTile - 1 ? v : s.joints + kWgTile - 1;
+  s.c_tiles = (c + kWgTile - 1) / kWgTile;
+  s.d_tiles = (d + kWgTile - 1) / kWgTile;
+  s.parts = parts;
+  s.chunk = chunk;
+  s.warps = (s.joints + kWgJoints - 1) / kWgJoints;
+  s.stages = 1;
+  s.vec_x = s.vec_g = false;
+  return wg_blocks(s) <= 0x7fffffff;
+}
+
+template <typename T>
+int launch_wgrad(const void* x, const void* g, const void* gate,
+                 const void* w, void* partial, int64_t scratch, void* dgate,
+                 void* dw, void* dbias, int r, int v, int c, int d, int parts,
+                 int chunk, void* stream) {
+  WgradGeom s;
+  if (!wg_geom(r, v, c, d, parts, chunk, s))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kVec = vec_elems<T>();
+  s.vec_x = c % kVec == 0 && aligned16(x);
+  s.vec_g = d % kVec == 0 && aligned16(g);
+  if (scratch < wg_scratch(s)) return static_cast<int>(cudaErrorInvalidValue);
+  const int stage_bytes =
+      2 * wg_frames<T>() * wg_fs(s) * static_cast<int>(sizeof(T));
+  s.stages = 2 * stage_bytes <= kSmemMax ? 2 : 1;
+  const int red_bytes = s.warps * kWgTile * (kWgRedLd + 1) * 4;
+  const int smem = s.stages * stage_bytes > red_bytes
+                       ? s.stages * stage_bytes
+                       : red_bytes;
+  auto kernel = wgrad_partial_kernel<T>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  kernel<<<static_cast<int>(wg_blocks(s)), s.warps * 32, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(g),
+      static_cast<const float*>(gate), static_cast<const float*>(w),
+      static_cast<float*>(partial), s);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t total = static_cast<int64_t>(c) * d +
+                        static_cast<int64_t>(v) * c + d;
+  const int64_t want = (total + kWgFinalThreads - 1) / kWgFinalThreads;
+  wgrad_final_kernel<<<static_cast<int>(want < 1056 ? want : 1056),
+                       kWgFinalThreads, 0, st>>>(
+      static_cast<const float*>(partial), static_cast<float*>(dgate),
+      static_cast<float*>(dw), static_cast<float*>(dbias), s);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // K4: out (r, v, d) from x (r, v, c), gate (v, c), W (c, d), bias (d).
@@ -680,21 +1239,29 @@ extern "C" int shift_gcn_dx(const void* g, const void* gate, const void* w,
                                        stream);
 }
 
-// K6: out (r, v, c) fp32 = shear_in(x).
-extern "C" int shear_in(const void* x, void* out, int r, int v, int c,
-                        int is_bf16, void* stream) {
-  const int64_t total = static_cast<int64_t>(r) * v * c;
-  if (total == 0) return 0;
-  const int64_t want = (total + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < 132 * 32 ? want : 132 * 32);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* o = static_cast<float*>(out);
-  if (is_bf16) {
-    shear_in_kernel<__nv_bfloat16><<<blocks, kThreads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(x), o, total, v, c);
-  } else {
-    shear_in_kernel<float><<<blocks, kThreads, 0, s>>>(
-        static_cast<const float*>(x), o, total, v, c);
-  }
-  return static_cast<int>(cudaGetLastError());
+// K6: dgate (v, c), dw (c, d), dbias (d), all fp32, from the forward's
+// input x (r, v, c), the cotangent g (r, v, d), gate (v, c) and W (c, d).
+// R is summed in `parts` chunks of `chunk` frames; `partial` is fp32
+// scratch of `scratch` floats, at least shift_gcn_wgrad_scratch(...).
+// Two kernels, one launch.
+extern "C" int shift_gcn_wgrad(const void* x, const void* g, const void* gate,
+                               const void* w, void* partial,
+                               long long scratch, void* dgate, void* dw,
+                               void* dbias, int r, int v, int c, int d,
+                               int parts, int chunk, int is_bf16,
+                               void* stream) {
+  return is_bf16 ? launch_wgrad<__nv_bfloat16>(x, g, gate, w, partial,
+                                               scratch, dgate, dw, dbias, r,
+                                               v, c, d, parts, chunk, stream)
+                 : launch_wgrad<float>(x, g, gate, w, partial, scratch,
+                                       dgate, dw, dbias, r, v, c, d, parts,
+                                       chunk, stream);
+}
+
+// fp32 scratch floats shift_gcn_wgrad needs for these arguments, or -1 if
+// it refuses them.
+extern "C" long long shift_gcn_wgrad_scratch(int r, int v, int c, int d,
+                                             int parts, int chunk) {
+  WgradGeom s;
+  return wg_geom(r, v, c, d, parts, chunk, s) ? wg_scratch(s) : -1;
 }

@@ -35,12 +35,12 @@ KERNELS: Dict[str, str] = {
     "temporal_shift_backward": "temporal_shift",  # K2 and K3, fused
     "shift_gcn": "shift_gcn",                     # K4, forward
     "shift_gcn_dx": "shift_gcn",                  # K5
-    "shear_in": "shift_gcn",                      # K6
+    "shift_gcn_wgrad": "shift_gcn",               # K6: dgate, dW, dbias
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
-# kernel, and nowhere else (the fused backward's partial-sum pass and its
-# final pass count as one launch).
+# kernel, and nowhere else (a kernel run as a partial-sum pass and a final
+# pass, the fused temporal-shift backward and K6, counts as one launch).
 # Callers reset them with reset_launches().
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -106,7 +106,7 @@ def library(name: str) -> ctypes.CDLL:
 
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     if name == "temporal_shift":
         signatures = {
             # (x, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
@@ -123,13 +123,17 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
             "shift_gcn_forward": [ptr] * 5 + [i32] * 5 + [ptr],
             # (g, gate, w, dx, r, v, c, d, is_bf16, stream)
             "shift_gcn_dx": [ptr] * 4 + [i32] * 5 + [ptr],
-            # (x, out, r, v, c, is_bf16, stream)
-            "shear_in": [ptr] * 2 + [i32] * 4 + [ptr],
+            # (x, g, gate, w, partial, scratch floats, dgate, dw, dbias,
+            #  r, v, c, d, parts, chunk, is_bf16, stream)
+            "shift_gcn_wgrad": [ptr] * 5 + [i64] + [ptr] * 3 + [i32] * 7
+                               + [ptr],
+            # (r, v, c, d, parts, chunk) -> its scratch floats (int64)
+            "shift_gcn_wgrad_scratch": [i32] * 6,
         }
     for symbol, argtypes in signatures.items():
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        fn.restype = i64 if symbol.endswith("_scratch") else ctypes.c_int
 
 
 def refuse_grad(kernel: str, *tensors) -> None:

@@ -9,35 +9,44 @@ runs ``FusedShiftGCNFunction``, whose backward gives, for the cotangent
 g (R, V, D), with sx = shift_in(x) and gz = shift_in(g):
 
     dx    = shift_out((gz @ w.T) * gate)                       K5
-    M[u]  = sum_r sx[r, u, :]^T gz[r, u, :]     (V, C, D)      K6 x2 + bmm
-    dw    = sum_u gate[u, :, None] * M[u]
-    dgate = sum_d M[:, :, d] * w[:, d]
-    dbias = sum_{r,u} gz[r, u, :]
+    M[u]  = sum_r sx[r, u, :]^T gz[r, u, :]     (V, C, D)      K6
+    dw    = sum_u gate[u, :, None] * M[u]                      K6
+    dgate = sum_d M[:, :, d] * w[:, d]                         K6
+    dbias = sum_{r,v} g[r, v, :]                               K6
 
-dgate is taken from the ungated shear sx, never as h / gate.  Both dw
-and dgate come from the one per-joint product M: the gate multiply that
-the reference's shear-gate kernel applies per element is folded into the
-(V, C, D) reduction for dw, so K6 is the bare shear and only one matmul
-over R runs.
+dgate is taken from the ungated shear sx, never as h / gate.  K6 is one
+kernel launch (``shift_gcn_wgrad``): it reads x and g once, applies the
+shears as it loads, and never writes M out; the gate multiply that the
+reference's shear-gate kernel applies per element is folded into the sum
+over joints for dw.
 dx is skipped when x needs no gradient.  (In the model every unit's x
 needs one: the first unit's input is the output of the trainable
 ``data_bn``.)
 
 The three raw launchers (``shift_gcn_forward`` K4, ``shift_gcn_dx`` K5,
-``shear_in`` K6) run their plain PyTorch versions
+``shift_gcn_wgrad`` K6) run their plain PyTorch versions
 (``ops.spatial_shift``) on a CPU tensor and the hand-written kernels
 (``csrc/shift_gcn.cu``) on a CUDA tensor, or raise; called in grad mode
 on an input that requires grad, each raises.  Math is fp32; activations
-follow x.dtype (fp32 or bf16).
+follow x.dtype (fp32 or bf16); K6's outputs are fp32.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from shift_gcn_torch import kernels
 from shift_gcn_torch.ops.spatial_shift import (
-    shear_in_reference, shift_gcn_dx_reference, shift_gcn_transform)
+    shift_gcn_dx_reference, shift_gcn_transform, shift_gcn_wgrad_reference)
+
+# K6 splits the sum over R into chunks, one block each per tile, so that
+# about this many blocks run: the H100's SM count, fixed here so that the
+# split, and so the order of the sums, depends on the shapes alone.
+WGRAD_BLOCKS = 132
+WGRAD_GROUP = 33   # joints a block of K6 at most (csrc: kWgGroup)
+WGRAD_TILE = 32    # channels of a c or d tile of K6 (csrc: kWgTile)
 
 
 def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
@@ -97,25 +106,61 @@ def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor,
     return dx
 
 
-def shear_in(x: torch.Tensor) -> torch.Tensor:
-    """K6: shift_in(x) in fp32 for x (R, V, C)."""
-    kernels.refuse_grad("shear_in", x)
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def wgrad_split(r: int, v: int, c: int, d: int) -> Tuple[int, int]:
+    """(parts, chunk): K6 sums frames [p * chunk, (p + 1) * chunk) in
+    partial p, one stage (8 fp32 or 16 bf16 frames) at a time from the
+    chunk's start, then the partials in order.  ``chunk`` is a multiple
+    of 16 frames."""
+    tiles = (_ceil_div(v, WGRAD_GROUP) * _ceil_div(c, WGRAD_TILE)
+             * _ceil_div(d, WGRAD_TILE))
+    parts = max(1, WGRAD_BLOCKS // tiles)
+    chunk = _ceil_div(_ceil_div(max(r, 1), parts), 16) * 16
+    return _ceil_div(max(r, 1), chunk), chunk
+
+
+def shift_gcn_wgrad(x: torch.Tensor, g: torch.Tensor, gate: torch.Tensor,
+                    w: torch.Tensor):
+    """K6: from the forward's input x (R, V, C), the cotangent g (R, V, D),
+    gate (V, C) and w (C, D), (dgate (V, C), dw (C, D), dbias (D,)), fp32,
+    in one launch."""
+    kernels.refuse_grad("shift_gcn_wgrad", x, g, gate, w)
     if x.device.type == "cpu":
-        return shear_in_reference(x)
+        return shift_gcn_wgrad_reference(x, g, gate, w)
     r, v, c = x.shape
-    _check_cuda("shear_in", x)
-    out = torch.empty((r, v, c), dtype=torch.float32, device=x.device)
-    status = kernels.library("shift_gcn").shear_in(
-        x.data_ptr(), out.data_ptr(), r, v, c,
+    d = w.shape[-1]
+    _check_cuda("shift_gcn_wgrad", x, gate=(gate, (v, c)), w=(w, (c, d)))
+    if (g.shape != (r, v, d) or g.dtype != x.dtype or g.device != x.device
+            or not g.is_contiguous()):
+        raise ValueError(f"shift_gcn_wgrad: g must be a contiguous "
+                         f"{x.dtype} {(r, v, d)} tensor")
+    if r * v * max(c, d) >= 2 ** 31:
+        raise ValueError("shift_gcn_wgrad: tensor too large for 32-bit "
+                         "indexing")
+    parts, chunk = wgrad_split(r, v, c, d)
+    lib = kernels.library("shift_gcn")
+    scratch = lib.shift_gcn_wgrad_scratch(r, v, c, d, parts, chunk)
+    if scratch < 0:
+        raise ValueError(f"shift_gcn_wgrad: unsupported shape {(r, v, c, d)}")
+    partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
+    dgate = torch.empty((v, c), dtype=torch.float32, device=x.device)
+    dw = torch.empty((c, d), dtype=torch.float32, device=x.device)
+    dbias = torch.empty((d,), dtype=torch.float32, device=x.device)
+    status = lib.shift_gcn_wgrad(
+        x.data_ptr(), g.data_ptr(), gate.data_ptr(), w.data_ptr(),
+        partial.data_ptr(), scratch, dgate.data_ptr(), dw.data_ptr(),
+        dbias.data_ptr(), r, v, c, d, parts, chunk,
         int(x.dtype == torch.bfloat16), kernels.stream(x))
-    kernels.check(status, "shear_in")
-    kernels.LAUNCHES["shear_in"] += 1
-    return out
+    kernels.check(status, "shift_gcn_wgrad")
+    kernels.LAUNCHES["shift_gcn_wgrad"] += 1
+    return dgate, dw, dbias
 
 
 class FusedShiftGCNFunction(torch.autograd.Function):
-    """Forward K4; backward K5 (dx) and K6 on x and g feeding one
-    per-joint fp32 ``bmm`` for dw and dgate."""
+    """Forward K4; backward K5 (dx) and K6 (dgate, dw, dbias)."""
 
     @staticmethod
     def forward(ctx, x, gate, w, bias):
@@ -130,13 +175,7 @@ class FusedShiftGCNFunction(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = shift_gcn_dx(g, gate, w)
         if any(ctx.needs_input_grad[1:]):
-            gz = shear_in(g)
-            sx = shear_in(x)
-            # M[u] = sx[:, u, :]^T @ gz[:, u, :], one product per joint
-            m = torch.bmm(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
-            dw = (m * gate[:, :, None]).sum(0)
-            dgate = (m * w[None]).sum(-1)
-            dbias = gz.sum((0, 1))
+            dgate, dw, dbias = shift_gcn_wgrad(x, g, gate, w)
         return dx, dgate, dw, dbias
 
 

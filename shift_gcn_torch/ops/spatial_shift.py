@@ -10,9 +10,10 @@ reduces to a per-channel circular roll along the joint axis:
 ``shift_gcn_transform`` chains shift_in, the gate, the pointwise matmul
 with bias and shift_out.  It is the plain version of the fused kernel K4
 in ``ops/shift_gcn_kernel.py``; ``shift_gcn_dx_reference`` and
-``shear_in_reference`` are the plain versions of its backward kernels
-K5 and K6.  All keep the kernels' numerics: fp32 math after the load, one
-rounding to the output dtype at the end (K6's output is fp32).
+``shift_gcn_wgrad_reference`` are the plain versions of its backward
+kernels K5 and K6.  All keep the kernels' numerics: fp32 math after the
+load, one rounding to the output dtype at the end (K6's outputs are
+fp32).
 """
 
 from __future__ import annotations
@@ -78,5 +79,25 @@ def shift_gcn_dx_reference(g: torch.Tensor, gate: torch.Tensor,
 
 
 def shear_in_reference(x: torch.Tensor) -> torch.Tensor:
-    """shift_in(x) in fp32 (K6's plain version).  x: (..., V, C)."""
+    """shift_in(x) in fp32.  x: (..., V, C)."""
     return spatial_shift(x.float(), +1)
+
+
+def shift_gcn_wgrad_reference(x: torch.Tensor, g: torch.Tensor,
+                              gate: torch.Tensor, weight: torch.Tensor):
+    """Weight gradients of ``shift_gcn_transform`` (K6's plain version).
+
+    x: (R, V, C) forward input; g: (R, V, D) cotangent; gate: (V, C);
+    weight: (C, D).  With the per-joint product over R
+
+        M[u] = shift_in(x)[:, u, :]^T @ shift_in(g)[:, u, :]    (V, C, D)
+
+    returns (dgate (V, C), dw (C, D), dbias (D,)), all fp32:
+    dgate = sum_d M * weight, dw = sum_u gate * M, dbias = sum of g over
+    (R, V) (the shear permutes within a frame).
+    """
+    sx, gz = shear_in_reference(x), shear_in_reference(g)
+    m = torch.matmul(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
+    dgate = (m * weight.float()[None]).sum(-1)
+    dw = (m * gate.float()[:, :, None]).sum(0)
+    return dgate, dw, gz.sum((0, 1))

@@ -187,6 +187,9 @@ def test_cpu_path_launches_no_kernel():
         x.reshape(4, 33, 3), torch.ones(33, 3), w, torch.zeros(5)
     ).sum().backward()
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
+    # K6 is one weight-gradient kernel; the bare shear is gone
+    assert "shift_gcn_wgrad" in kernels.LAUNCHES
+    assert "shear_in" not in kernels.LAUNCHES
     # K2 and K3 count as one fused kernel
     assert "temporal_shift_backward" in kernels.LAUNCHES
     assert not {"temporal_shift_grad_input",
@@ -453,18 +456,34 @@ def test_dx_skipped_when_input_needs_no_grad():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_shift_gcn_plain_backward(dtype):
-    # K5's plain version is autograd's dx of the plain forward; K6's is
-    # shift_in(x) widened to fp32
+    # K5's plain version is autograd's dx of the plain forward, K6's its
+    # (dgate, dw, dbias); the shear K6 applies as it loads is shift_in(x)
+    # widened to fp32
     rng = np.random.default_rng(12)
-    x = torch.from_numpy(rng.standard_normal((4, 7, 3)).astype(
-        np.float32)).requires_grad_()
-    gate = torch.from_numpy(rng.uniform(0.5, 1.5, (7, 3)).astype(np.float32))
-    w = torch.from_numpy(rng.standard_normal((3, 5)).astype(np.float32))
+    x, gate, w, b = _torch_params(
+        rng.standard_normal((4, 7, 3)).astype(np.float32),
+        rng.uniform(0.5, 1.5, (7, 3)).astype(np.float32),
+        rng.standard_normal((3, 5)).astype(np.float32),
+        np.zeros(5, np.float32))
     g = torch.from_numpy(rng.standard_normal((4, 7, 5)).astype(np.float32))
-    spatial_shift.shift_gcn_transform(x, gate, w, torch.zeros(5)).backward(g)
+    spatial_shift.shift_gcn_transform(x, gate, w, b).backward(g)
     np.testing.assert_allclose(
-        spatial_shift.shift_gcn_dx_reference(g, gate, w).numpy(),
+        spatial_shift.shift_gcn_dx_reference(g, gate.detach(),
+                                             w.detach()).numpy(),
         x.grad.numpy(), atol=1e-6)
+    got = spatial_shift.shift_gcn_wgrad_reference(
+        x.detach().to(dtype), g.to(dtype), gate.detach(), w.detach())
+    want = [p.grad for p in (gate, w, b)]
+    if dtype == torch.bfloat16:  # autograd of the plain forward on bf16 x, g
+        xb, gb = x.detach().to(dtype).float(), g.to(dtype).float()
+        ps = _torch_params(gate.detach().numpy(), w.detach().numpy(),
+                           np.zeros(5, np.float32))
+        spatial_shift.shift_gcn_transform(xb, *ps).backward(gb)
+        want = [p.grad for p in ps]
+    for name, a, ref in zip(("dgate", "dw", "dbias"), got, want):
+        assert a.dtype == torch.float32
+        np.testing.assert_allclose(a.numpy(), ref.numpy(), atol=1e-5,
+                                   err_msg=name)
     got = spatial_shift.shear_in_reference(x.detach().to(dtype))
     want = jax_spatial_shift(jnp.asarray(x.detach().to(dtype).float().numpy()),
                              1, "gather")
@@ -484,7 +503,8 @@ def test_shift_gcn_plain_backward(dtype):
         x[0], torch.ones(4, 3), torch.zeros(3, 2), torch.zeros(2)),
     lambda x: shift_gcn_kernel.shift_gcn_dx(
         x[0], torch.ones(4, 3), torch.zeros(3, 3)),
-    lambda x: shift_gcn_kernel.shear_in(x[0]),
+    lambda x: shift_gcn_kernel.shift_gcn_wgrad(
+        x[0], x[0].detach(), torch.ones(4, 3), torch.zeros(3, 3)),
 ], ids=["K1", "K2", "K3", "K2K3", "K4", "K5", "K6"])
 def test_raw_launchers_refuse_grad(launcher):
     # a raw launcher's output has no grad_fn: outside its Function, in
@@ -615,3 +635,187 @@ def test_gate_identity_of_the_shear(v, c):
     np.testing.assert_array_equal(port.numpy(), lhs)
     np.testing.assert_array_equal(
         (spatial_shift.spatial_shift(xt, +1) * gt).numpy(), lhs)
+
+
+# ---------------------------------------------------------------------------
+# K6: the weight gradients (dgate, dW, dbias) in one kernel
+# ---------------------------------------------------------------------------
+
+
+def _jax_weight_grads(x, gate, w, b, g):
+    """(dgate, dw, dbias) of sum(fused_shift_gcn(x, gate, w, b) * g) from
+    the JAX package's custom VJP (Pallas kernels)."""
+    def loss(gate_, w_, b_):
+        return jnp.sum(sgk.fused_shift_gcn(jnp.asarray(x), gate_, w_, b_,
+                                           32) * g)
+
+    grads = jax.jit(jax.grad(loss, argnums=(0, 1, 2)))(
+        *map(jnp.asarray, (gate, w, b)))
+    return [np.asarray(a) for a in grads]
+
+
+def _shift_gcn_inputs(rng, r, v, c, d):
+    x = rng.standard_normal((r, v, c)).astype(np.float32)
+    gate = (np.tanh(rng.standard_normal((v, c))) + 1.0).astype(np.float32)
+    w = (rng.standard_normal((c, d)) * d ** -0.5).astype(np.float32)
+    b = rng.standard_normal(d).astype(np.float32)
+    g = rng.standard_normal((r, v, d)).astype(np.float32)
+    return x, gate, w, b, g
+
+
+@pytest.mark.parametrize("v", [25, 33])
+@pytest.mark.parametrize("c,d", [(3, 8), (8, 16), (16, 8)])
+def test_wgrad_matches_pallas(interpret, v, c, d):
+    # the launcher (its plain version on CPU tensors) against the JAX VJP,
+    # which takes dgate through h / gate: 1e-5 of each gradient's scale
+    rng = np.random.default_rng(11 * v + c + d)
+    x, gate, w, b, g = _shift_gcn_inputs(rng, 40, v, c, d)
+    want = _jax_weight_grads(x, gate, w, b, g)
+    got = shift_gcn_kernel.shift_gcn_wgrad(
+        *map(torch.from_numpy, (x, g, gate, w)))
+    for name, a, ref, shape in zip(("dgate", "dw", "dbias"), got, want,
+                                   ((v, c), (c, d), (d,))):
+        assert a.shape == shape and a.dtype == torch.float32
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(a.numpy(), ref, atol=1e-5 * scale,
+                                   rtol=1e-5, err_msg=name)
+
+
+@pytest.mark.parametrize("v,d", [(25, 8), (33, 130), (144, 64)])
+def test_dbias_needs_no_shear(v, d):
+    # the shear permutes the joints within each frame, so the sum of the
+    # sheared cotangent over (R, V) is the plain sum: K6 adds the values as
+    # it loads them.  Small integers keep every sum exact.
+    rng = np.random.default_rng(v + d)
+    g = rng.integers(-8, 8, (6, v, d)).astype(np.float32)
+    sheared = np.asarray(sgk._shear_in(jnp.asarray(g), v))
+    np.testing.assert_array_equal(sheared.sum((0, 1)), g.sum((0, 1)))
+    _, _, dbias = spatial_shift.shift_gcn_wgrad_reference(
+        torch.from_numpy(g[:, :, :3]), torch.from_numpy(g),
+        torch.ones(v, 3), torch.zeros(3, d))
+    np.testing.assert_array_equal(dbias.numpy(), g.sum((0, 1)))
+
+
+# joints a warp of K6 (csrc/shift_gcn.cu: kWgJoints)
+WGRAD_JOINTS_A_WARP = 3
+
+# (R, C, D) of one train step's launches, 64 clips (V=33)
+TRAIN_WGRAD_SHAPES = [(19200, 3, 64), (19200, 64, 64), (19200, 64, 128),
+                      (9600, 128, 128), (9600, 128, 256), (4800, 256, 256)]
+
+
+@pytest.mark.parametrize("r,c,d", TRAIN_WGRAD_SHAPES)
+def test_wgrad_split_covers_r(r, c, d):
+    # every frame in exactly one chunk, chunks whole bf16 stages, one wave
+    # of at most 132 blocks on the card
+    parts, chunk = shift_gcn_kernel.wgrad_split(r, 33, c, d)
+    assert chunk % 16 == 0
+    assert (parts - 1) * chunk < r <= parts * chunk
+    blocks = parts * -(-c // 32) * -(-d // 32)
+    assert 64 < blocks <= shift_gcn_kernel.WGRAD_BLOCKS
+
+
+def _rz32(v: np.ndarray) -> np.ndarray:
+    """fp64 -> fp32 rounded toward zero: how the tensor cores' fp32
+    accumulator drops the low bits of a sum."""
+    f = v.astype(np.float32)
+    over = np.abs(f.astype(np.float64)) > np.abs(v)
+    f[over] = np.nextafter(f[over], np.float32(0))
+    return f
+
+
+def _tensor_core_sum(a: np.ndarray, b: np.ndarray, flush: bool):
+    """Batched a (J, C, K) @ b (J, K, D) as K6's 3xTF32 mma.sync k8 steps
+    with the accumulator truncating (``_rz32``).  flush=True is the
+    kernel's scheme: each k8 step (an fp32 stage) summed from zero, then
+    added to an fp32 sum rounded to nearest; flush=False keeps the whole
+    chunk in the tensor cores' accumulator."""
+    a_big, b_big = _tf32_rna(a), _tf32_rna(b)
+    a_small, b_small = _tf32_rna(a - a_big), _tf32_rna(b - b_big)
+    m = np.zeros((a.shape[0], a.shape[1], b.shape[2]), np.float32)
+    for k0 in range(0, a.shape[2], 8):
+        sa = np.zeros_like(m) if flush else m
+        for pa, pb in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            sa = _rz32(sa + pa[:, :, k0:k0 + 8].astype(np.float64)
+                       @ pb[:, k0:k0 + 8].astype(np.float64))
+        m = (m + sa).astype(np.float32) if flush else sa
+    return m
+
+
+def _wgrad_emulated(x, g, gate, w, parts, chunk):
+    """K6's arithmetic in numpy for V <= 33 and C, D <= 32 (one joint
+    group, one tile): per chunk, M by ``_tensor_core_sum``; the block's
+    dgate (sum over d of M * W) and dW (per warp the sum over its joints
+    of gate * M, then over the warps in order); then the chunks summed in
+    order."""
+    r, v, c = x.shape
+    d = w.shape[1]
+    warps = -(-v // WGRAD_JOINTS_A_WARP)
+    sx = x[:, (np.arange(v)[:, None] + np.arange(c)) % v, np.arange(c)]
+    gz = g[:, (np.arange(v)[:, None] + np.arange(d)) % v, np.arange(d)]
+    dgate = np.zeros((v, c), np.float32)
+    dw = np.zeros((c, d), np.float32)
+    dbias = np.zeros(d, np.float32)
+    for p in range(parts):
+        a = sx[p * chunk:(p + 1) * chunk].transpose(1, 2, 0)  # (V, C, k)
+        bm = gz[p * chunk:(p + 1) * chunk].transpose(1, 0, 2)  # (V, k, D)
+        pad = -a.shape[2] % 8
+        m = _tensor_core_sum(np.pad(a, ((0, 0), (0, 0), (0, pad))),
+                             np.pad(bm, ((0, 0), (0, pad), (0, 0))), True)
+        dgate += (m * w[None]).sum(-1, dtype=np.float32)
+        per_warp = [sum(gate[u][:, None] * m[u]
+                        for u in range(wp, v, warps)) for wp in range(warps)]
+        dw_p = per_warp[0]
+        for part in per_warp[1:]:
+            dw_p = (dw_p + part).astype(np.float32)
+        dw = (dw + dw_p).astype(np.float32)
+        dbias = (dbias + bm.sum((0, 1), dtype=np.float32)).astype(
+            np.float32)
+    return dgate, dw, dbias
+
+
+@pytest.mark.parametrize("c,d", [(3, 16), (16, 8)])
+@pytest.mark.parametrize("split", ["chosen", "deepest"])
+def test_wgrad_emulation_meets_fp32_tolerance(interpret, c, d, split):
+    # K6 at train depth (R = 4800 frames, V = 33): its 3xTF32 k8 steps on
+    # truncating accumulators flushed every stage, the split of R into
+    # partials and the fixed order of the final sums stay within 1e-5 of
+    # scale of the JAX gradients, and within 1e-6 of an fp64 sum.
+    # "chosen" is the split the wrapper picks for these shapes; "deepest"
+    # that of the 256-wide train layers (2 chunks of 2400 frames).
+    rng = np.random.default_rng(40 + c + d)
+    r, v = 4800, 33
+    x, gate, w, b, g = _shift_gcn_inputs(rng, r, v, c, d)
+    parts, chunk = (shift_gcn_kernel.wgrad_split(r, v, c, d)
+                    if split == "chosen" else (2, 2400))
+    got = _wgrad_emulated(x, g, gate, w, parts, chunk)
+    want = _jax_weight_grads(x, gate, w, b, g)
+    exact = spatial_shift.shift_gcn_wgrad_reference(
+        *(torch.from_numpy(a).double() for a in (x, g, gate, w)))
+    for name, a, ref, ref64 in zip(("dgate", "dw", "dbias"), got, want,
+                                   exact):
+        scale = max(1.0, float(np.abs(ref).max()))
+        np.testing.assert_allclose(a, ref, atol=1e-5 * scale, rtol=0,
+                                   err_msg=name)
+        np.testing.assert_allclose(a, ref64.numpy(), atol=1e-6 * scale,
+                                   rtol=0, err_msg=name)
+
+
+@pytest.mark.parametrize("kind", ["normal", "relu"])
+def test_tensor_core_sum_needs_a_flush(kind):
+    # Why K6 flushes the tensor cores' sum every stage: over a 2400-frame
+    # chunk (300 k8 steps, 900 truncating accumulations) one accumulator
+    # drifts past the card check's 2e-5 of scale of an fp64 sum (a first
+    # build of K6 that summed a chunk so came close to it on the card);
+    # flushed, it stays under 1e-6.  "relu": nonnegative x and a cotangent
+    # with a mean.
+    rng = np.random.default_rng(50)
+    a = rng.standard_normal((33, 8, 2400)).astype(np.float32)
+    b = rng.standard_normal((33, 2400, 16)).astype(np.float32)
+    if kind == "relu":
+        a, b = np.abs(a), b + np.float32(0.3)
+    want = a.astype(np.float64) @ b.astype(np.float64)
+    scale = float(np.abs(want).max())
+    flushed = float(np.abs(_tensor_core_sum(a, b, True) - want).max())
+    whole = float(np.abs(_tensor_core_sum(a, b, False) - want).max())
+    assert flushed < 1e-6 * scale < 2e-5 * scale < whole, (flushed, whole)
