@@ -9,9 +9,14 @@ Phases, in order; any failure exits non-zero:
    source, in parallel) and prints the seconds it took, and, where the
    toolkit has ``cuobjdump``, the tensor-core (HMMA) instructions and the
    registers of each K4/K5/K6 function of the built library;
-3. temporal shift kernel vs its plain PyTorch version at every (T, C,
-   stride) one forward of the serving model launches it with (64 windows,
-   V=33), fp32 and bf16;
+3. temporal shift kernel (K1) bit-equal to its plain PyTorch version
+   (max|err| 0), fp32 and bf16, at every (T, C, stride) one forward of
+   the serving model launches it with (64 windows, V=33), at shifts
+   outside its staged window (U(-7, 7) with +-20.3 and +-7.4) at the
+   largest stride-1 and stride-2 shapes, at C=130 with T=75 and stride 2
+   (1-element lanes, odd T), on an input that starts one element into
+   its storage (unaligned), and at V=144, where fewer frames fit in
+   shared memory;
 4. fused Shift-GCN kernel vs its plain version at every (T, C, D) of the
    forward, R = 64*T frames, fp32 and bf16;
 5. serving: a full-width MediaPipe fall model (10 units, V=33, 2 classes)
@@ -20,18 +25,20 @@ Phases, in order; any failure exits non-zero:
    20 temporal-shift and 10 Shift-GCN launches per stream forward, and the
    probabilities must match the same predictor on the plain path;
 6. timings at the serving batch (64 windows, T=300, fp32): each kernel
-   per forward beside its bound, its plain version and one library call
-   for the same function (temporal shift: a depthwise conv2d; Shift-GCN:
-   index_select + matmul), and each again in bf16 (the Trainer's forward
-   runs them in bf16); the whole forward per stream, and one profiled
-   forward: device busy share and device time by kernel;
+   per forward beside its bound and its share of it, its plain version
+   and one library call for the same function (temporal shift: a
+   depthwise conv2d; Shift-GCN: index_select + matmul), and each again
+   in bf16 (the Trainer's forward runs them in bf16), K1 also at
+   spread-out shifts (U(-7, 7)); the whole forward per stream, and one
+   profiled forward: device busy share and device time by kernel;
 7. backward kernels vs their plain versions at every launch shape of one
    training step (64 clips, T=300), fp32 and bf16: the fused temporal-shift
    backward (K2 grad_input and K3 position grad in one kernel) at the K1
    shapes, also with shifts outside its staged window, its gy_raw
    bit-equal across two launches and its one-output forms bit-equal to
    it; K5 Shift-GCN dx and K6, the weight gradients (dgate, dW, dbias),
-   at the K4 shapes, K6 also at V=144, and bit-equal across two launches;
+   at the K4 shapes, K6 also at V=144, and bit-equal across two launches
+   (its largest error printed also as a share of its scale);
 8. one full-width train step (fp32, 64 clips x T=300) on the kernel path
    vs the plain backward (every launcher plain but K4, so both sides share
    one forward) from the same seeded state and batch: loss, every true
@@ -116,7 +123,7 @@ PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
 # device kernels by the name they show in the profiler, first match wins
 PROFILE_GROUPS = (
-    ("K1 temporal shift", ("tshift_kernel<",)),
+    ("K1 temporal shift", ("tshift_forward_kernel",)),
     ("K2+K3 fused backward", ("tshift_backward_kernel",
                               "tshift_position_final_kernel")),
     ("K4 shift_gcn", ("shift_gcn_mma_kernel<float, false",
@@ -430,6 +437,71 @@ def profile_call(fn, label: str, card: str, top: int = 10):
     return busy_ms / wall_ms
 
 
+def shift_positions(rng, c: int, kind: str) -> np.ndarray:
+    """ypos for a check: U(-1, 1), the model's init, with an integer shift
+    and two near the tap radius +-(8 - 1); or, for "far", U(-7, 7) with
+    +-20.3 and +-7.4: lo at +-20 and a spread of 14 frames across a slab,
+    more than a staged window holds."""
+    if kind == "far":
+        y = rng.uniform(-7.0, 7.0, c).astype(np.float32)
+        y[:4] = (20.3, -20.3, 7.4, -7.4)
+    else:
+        y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
+        y[:4] = (1.0, -1.0, 6.9, -6.9)
+    return y
+
+
+def check_forward_shift(k1_shapes, gen, rng, dev) -> float:
+    """Phase 3: K1 bit-equal to its plain version, fp32 and bf16 (both
+    round the same two fp32 products and their sum, and a bf16 output
+    once), at every forward launch shape; with shifts far outside its
+    staged window at the largest stride-1 and stride-2 shapes; with
+    1-element lanes and an odd T (C=130, T=75, stride 2); on an input that
+    starts one element into its storage (also 1-element lanes); and at
+    V=144, where fewer frames fit in shared memory.  Returns the fp32
+    max |err| (0)."""
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    shapes = sorted(set(k1_shapes))
+    far = [max(sh for sh in k1_shapes if sh[2] == st) for st in (1, 2)]
+    odd = (T_WINDOW // 4, 130, 2)
+    wide_v = [(T_WINDOW // 4, 128, st) for st in (1, 2)]
+    cases = ([(shape, V, "U(-1, 1)") for shape in shapes]
+             + [(shape, V, "far") for shape in far]
+             + [(odd, V, "C=130"), (far[0], V, "unaligned")]
+             + [(shape, 144, "V=144") for shape in wide_v])
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        worst = 0.0
+        for (t, c, stride), v, kind in cases:
+            x = torch.randn(N_WINDOWS, t, v, c, generator=gen,
+                            device=dev).to(dtype)
+            if kind == "unaligned":
+                buf = torch.empty(x.numel() + 1, dtype=dtype, device=dev)
+                buf[1:].copy_(x.view(-1))
+                x = buf[1:].view(x.shape)
+            ypos = torch.from_numpy(shift_positions(
+                rng, c, "far" if kind in ("far", "unaligned", "V=144")
+                else "U(-1, 1)")).to(dev)
+            got = ts.temporal_shift(x, ypos, stride)
+            want = ts.temporal_shift_reference(x, ypos, stride)
+            torch.cuda.synchronize()
+            err, _ = max_err(got, want)
+            if not torch.equal(got, want):
+                fail(f"temporal_shift {dtype} T={t} C={c} s={stride} V={v} "
+                     f"{kind}: max|err| {err:.3g}, not bit-equal")
+            worst = max(worst, err)
+            del x, got, want
+        errs[dtype] = worst
+        print(f"[k1] temporal_shift {str(dtype)[6:]}: bit-equal to its plain "
+              f"version (max|err| {worst:.3g}) at {len(shapes)} forward "
+              f"shapes (T, C, s) {shapes} with ypos U(-1, 1), at {far} with "
+              f"far shifts, at {odd} (1-element lanes, odd T), at {far[0]} "
+              f"unaligned and at {wide_v} with V=144")
+    torch.cuda.empty_cache()
+    return errs[torch.float32]
+
+
 # ---------------------------------------------------------------------------
 # Training: backward kernels, one train step, the Trainer, timings
 # ---------------------------------------------------------------------------
@@ -559,12 +631,12 @@ def check_fused_backward(x, g, ypos, stride: int, label: str):
     return err, float(diff.max()), int((~clear).sum())
 
 
-def check_wgrad(x, g, gate, w, label: str) -> float:
+def check_wgrad(x, g, gate, w, label: str):
     """K6 vs its plain version on one input: dgate, dW and dbias each
     within WGRAD_TOL of its scale (another summation order over R, and
     3xTF32 products for fp32 inputs; bf16 inputs multiply exactly on both
     sides), and a second launch bit-equal.  Returns the largest max |err|
-    of the three."""
+    of the three and the largest max |err| / scale."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
 
@@ -572,7 +644,7 @@ def check_wgrad(x, g, gate, w, label: str) -> float:
     again = sk.shift_gcn_wgrad(x, g, gate, w)
     want = ss.shift_gcn_wgrad_reference(x, g, gate, w)
     torch.cuda.synchronize()
-    worst = 0.0
+    worst = worst_rel = 0.0
     for name, a, b, ref in zip(("dgate", "dW", "dbias"), got, again, want):
         err, scale = max_err(a, ref)
         if not err <= WGRAD_TOL * scale:
@@ -581,7 +653,8 @@ def check_wgrad(x, g, gate, w, label: str) -> float:
         if not torch.equal(a, b):
             fail(f"K6 {label}: {name} differs between two launches")
         worst = max(worst, err)
-    return worst
+        worst_rel = max(worst_rel, err / scale)
+    return worst, worst_rel
 
 
 def check_backward_kernels(config, gen, rng, dev):
@@ -600,7 +673,7 @@ def check_backward_kernels(config, gen, rng, dev):
         name = str(dtype)[6:]
         worst = {"temporal_shift_backward": 0.0, "shift_gcn_dx": 0.0,
                  "shift_gcn_wgrad": 0.0}
-        gy_worst = 0.0
+        gy_worst = k6_rel = 0.0
         ties = channels = 0
         cases = [(shape, "U(-1, 1)") for shape in sorted(set(k1_shapes))]
         # shifts the staged window cannot hold: lo at +-20 and a spread of
@@ -618,13 +691,8 @@ def check_backward_kernels(config, gen, rng, dev):
                             device=dev).to(dtype)
             g = torch.randn(N_WINDOWS, t // stride, v, c, generator=gen,
                             device=dev).to(dtype)
-            if kind in ("far", "V=144"):
-                y = rng.uniform(-7.0, 7.0, c).astype(np.float32)
-                y[:4] = (20.3, -20.3, 7.4, -7.4)
-            else:
-                y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
-                y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near +-(8-1)
-            ypos = torch.from_numpy(y).to(dev)
+            ypos = torch.from_numpy(shift_positions(
+                rng, c, "far" if kind in ("far", "V=144") else kind)).to(dev)
             err, gy_err, tie = check_fused_backward(
                 x, g, ypos, stride, f"{name} T={t} C={c} s={stride} {kind}")
             worst["temporal_shift_backward"] = max(
@@ -658,9 +726,10 @@ def check_backward_kernels(config, gen, rng, dev):
             gate = torch.tanh(torch.randn(v, c, generator=gen,
                                           device=dev)) + 1.0
             w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
-            worst["shift_gcn_wgrad"] = max(
-                worst["shift_gcn_wgrad"],
-                check_wgrad(x, g, gate, w, f"{name} T={t} C={c} D={d} V={v}"))
+            err, rel = check_wgrad(x, g, gate, w,
+                                   f"{name} T={t} C={c} D={d} V={v}")
+            worst["shift_gcn_wgrad"] = max(worst["shift_gcn_wgrad"], err)
+            k6_rel = max(k6_rel, rel)
             del x, g
         torch.cuda.synchronize()
         print(f"[k2k3] {name}: fused backward at {len(set(k1_shapes))} train "
@@ -676,8 +745,9 @@ def check_backward_kernels(config, gen, rng, dev):
               f"{sorted(set(k4_shapes))} max|err| "
               f"{worst['shift_gcn_dx']:.3g}; K6 at the same shapes and at "
               f"(T, C, D, V) {wide_k6}: max|err| of dgate, dW, dbias "
-              f"{worst['shift_gcn_wgrad']:.3g} (tol {WGRAD_TOL:g} of "
-              "scale), bit-equal across two launches")
+              f"{worst['shift_gcn_wgrad']:.3g}, at most {k6_rel:.3g} of "
+              f"its scale (tol {WGRAD_TOL:g}), bit-equal across two "
+              "launches")
         if dtype == torch.float32:
             # the fused kernel's row: the larger of its two outputs' errors
             errs = dict(worst, temporal_shift_backward=max(
@@ -1173,31 +1243,7 @@ def main() -> None:
     config = ModelConfig(num_class=2, num_point=V, num_person=1,
                          graph="mediapipe_pose")
     k1_shapes, k4_shapes = forward_shapes(config, T_WINDOW)
-    k1_err = 0.0
-    for dtype in (torch.float32, torch.bfloat16):
-        worst = 0.0
-        for t, c, stride in sorted(set(k1_shapes)):
-            x = torch.randn(N_WINDOWS, t, V, c, generator=gen,
-                            device=dev).to(dtype)
-            y = rng.uniform(-1.0, 1.0, c).astype(np.float32)
-            y[:4] = (1.0, -1.0, 6.9, -6.9)  # integer, near ±(8-1)
-            ypos = torch.from_numpy(y).to(dev)
-            got = temporal_shift.temporal_shift(x, ypos, stride)
-            want = temporal_shift.temporal_shift_reference(x, ypos, stride)
-            torch.cuda.synchronize()
-            err, scale = max_err(got, want)
-            # fp32: identical rounding steps, ~1e-6 relative;
-            # bf16: one bf16 rounding of the fp32 result
-            tol = (1e-6 if dtype == torch.float32 else 2 ** -8) * scale
-            if not err <= tol:
-                fail(f"temporal_shift {dtype} s={stride} C={c} T={t}: "
-                     f"max|err| {err:.3g} > {tol:.3g}")
-            worst = max(worst, err)
-        print(f"[k1] temporal_shift {str(dtype)[6:]}: "
-              f"{len(set(k1_shapes))} forward shapes (T, C, s) "
-              f"{sorted(set(k1_shapes))}, max|err| {worst:.3g}")
-        if dtype == torch.float32:
-            k1_err = worst
+    k1_err = check_forward_shift(k1_shapes, gen, rng, dev)
 
     k4_err = 0.0
     for dtype in (torch.float32, torch.bfloat16):
@@ -1275,6 +1321,7 @@ def main() -> None:
     # per stream forward in bf16: kernel ms, bound at bf16 I/O
     fwd_bf16 = {"temporal_shift": [0.0, 0.0], "shift_gcn": [0.0, 0.0]}
     k4_simt = 0.0
+    k1_wide = [0.0, 0.0]  # K1 per stream forward at ypos U(-7, 7): fp32, bf16
     for shape in sorted(set(k1_shapes)):
         t, c, stride = shape
         count = k1_shapes.count(shape)
@@ -1293,6 +1340,13 @@ def main() -> None:
         xb = x.bfloat16()
         ms16 = time_ms(lambda: temporal_shift.temporal_shift(xb, ypos,
                                                              stride))
+        # spread-out shifts: more taps than a staged window holds
+        wide = torch.from_numpy(
+            rng.uniform(-7, 7, c).astype(np.float32)).to(dev)
+        wide_ms = (time_ms(lambda: temporal_shift.temporal_shift(
+                       x, wide, stride)),
+                   time_ms(lambda: temporal_shift.temporal_shift(
+                       xb, wide, stride)))
         bound16 = max(k1_cost_ms(N_WINDOWS, t, c, stride, itemsize=2))
         cost = k1_cost_ms(N_WINDOWS, t, c, stride)
         bound = max(cost)
@@ -1301,10 +1355,14 @@ def main() -> None:
             totals["temporal_shift"][i] += count * val
         fwd_bf16["temporal_shift"][0] += count * ms16
         fwd_bf16["temporal_shift"][1] += count * bound16
+        for i in range(2):
+            k1_wide[i] += count * wide_ms[i]
         print(f"[time] temporal_shift T={t} C={c} s={stride} x{count}: "
-              f"{ms:.4f} ms (bound {bound:.4f}, plain {plain:.4f}, "
-              f"depthwise conv2d {lib:.4f}); bf16 {ms16:.4f} ms (bound "
-              f"{bound16:.4f}) | {card}")
+              f"{ms:.4f} ms, {100 * bound / ms:.0f}% of bound {bound:.4f} "
+              f"(plain {plain:.4f}, depthwise conv2d {lib:.4f}); bf16 "
+              f"{ms16:.4f} ms, {100 * bound16 / ms16:.0f}% of bound "
+              f"{bound16:.4f}; ypos U(-7, 7) {wide_ms[0]:.4f} fp32, "
+              f"{wide_ms[1]:.4f} bf16 | {card}")
         del x, xb
     for shape in sorted(set(k4_shapes)):
         t, c, d = shape
@@ -1352,11 +1410,14 @@ def main() -> None:
               f"{ms16:.4f} ms (bound {bound16:.4f}) | {card}")
         del x, xb
     for name, (ms, _, bound, lib, _, _) in totals.items():
-        simt = f", fp32 SIMT {k4_simt:.4f}" if name == "shift_gcn" else ""
-        print(f"[time] {name} per stream forward: {ms:.4f} ms fp32 (bound "
-              f"{bound:.4f}{simt}, library {lib:.4f}), "
-              f"{fwd_bf16[name][0]:.4f} ms bf16 (bound "
-              f"{fwd_bf16[name][1]:.4f}) | {card}")
+        ms16, bound16 = fwd_bf16[name]
+        extra = (f", fp32 SIMT {k4_simt:.4f}" if name == "shift_gcn" else
+                 f"; ypos U(-7, 7) {k1_wide[0]:.4f} ms fp32, "
+                 f"{k1_wide[1]:.4f} ms bf16")
+        print(f"[time] {name} per stream forward: {ms:.4f} ms fp32, "
+              f"{100 * bound / ms:.0f}% of bound {bound:.4f} (library "
+              f"{lib:.4f}), {ms16:.4f} ms bf16, {100 * bound16 / ms16:.0f}% "
+              f"of bound {bound16:.4f}{extra} | {card}")
 
     model = Model(config)
     model.load_state_dict(state_dicts["joint"], strict=True)
@@ -1415,7 +1476,8 @@ def main() -> None:
           f"fp32 {k32:.4g}/{p32:.4g}, bf16 {k16:.4g}/{p16:.4g}; busy "
           f"{'n/a' if busy is None else f'{100 * busy:.1f}%'}; trainer "
           f"{epoch['clips_per_sec']:.1f} clips/s, feeder "
-          f"{100 * epoch['dataloader_share']:.1f}%; bf16 K1,K4 "
+          f"{100 * epoch['dataloader_share']:.1f}%; K1 U(-7,7) "
+          f"{k1_wide[0]:.4g}/{k1_wide[1]:.4g}; bf16 K1,K4 "
           f"{fwd_bf16['temporal_shift'][0]:.4g} "
           f"{fwd_bf16['shift_gcn'][0]:.4g}, K2+K3,K5,K6 "
           + " ".join(f"{train_bf16[k]:.4g}" for k in train_totals)

@@ -20,9 +20,13 @@ The backward is the reference's constraint backward, not the derivative:
   exactly 0 (``constraint_step``);
 - xpos gets a zero gradient.
 
-On the card K2 and K3 are one kernel: re-indexed over input frames,
-gy_raw[c] = (1/N) sum_{n,k,v} x[k] * (b - a), so one pass over x and g
-gives both (``temporal_shift_backward``).
+On the card K1 is one tiled pass that stages the input frames a tile
+reads in shared memory and writes each output once, in the same fp32
+rounding steps as its plain version (``temporal_shift_reference``), so
+the two are bit-equal; K2 and K3 are one kernel: re-indexed over input
+frames, gy_raw[c] = (1/N) sum_{n,k,v} x[k] * (b - a), so one pass over x
+and g gives both (``temporal_shift_backward``).  The kernels take stride
+1 or 2.
 
 The joint-axis position ``xpos`` is treated as exactly zero in the
 forward: its init is U(-1e-8, 1e-8), its gradient is zero and weight
@@ -94,7 +98,9 @@ def _source_frames(x: torch.Tensor, ypos: torch.Tensor, stride: int):
 
 def temporal_shift_reference(x: torch.Tensor, ypos: torch.Tensor,
                              stride: int = 1) -> torch.Tensor:
-    """K1's plain version: fp32 math, output in x.dtype."""
+    """K1's plain version and its oracle on the card: fp32 math, the two
+    products and their sum each rounded once, output in x.dtype (bf16 is
+    one rounding of the fp32 result)."""
     frac, x0, x1 = _source_frames(x, ypos, stride)
     return ((1.0 - frac) * x0 + frac * x1).to(x.dtype)
 

@@ -34,14 +34,25 @@ def interpret(monkeypatch):
     monkeypatch.setattr(sgk, "_INTERPRET", True)
 
 
-@pytest.mark.parametrize("stride", [1, 2])
-@pytest.mark.parametrize("t", [16, 32])
-@pytest.mark.parametrize("c", [3, 8, 130])
-def test_temporal_shift_matches_pallas(interpret, stride, t, c):
+# (C, T, stride, |ypos| bound): every C in {3, 8, 130} at T in {16, 32} and
+# both strides with shifts in U(-3, 3); then shifts out to +-7.4, inside
+# the reference's tap radius (max_shift 8), with odd T at both strides
+K1_PALLAS_CASES = [
+    pytest.param(c, t, stride, 3.0, id=f"{c}-{t}-{stride}")
+    for c in (3, 8, 130) for t in (16, 32) for stride in (1, 2)] + [
+    pytest.param(c, t, stride, 7.4, id=f"far-{c}-{t}-{stride}")
+    for c, t, stride in ((3, 17, 1), (130, 16, 1), (3, 17, 2), (130, 17, 2),
+                         (130, 33, 2))]
+
+
+@pytest.mark.parametrize("c,t,stride,spread", K1_PALLAS_CASES)
+def test_temporal_shift_matches_pallas(interpret, c, t, stride, spread):
     rng = np.random.default_rng(t * 1000 + c * 10 + stride)
     x = rng.standard_normal((2, t, 5, c)).astype(np.float32)
-    ypos = rng.uniform(-3, 3, c).astype(np.float32)
+    ypos = rng.uniform(-spread, spread, c).astype(np.float32)
     ypos[0] = 1.0  # an integer shift
+    if spread > 3:  # both ends of the range, and a whole shift near one
+        ypos[1:4] = (7.4, -7.4, -7.0)[:c - 1]
     want = np.asarray(tsk.temporal_shift_pallas(
         jnp.asarray(x), jnp.zeros(c), jnp.asarray(ypos), stride))
     got = temporal_shift.temporal_shift(
@@ -49,6 +60,43 @@ def test_temporal_shift_matches_pallas(interpret, stride, t, c):
     assert got.shape == (2, t // stride, 5, c)
     np.testing.assert_allclose(got.numpy(), want, atol=FP32_TOL,
                                rtol=FP32_TOL)
+
+
+def _shift_float64(x, ypos, stride):
+    """K1's formula in float64 from the fp32 position y = ypos (+0.5 at
+    stride 2), as every implementation forms it."""
+    n, t_in, v, c = x.shape
+    out = np.zeros((n, t_in // stride, v, c))
+    for ch in range(c):
+        y = np.float64(np.float32(ypos[ch]) + np.float32(
+            0.5 if stride != 1 else 0.0))
+        lo = int(np.floor(y))
+        f = y - lo
+        for t in range(t_in // stride):
+            k = t * stride + lo
+            a = x[:, k, :, ch] if 0 <= k < t_in else 0.0
+            b = x[:, k + 1, :, ch] if 0 <= k + 1 < t_in else 0.0
+            out[:, t, :, ch] = (1 - f) * a + f * b
+    return out
+
+
+@pytest.mark.parametrize("stride,t", [(1, 9), (1, 16), (2, 9), (2, 16)])
+def test_temporal_shift_plain_matches_float64(stride, t):
+    # the plain version the card's kernel is held to, against the formula
+    # in float64, at shifts inside and far outside the clip; where every
+    # tap falls outside [0, T) the output is exactly zero
+    rng = np.random.default_rng(60 + 10 * t + stride)
+    outside = [20.3, -20.3, t + 0.5, -(t + 1.5)]
+    ypos = np.concatenate([rng.uniform(-3, 3, 6), [0.0, 2.0, -0.5],
+                           outside]).astype(np.float32)
+    x = rng.standard_normal((2, t, 3, ypos.size)).astype(np.float32)
+    got = temporal_shift.temporal_shift_reference(
+        torch.from_numpy(x), torch.from_numpy(ypos), stride).numpy()
+    want = _shift_float64(x.astype(np.float64), ypos, stride)
+    # one rounding of each product and of the sum, |x| < 6
+    np.testing.assert_allclose(got, want, atol=2e-6, rtol=1e-6)
+    assert not got[..., -len(outside):].any()
+    assert want[..., :-len(outside)].any()
 
 
 def test_temporal_shift_reads_zero_outside():
@@ -62,17 +110,18 @@ def test_temporal_shift_reads_zero_outside():
     np.testing.assert_allclose(out2.reshape(-1).numpy(), [2.0, 4.0, 6.0])
 
 
-def test_temporal_shift_bf16_keeps_dtype():
+@pytest.mark.parametrize("stride", [1, 2])
+def test_temporal_shift_bf16_keeps_dtype(stride):
+    # bf16 in and out: the fp32 result on the same values, rounded once to
+    # bf16, bit for bit (what the card's kernel is held to)
     rng = np.random.default_rng(3)
     x = torch.from_numpy(rng.standard_normal((1, 8, 3, 4)).astype(
         np.float32))
     ypos = torch.from_numpy(rng.uniform(-1, 1, 4).astype(np.float32))
-    got = temporal_shift.temporal_shift(x.bfloat16(), ypos, 2)
+    got = temporal_shift.temporal_shift(x.bfloat16(), ypos, stride)
     assert got.dtype == torch.bfloat16
-    want = temporal_shift.temporal_shift(x.bfloat16().float(), ypos, 2)
-    # one rounding of the fp32 result to bf16
-    np.testing.assert_allclose(got.float().numpy(), want.numpy(),
-                               rtol=2 ** -8, atol=1e-6)
+    want = temporal_shift.temporal_shift(x.bfloat16().float(), ypos, stride)
+    assert torch.equal(got, want.bfloat16())
 
 
 @pytest.mark.parametrize("value", [7.5, -7.6, 9.0])
@@ -205,6 +254,127 @@ def test_kernel_build_targets_hopper():
         assert (kernels.CSRC / f"{name}.cu").is_file()
         assert kernels._library_path(name).parent == kernels.BUILD_DIR
     assert set(kernels.KERNELS.values()) == set(kernels.SOURCES)
+
+
+# ---------------------------------------------------------------------------
+# K1's tile (csrc/temporal_shift.cu tshift_forward_kernel), emulated
+# ---------------------------------------------------------------------------
+
+
+def _rotated_word(word, q, stride):
+    """Where word `word` of a staged fp32 slab row of window frame q lies
+    (the kernel's rotated_word)."""
+    return (word & ~3) | ((word + (q >> (stride - 1))) & 3)
+
+
+def _emulate_forward(x, ypos, stride, cs, run_in, w, rotated):
+    """The forward kernel's arithmetic in numpy float32: tiles of (clip,
+    run_in // stride output frames, slab of cs channels) stage at most w
+    frames of the slab (rows rotated where `rotated`) beside a zero frame;
+    a tap reads the window, the zero frame (outside [0, T)) or, outside
+    the window, x; the products and the sum are rounded separately.
+    Window slots never staged hold NaN, so a read of one shows."""
+    n, t_in, v, c = x.shape
+    t_out = t_in // stride
+    run = run_in // stride
+    f32 = np.float32
+    out = np.zeros((n, t_out, v, c), f32)
+    for c0 in range(0, c, cs):
+        chans = range(c0, min(c0 + cs, c))
+        lo, frac = {}, {}
+        for ch in chans:
+            y = f32(ypos[ch]) + f32(0.5 if stride != 1 else 0.0)
+            lo_f = np.floor(y)
+            frac[ch] = f32(y - lo_f)
+            lo[ch] = min(max(int(lo_f), -(t_out * stride + 1)), t_in + 1)
+        lo_min, lo_max = min(lo.values()), max(lo.values())
+
+        def place(slot, q):
+            return _rotated_word(slot, q, stride) if rotated else slot
+
+        for nn in range(n):
+            for t0 in range(0, t_out, run):
+                t_last = min(t0 + run, t_out) - 1
+                w0 = max(t0 * stride + lo_min, 0)
+                nq = max(0, min(min(t_last * stride + lo_max + 1, t_in - 1)
+                                - w0 + 1, w))
+                win = np.full((w + 1, v, cs), np.nan, f32)
+                win[w] = 0.0
+                for q in range(nq):
+                    for ch in chans:
+                        win[q, :, place(ch - c0, q)] = x[nn, w0 + q, :, ch]
+
+                def tap(k, ch):
+                    if k < 0 or k >= t_in:
+                        return win[w, :, ch - c0]
+                    if 0 <= k - w0 < nq:
+                        return win[k - w0, :, place(ch - c0, k - w0)]
+                    return x[nn, k, :, ch]
+
+                for t in range(t0, t_last + 1):
+                    for ch in chans:
+                        k = t * stride + lo[ch]
+                        out[nn, t, :, ch] = ((f32(1.0) - frac[ch])
+                                             * tap(k, ch)
+                                             + frac[ch] * tap(k + 1, ch))
+    return out
+
+
+# the kernel's tile shapes: (slab channels, input frames a run, rotated)
+K1_TILES = {"fp32": (32, 16, True), "fp32 1-lane": (8, 16, False),
+            "bf16": (64, 8, False)}
+
+
+@pytest.mark.parametrize("window", ["holds the taps", "4 frames", "1 frame"])
+@pytest.mark.parametrize("tile", list(K1_TILES))
+@pytest.mark.parametrize("stride", [1, 2])
+def test_forward_tile_emulation_matches_plain(stride, tile, window):
+    # the staged window, its rotation, the zero frame and the walk through
+    # device memory for taps outside the window give the plain version's
+    # result bit for bit, at any window size: 40 channels are a full
+    # 32-channel slab and a partial one, T=19 is odd, some shifts leave
+    # the clip
+    cs, run_in, rotated = K1_TILES[tile]
+    rng = np.random.default_rng(17 + stride)
+    ypos = rng.uniform(-2.5, 2.5, 40).astype(np.float32)
+    ypos[:5] = (20.3, -20.3, 7.4, -7.4, 1.0)
+    x = rng.standard_normal((2, 19, 3, 40)).astype(np.float32)
+    if tile == "bf16":  # values a bf16 tensor holds
+        x = torch.from_numpy(x).bfloat16().float().numpy()
+    w = {"holds the taps": 40, "4 frames": 4, "1 frame": 1}[window]
+    got = _emulate_forward(x, ypos, stride, cs, run_in, w, rotated)
+    xt = torch.from_numpy(x)
+    if tile == "bf16":
+        want = temporal_shift.temporal_shift_reference(
+            xt.bfloat16(), torch.from_numpy(ypos), stride)
+        assert torch.equal(torch.from_numpy(got).bfloat16(), want)
+    else:
+        want = temporal_shift.temporal_shift_reference(
+            xt, torch.from_numpy(ypos), stride)
+        np.testing.assert_array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_rotated_rows_spread_banks(stride):
+    # a warp of the fp32 tile is 8 four-channel lanes x 4 output frames,
+    # each lane reading its channels one at a time from the window (frames
+    # of 33 rows of 32 words and an 8-word pad).  Staged as they lie,
+    # channel i of every lane sits in the 8 banks = i mod 4, a 4-way
+    # conflict; rotated by frame, the warp's 32 reads hit 32 banks
+    fs = 33 * 32 + 8
+    for joint in (0, 5):
+        for i in range(4):
+            for tap in (0, 1):
+                rotated, flat = set(), set()
+                for lane in range(32):
+                    cv, f = lane % 8, lane // 8
+                    q = f * stride + tap  # window frame, lo alike
+                    row = q * fs + joint * 32
+                    rotated.add(
+                        (row + _rotated_word(cv * 4 + i, q, stride)) % 32)
+                    flat.add((row + cv * 4 + i) % 32)
+                assert len(rotated) == 32
+                assert len(flat) == 8
 
 
 # ---------------------------------------------------------------------------
