@@ -55,7 +55,23 @@ Phases, in order; any failure exits non-zero:
    two library calls for grad_input and the position grad, also at
    spread-out shifts; K6: two ``index_select`` shears, a ``bmm`` and the
    three reductions); the train step on the kernel path vs the plain
-   path, fp32 and bf16; one profiled train step.
+   path, fp32 and bf16; one profiled train step;
+11. K1 and K4 through their registered torch operators at the shapes of
+   one streaming evaluation (one window, N=1: 300, 150 and 75 rows): K1
+   bit-equal to its plain version, K4 within 2e-5 of its scale, fp32;
+12. streaming: ``StreamingFallDetector`` on a fresh 4-stream predictor
+   over a 900-frame landmark track at hop 150 (the offline stride): its
+   finalize() report equals ``run_on_landmarks`` (window and frame
+   probabilities within 1e-5, the same intervals, the events the offline
+   window scores give), with 80 K1 and 40 K4 launches per evaluation;
+   then hop 30, with the median and p90 of the time from ``push`` to its
+   update;
+13. serving artifacts: the joint stream's model exported with
+   ``torch.export`` at batch 64 in both flavours (weights as inputs,
+   weights baked), saved, loaded, and 130 clips scored through
+   ``serve.score_clips`` (three batches, the last padded): the scores
+   equal the live module within 1e-5, with 20 K1 and 10 K4 launches per
+   batch; each artifact's time per batch beside the live module's.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -121,6 +137,12 @@ TRAIN_CLIPS, VAL_CLIPS = 512, 128
 PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
             "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
+# live serving (phases 12, 13): a landmark track of 3 windows streamed at
+# hop == the offline stride, then at a tenth of a window for the latency;
+# an artifact scores ARTIFACT_CLIPS clips in batches of N_WINDOWS, the
+# last one padded
+STREAM_WINDOWS = 3
+ARTIFACT_CLIPS = 130
 # device kernels by the name they show in the profiler, first match wins
 PROFILE_GROUPS = (
     ("K1 temporal shift", ("tshift_forward_kernel",)),
@@ -1195,6 +1217,304 @@ def time_train_step(config, rng, dev, card: str, seed: int) -> None:
     return steps, busy
 
 
+# ---------------------------------------------------------------------------
+# Live serving: streaming shapes, the streaming detector, artifacts
+# ---------------------------------------------------------------------------
+
+
+def check_stream_shapes(config, gen, rng, dev) -> None:
+    """Phase 11: K1 and K4 through their registered ops at the shapes of
+    one streaming evaluation (one window, N=1: R = T, T/2, T/4 rows):
+    K1 bit-equal to its plain version, K4 within 2e-5 of its scale, fp32."""
+    from shift_gcn_torch.ops import library, spatial_shift
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    k1_shapes, k4_shapes = forward_shapes(config, T_WINDOW)
+    k1_worst = k4_worst = 0.0
+    for t, c, stride in sorted(set(k1_shapes)):
+        x = torch.randn(1, t, V, c, generator=gen, device=dev)
+        ypos = torch.from_numpy(shift_positions(rng, c, "U(-1, 1)")).to(dev)
+        got = library.temporal_shift(x, ypos, stride)
+        want = ts.temporal_shift_reference(x, ypos, stride)
+        torch.cuda.synchronize()
+        err, _ = max_err(got, want)
+        if not torch.equal(got, want):
+            fail(f"temporal_shift N=1 T={t} C={c} s={stride}: max|err| "
+                 f"{err:.3g}, not bit-equal")
+        k1_worst = max(k1_worst, err)
+    for t, c, d in sorted(set(k4_shapes)):
+        x = torch.randn(t, V, c, generator=gen, device=dev)
+        gate = torch.tanh(torch.randn(V, c, generator=gen, device=dev)) + 1.0
+        w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+        b = torch.randn(d, generator=gen, device=dev) * 0.1
+        got = library.shift_gcn(x, gate, w, b)
+        want = spatial_shift.shift_gcn_transform(x, gate, w, b)
+        torch.cuda.synchronize()
+        err, scale = max_err(got, want)
+        if not err <= 2e-5 * scale:
+            fail(f"shift_gcn R={t} C={c} D={d}: max|err| {err:.3g} > "
+                 f"{2e-5 * scale:.3g}")
+        k4_worst = max(k4_worst, err)
+    print(f"[stream-shapes] N=1: K1 bit-equal at {len(set(k1_shapes))} "
+          f"shapes (T, C, s) (max|err| {k1_worst:.3g}); K4 at "
+          f"{len(set(k4_shapes))} shapes (R, C, D) {sorted(set(k4_shapes))} "
+          f"max|err| {k4_worst:.3g}, through the registered ops")
+
+
+def hysteresis_events(probs, threshold: float):
+    """The detector's events (min_consecutive 1) over a score sequence,
+    and whether a fall is open at its end."""
+    events, active = [], False
+    for p in probs:
+        event = None
+        if p >= threshold and not active:
+            active, event = True, "fall_start"
+        elif p < threshold and active:
+            active, event = False, "fall_end"
+        events.append(event)
+    return events, active
+
+
+def spread_scores(predictor, windows: np.ndarray) -> None:
+    """Shift (and, where it spreads wider than 2, shrink) every stream's
+    classifier in place so that the ensemble's fall logit over these
+    (pre-normalized) windows has mean 0: random weights otherwise
+    saturate the softmax, and a threshold could then separate nothing.
+    Never widened: that would widen the logits' roundoff with them."""
+    from shift_gcn_torch.data.modalities import derive_modalities
+
+    mods = derive_modalities(windows, predictor.graph)
+    dev = next(iter(predictor._models.values())).fc.weight.device
+    with torch.inference_mode():
+        delta = sum(
+            predictor.alpha[m] * (lambda z: z[:, 1] - z[:, 0])(model(
+                torch.from_numpy(np.ascontiguousarray(mods[m])).to(dev)))
+            for m, model in predictor._models.items())
+        spread = float(delta.std())
+        if not spread > 0:
+            fail(f"streaming: the fall logit does not vary ({spread})")
+        scale = min(1.0, 2.0 / spread)
+        shift = -scale * float(delta.mean()) / sum(
+            predictor.alpha[m] for m in predictor._models)
+        for model in predictor._models.values():
+            model.fc.weight.mul_(scale)
+            model.fc.bias.mul_(scale)
+            model.fc.bias[1] += shift
+
+
+def check_streaming(predictor, rng, card: str):
+    """Phase 12: a ``StreamingFallDetector`` over a landmark track of
+    STREAM_WINDOWS windows at hop == the offline stride: its finalize()
+    report equals ``run_on_landmarks`` (window probabilities and frame
+    probabilities within 1e-5, the same intervals, the events the offline
+    window scores give), with 20 K1 and 10 K4 launches per stream and
+    evaluation; then the time from ``push`` to its update at a hop of a
+    tenth of a window.  Returns (median ms, p90 ms)."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.data.preprocess import pre_normalization
+    from shift_gcn_torch.inference import pipeline, streaming
+
+    hop, frames = T_WINDOW // 2, STREAM_WINDOWS * T_WINDOW
+    streams = len(predictor._models)
+    track = landmark_sequence(rng, frames)
+    windows, _ = pipeline.create_sliding_windows(track, T_WINDOW, hop)
+    graph = predictor.graph
+    windows = pre_normalization(windows, zaxis=graph.zaxis, xaxis=graph.xaxis,
+                                center_joint=list(graph.center_joint))
+    spread_scores(predictor, windows)
+    offline_probs = predictor.predict(windows)[:, 1]
+    # a threshold inside the scores' range and clear of each of them by
+    # more than the 1e-5 tolerance, so that events and intervals compare
+    # exactly
+    _, probe = streaming.run_stream(track, predictor, window=T_WINDOW,
+                                    hop=hop)
+    offline = pipeline.run_on_landmarks(track, predictor, window=T_WINDOW,
+                                        stride=hop)
+    values = np.unique(np.concatenate([
+        offline_probs, [u.fall_prob for u in probe],
+        offline["frame_probabilities"]]))
+    gap = int(np.argmax(np.diff(values)))
+    if not values[gap + 1] - values[gap] > 2e-5:
+        fail(f"streaming: the scores {values} leave no threshold clear of "
+             "them by 1e-5")
+    threshold = float(values[gap] + values[gap + 1]) / 2
+    offline = pipeline.run_on_landmarks(track, predictor, window=T_WINDOW,
+                                        stride=hop, threshold=threshold)
+
+    kernels.reset_launches()
+    report, updates = streaming.run_stream(
+        track, predictor, window=T_WINDOW, hop=hop, threshold=threshold)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    # the track ends on a hop, so finalize() scores no tail window
+    evals = len(updates)
+    expect = {name: PER_EVAL_FORWARD.get(name, 0) * streams * evals
+              for name in kernels.KERNELS}
+    if launches != expect:
+        fail(f"streaming: launch counts {launches} != expected {expect} "
+             f"({evals} evaluations x {streams} streams)")
+    full = [u.fall_prob for u in updates if not u.partial]
+    if len(full) != len(offline_probs):
+        fail(f"streaming: {len(full)} full windows, offline "
+             f"{len(offline_probs)}")
+    win_err = float(np.abs(np.asarray(full) - offline_probs).max())
+    frame_err = float(np.abs(np.asarray(report["frame_probabilities"])
+                             - np.asarray(offline["frame_probabilities"])
+                             ).max())
+    if not (win_err <= 1e-5 and frame_err <= 1e-5):
+        fail(f"streaming: window probabilities off by {win_err:.3g}, frame "
+             f"probabilities by {frame_err:.3g} (tol 1e-5)")
+    for key in ("total_frames", "num_windows", "fall_detected"):
+        if report[key] != offline[key]:
+            fail(f"streaming: {key} {report[key]} != offline {offline[key]}")
+    spans = [(iv["start_frame"], iv["end_frame"]) for iv in
+             report["fall_intervals"]]
+    if spans != [(iv["start_frame"], iv["end_frame"])
+                 for iv in offline["fall_intervals"]]:
+        fail(f"streaming: intervals {spans} != offline "
+             f"{offline['fall_intervals']}")
+    partial = [u.fall_prob for u in updates if u.partial]
+    want, still_open = hysteresis_events(partial + list(offline_probs),
+                                         threshold)
+    want += ["fall_end"] if still_open else []
+    got = ([u.event for u in updates]
+           + [u["event"] for u in report["final_updates"]])
+    if got != want:
+        fail(f"streaming: events {got} != those of the offline scores "
+             f"{want}")
+    print(f"[stream] {frames} frames, window {T_WINDOW}, hop {hop}, "
+          f"{streams} streams: {evals} evaluations, launches {launches}, "
+          f"max|p - p_offline| windows {win_err:.3g}, frames "
+          f"{frame_err:.3g}, intervals {spans}, events "
+          f"{[e for e in got if e]} at threshold {threshold:.6f}")
+
+    hop = T_WINDOW // 10
+    det = streaming.StreamingFallDetector(predictor, window=T_WINDOW,
+                                          hop=hop)
+    times = []
+    kernels.reset_launches()
+    for i in range(frames):
+        t0 = time.perf_counter()
+        upd = det.push(track[:, i])
+        if upd is not None:
+            times.append((time.perf_counter() - t0) * 1e3)
+    det.finalize()
+    expect = {name: PER_EVAL_FORWARD.get(name, 0) * streams * len(times)
+              for name in kernels.KERNELS}
+    if dict(kernels.LAUNCHES) != expect:
+        fail(f"streaming hop {hop}: launch counts {dict(kernels.LAUNCHES)} "
+             f"!= expected {expect}")
+    median = statistics.median(times)
+    p90 = float(np.percentile(times, 90))
+    print(f"[stream] hop {hop}: {len(times)} evaluations, push -> update "
+          f"median {median:.3f} ms, p90 {p90:.3f} ms, max "
+          f"{max(times):.3f} ms (host clock, {streams} batch-1 stream "
+          f"forwards each) | {card}")
+
+    # where an evaluation's time goes: the host's pre-normalization, the
+    # four forwards (host clock, ending in the copy of the scores), one
+    # batch-1 forward by CUDA events and its device busy share
+    window = track[None, :, -T_WINDOW:]
+
+    def prenorm():
+        return pre_normalization(window.copy(), zaxis=graph.zaxis,
+                                 xaxis=graph.xaxis,
+                                 center_joint=list(graph.center_joint))
+
+    def host_ms(fn, reps=15):
+        spent = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            spent.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(spent)
+
+    batch = prenorm()
+    prenorm_ms = host_ms(prenorm)
+    predict_ms = host_ms(lambda: predictor.predict(batch))
+    model = predictor._models["joint"]
+    x1 = torch.from_numpy(np.ascontiguousarray(batch)).to(
+        model.fc.weight.device)
+    with torch.inference_mode():
+        fwd1 = time_ms(lambda: model(x1), iters=10, reps=5)
+        busy = profile_call(lambda: model(x1), "one batch-1 stream forward "
+                            f"(T={T_WINDOW})", card, top=5)
+    print(f"[stream] an evaluation: pre-normalization {prenorm_ms:.3f} ms, "
+          f"predict ({streams} streams) {predict_ms:.3f} ms (host clock); "
+          f"one batch-1 stream forward {fwd1:.3f} ms (CUDA events), device "
+          f"busy {'n/a' if busy is None else f'{100 * busy:.1f}%'} | {card}")
+    return median, p90
+
+
+def check_artifacts(state_dict, config, rng, dev, card: str):
+    """Phase 13: one stream's model exported on the card at batch
+    N_WINDOWS in both flavours, saved, loaded, and ARTIFACT_CLIPS clips
+    scored through ``serve.score_clips`` (the last batch padded): the
+    scores equal the live module's on the same batches within 1e-5, with
+    20 K1 and 10 K4 launches per artifact batch; each artifact's time per
+    batch beside the live module's.  Returns {flavour: (artifact ms, live
+    ms)}."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.inference import export, pipeline, serve
+    from shift_gcn_torch.models.shift_gcn import Model
+
+    model = Model(config)
+    model.load_state_dict(state_dict, strict=True)
+    clips = np.stack([
+        pipeline.create_sliding_windows(landmark_sequence(rng, T_WINDOW),
+                                        T_WINDOW)[0][0]
+        for _ in range(ARTIFACT_CLIPS)])
+    batches = -(-ARTIFACT_CLIPS // N_WINDOWS)
+    # the live module on the same zero-padded batches of N_WINDOWS: another
+    # batch size may run other cuDNN / cuBLAS kernels, in another order
+    padded = np.zeros((batches * N_WINDOWS,) + clips.shape[1:], np.float32)
+    padded[:ARTIFACT_CLIPS] = clips
+    with torch.inference_mode():
+        live = np.concatenate([
+            model(torch.from_numpy(padded[i:i + N_WINDOWS]).to(dev)).cpu()
+            .numpy() for i in range(0, len(padded), N_WINDOWS)
+        ])[:ARTIFACT_CLIPS]
+    x = torch.from_numpy(clips[:N_WINDOWS]).to(dev)
+    times = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pt2_") as tmp:
+        for flavour, exporter in (("inputs", export.export_eval),
+                                  ("baked", export.export_eval_baked)):
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"{flavour}.pt2")
+            with open(path, "wb") as f:
+                f.write(exporter(state_dict, config, N_WINDOWS, T_WINDOW))
+            artifact = export.load_exported(path)
+            export_s = time.perf_counter() - t0
+            weights = None if flavour == "baked" else state_dict
+            kernels.reset_launches()
+            scores = serve.score_clips(artifact, clips, N_WINDOWS,
+                                       weights=weights)
+            torch.cuda.synchronize()
+            launches = dict(kernels.LAUNCHES)
+            expect = {name: PER_EVAL_FORWARD.get(name, 0) * batches
+                      for name in kernels.KERNELS}
+            if launches != expect:
+                fail(f"artifact {flavour}: launch counts {launches} != "
+                     f"expected {expect} ({batches} batches)")
+            err = float(np.abs(scores - live).max())
+            if scores.shape != live.shape or not err <= 1e-5:
+                fail(f"artifact {flavour}: scores {scores.shape} off the "
+                     f"live module by {err:.3g} (tol 1e-5)")
+            call = artifact.module()
+            args = ((x,) if weights is None else
+                    ({k: v.to(dev) for k, v in weights.items()}, x))
+            with torch.inference_mode():
+                ms = time_ms(lambda: call(*args), iters=3, reps=5)
+                live_ms = time_ms(lambda: model(x), iters=3, reps=5)
+            times[flavour] = (ms, live_ms)
+            print(f"[artifact] {flavour}: exported, saved and loaded in "
+                  f"{export_s:.1f} s; {ARTIFACT_CLIPS} clips in {batches} "
+                  f"batches of {N_WINDOWS}, max|logit - live| {err:.3g}, "
+                  f"launches {launches}; {ms:.3f} ms a batch, live module "
+                  f"{live_ms:.3f} ms | {card}")
+    return times
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1446,6 +1766,16 @@ def main() -> None:
                                                      card)
     steps, busy = time_train_step(config, rng, dev, card, args.seed)
 
+    # 11.-13. live serving -------------------------------------------------
+    check_stream_shapes(config, gen, rng, dev)
+    serve_dicts = {m: state_dict_from_arrays(*random_arrays(config, rng))
+                   for m in pipeline.MODALITY_ORDER}
+    stream_p50, stream_p90 = check_streaming(
+        pipeline.EnsemblePredictor(serve_dicts, model_config=config), rng,
+        card)
+    artifact_ms = check_artifacts(serve_dicts["joint"], config, rng, dev,
+                                  card)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -1481,7 +1811,10 @@ def main() -> None:
           f"{fwd_bf16['temporal_shift'][0]:.4g} "
           f"{fwd_bf16['shift_gcn'][0]:.4g}, K2+K3,K5,K6 "
           + " ".join(f"{train_bf16[k]:.4g}" for k in train_totals)
-          + f"; grads {grad_gap:.2g}, gy_raw {gy_ratio:.2g}")
+          + f"; grads {grad_gap:.2g}, gy_raw {gy_ratio:.2g}; stream "
+          f"p50/p90 {stream_p50:.4g}/{stream_p90:.4g}; pt2 in/baked/live "
+          f"{artifact_ms['inputs'][0]:.4g}/{artifact_ms['baked'][0]:.4g}/"
+          f"{artifact_ms['inputs'][1]:.4g}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

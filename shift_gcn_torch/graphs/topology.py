@@ -1,12 +1,13 @@
 """Skeleton graph topologies: the data the serving path needs of a skeleton.
 
 A copy of the reference package's ``SkeletonGraph`` cut to what the
-Shift-GCN forward and its data preparation read: the joint count, the bone
-pairs that derive the bone modality (reference:
-data_gen/gen_bone_data.py:5-30, data_gen/gen_bone_data_mediapipe.py:7-43)
-and the joints that pre-normalization centres and aligns.  The forward
-never uses the adjacency (reference: model/shift_gcn.py:121-142, only
-``num_point`` matters), so none is kept here.
+Shift-GCN forward, its data preparation and the annotated video read: the
+joint count, the bone pairs that derive the bone modality (reference:
+data_gen/gen_bone_data.py:5-30, data_gen/gen_bone_data_mediapipe.py:7-43),
+the joints that pre-normalization centres and aligns, and the inward edges
+that ``inference/render.py`` draws.  The forward never uses the adjacency
+(reference: model/shift_gcn.py:121-142, only ``num_point`` matters), so
+none is built here.
 """
 
 from __future__ import annotations
@@ -32,6 +33,8 @@ class SkeletonGraph:
       center_joint: joint index/indices used for centering in pre-normalization.
       zaxis: (bottom, top) joint pair aligned to z during pre-normalization.
       xaxis: (right, left) joint pair aligned to x during pre-normalization.
+      inward: (child, parent) edges, 0-indexed, pointing toward the root:
+        the skeleton the annotated video draws.
     """
 
     name: str
@@ -40,6 +43,7 @@ class SkeletonGraph:
     center_joint: Tuple[int, ...] = (1,)
     zaxis: Tuple[int, int] = (0, 1)
     xaxis: Tuple[int, int] = (8, 4)
+    inward: Tuple[Edge, ...] = ()
 
     def bone_parents(self) -> np.ndarray:
         """parents[v] = parent joint of v (v itself for roots). Shape (V,)."""
@@ -47,6 +51,34 @@ class SkeletonGraph:
         for child, parent in self.bone_pairs:
             parents[child] = parent
         return parents
+
+
+def _ntu_inward() -> Tuple[Edge, ...]:
+    # 1-indexed (child, parent) pairs toward the spine (reference:
+    # graph/ntu_rgb_d.py:8-11), converted to 0-indexed.
+    pairs_1 = [
+        (1, 2), (2, 21), (3, 21), (4, 3), (5, 21), (6, 5), (7, 6),
+        (8, 7), (9, 21), (10, 9), (11, 10), (12, 11), (13, 1),
+        (14, 13), (15, 14), (16, 15), (17, 1), (18, 17), (19, 18),
+        (20, 19), (22, 23), (23, 8), (24, 25), (25, 12),
+    ]
+    return tuple((i - 1, j - 1) for (i, j) in pairs_1)
+
+
+def _mediapipe_inward() -> Tuple[Edge, ...]:
+    # Spanning tree over 33 MediaPipe Pose landmarks rooted at NOSE with two
+    # bridge edges (reference: graph/mediapipe_pose.py:14-24), 0-indexed.
+    return (
+        (1, 0), (2, 1), (3, 2), (7, 3),
+        (4, 0), (5, 4), (6, 5), (8, 6),
+        (9, 0), (10, 9),
+        (11, 0), (12, 11),
+        (13, 11), (15, 13), (17, 15), (19, 15), (21, 15),
+        (14, 12), (16, 14), (18, 16), (20, 16), (22, 16),
+        (23, 11), (24, 12),
+        (25, 23), (27, 25), (29, 27), (31, 27),
+        (26, 24), (28, 26), (30, 28), (32, 28),
+    )
 
 
 def _ntu_bone_pairs() -> Tuple[Edge, ...]:
@@ -80,6 +112,7 @@ NTU_RGB_D = SkeletonGraph(
     center_joint=(1,),
     zaxis=(0, 1),
     xaxis=(8, 4),
+    inward=_ntu_inward(),
 )
 
 # NTU-120 shares the 25-joint skeleton; split logic differs (data layer).
@@ -94,6 +127,7 @@ MEDIAPIPE_POSE = SkeletonGraph(
     center_joint=(23, 24),
     zaxis=(23, 11),
     xaxis=(12, 11),
+    inward=_mediapipe_inward(),
 )
 
 _REGISTRY: Dict[str, SkeletonGraph] = {

@@ -1,4 +1,4 @@
-"""Offline fall-detection pipeline over landmark sequences.
+"""Offline fall-detection pipeline: video or landmarks -> report.
 
 Landmarks (3, T, 33, 1) -> pre-normalized sliding windows -> the four
 derived modalities -> one batched forward per stream -> alpha-weighted
@@ -6,13 +6,21 @@ logits -> softmax -> per-frame score aggregation -> threshold intervals
 -> report dict (reference: inference_pipeline.py:574-670).  The report
 has the same keys and semantics as the reference package's.
 
-Video decoding and pose extraction are not part of this module: feed
-landmark arrays to ``run_on_landmarks``.
+``run_on_landmarks`` takes landmark arrays; ``run_pipeline`` (and the CLI,
+``python -m shift_gcn_torch.inference.pipeline``) first extracts them from
+a video through a pose backend (``data/gendata/mediapipe.py``) and can
+write an annotated video (``inference/render.py``).  Checkpoints are the
+port's or the reference's ``.pt`` / ``.pkl`` files
+(``auto_detect_checkpoints`` finds them under a save-models root); the
+models run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -22,7 +30,8 @@ from shift_gcn_torch.data.modalities import derive_modalities
 from shift_gcn_torch.data.preprocess import pre_normalization
 from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
-from shift_gcn_torch.utils.checkpoint import load_reference_checkpoint
+from shift_gcn_torch.utils.checkpoint import (
+    _CHECKPOINT_NAME, latest_checkpoint, load_reference_checkpoint)
 from shift_gcn_torch.utils.device import resolve_device
 
 MODALITY_ORDER = ("joint", "bone", "joint_motion", "bone_motion")
@@ -189,3 +198,195 @@ def run_on_landmarks(
         center_joint=list(predictor.graph.center_joint))
     probs = predictor.predict(batch)
     return build_report(probs[:, 1], spans, total_frames, threshold)
+
+
+def _has_modality(name: str, modality: str) -> bool:
+    norm = name.lower().replace("-", "_")
+    if modality in ("joint", "bone"):
+        # plain joint/bone must not match the *_motion experiments
+        return modality in norm.split("_") and "motion" not in norm
+    return modality in norm
+
+
+def auto_detect_checkpoints(save_dir: str) -> Dict[str, str]:
+    """Find the newest checkpoint per modality under a save-models root
+    (reference: auto_detect_checkpoint, inference_pipeline.py:28-38).
+
+    Handles two layouts:
+    - the port trainer's run dirs:
+      <save_dir>/<experiment>/<experiment>-<epoch>-<step>.pt, where the
+      experiment name contains the modality ("joint", "bone",
+      "joint_motion"/"joint-motion", ...): across all matching run dirs
+      the highest (epoch, step) wins;
+    - reference torch files: <save_dir>/*_<modality>-<epoch>-<step>.pt:
+      the highest epoch wins; a non-numeric epoch token
+      ('fall-bone-final.pt') counts as epoch 0.
+    The reference package's Orbax run dirs are not read (export them to
+    ``.pt`` first; see ``utils/checkpoint.py``).
+    """
+    found: Dict[str, str] = {}
+    if not os.path.isdir(save_dir):
+        return found
+    entries = sorted(os.listdir(save_dir))
+    files = sorted(glob.glob(os.path.join(save_dir, "*.pt")))
+    for modality in MODALITY_ORDER:
+        best = None
+        for entry in entries:
+            full = os.path.join(save_dir, entry)
+            if not (os.path.isdir(full) and _has_modality(entry, modality)):
+                continue
+            latest = latest_checkpoint(full)
+            if latest:
+                m = _CHECKPOINT_NAME.fullmatch(os.path.basename(latest))
+                key = (int(m["epoch"]), int(m["step"]))
+                if best is None or key > best:
+                    best = key
+                    found[modality] = latest
+        if modality in found:
+            continue
+        pts = [p for p in files
+               if _has_modality(os.path.basename(p).rsplit("-", 2)[0],
+                                modality)]
+        if pts:
+            def epoch_of(p):
+                parts = os.path.splitext(os.path.basename(p))[0].rsplit(
+                    "-", 2)
+                if len(parts) >= 3 and parts[-2].isdigit():
+                    return int(parts[-2])
+                return 0
+            found[modality] = max(pts, key=epoch_of)
+    return found
+
+
+def run_pipeline(
+    video_path: str,
+    checkpoints: Optional[Mapping[str, Checkpoint]] = None,
+    *,
+    fourstream_checkpoint: Optional[str] = None,
+    output_json: Optional[str] = None,
+    output_video: Optional[str] = None,
+    window: int = 300,
+    stride: int = 150,
+    threshold: float = 0.5,
+    pose_backend: str = "mediapipe",
+    max_frames: int = 100000,
+    model_config: Optional[ModelConfig] = None,
+    device="cuda",
+) -> Dict:
+    """Full video -> report (reference: run_pipeline,
+    inference_pipeline.py:574-670).  Models come from per-modality
+    ``checkpoints``; a ``fourstream_checkpoint`` raises
+    NotImplementedError (ROADMAP A9).
+
+    The report JSON is written before the annotated video is rendered,
+    so a failing render never loses the result, and rewritten with
+    ``annotated_video`` once the video exists.  ``output_video``: an
+    annotated mp4 (skeleton overlay from the backend's pixel landmarks,
+    probability bar, fall-interval tint; reference
+    inference_pipeline.py:663-667)."""
+    from shift_gcn_torch.data.gendata.mediapipe import (
+        get_backend, pixel_landmarks, world_landmarks)
+
+    if (checkpoints is None) == (fourstream_checkpoint is None):
+        raise ValueError(
+            "pass exactly one of checkpoints / fourstream_checkpoint")
+    if fourstream_checkpoint is not None:
+        raise NotImplementedError(
+            f"four-stream checkpoint {fourstream_checkpoint!r}: the port "
+            "does not read four-stream checkpoints yet (ROADMAP A9); pass "
+            "one checkpoint per modality")
+    predictor = EnsemblePredictor(checkpoints, model_config=model_config,
+                                  device=device)
+    result = get_backend(pose_backend)(video_path, max_frames)
+    landmarks = world_landmarks(result)
+    if landmarks is None:
+        raise RuntimeError(f"no pose could be extracted from {video_path}")
+    report = run_on_landmarks(
+        landmarks, predictor, window=window, stride=stride,
+        threshold=threshold)
+    report["video"] = os.path.basename(video_path)
+    if output_json:
+        with open(output_json, "w") as f:
+            json.dump(report, f, indent=2)
+    if output_video:
+        from shift_gcn_torch.inference.render import render_annotated_video
+
+        render_annotated_video(
+            video_path, output_video,
+            frame_probs=report["frame_probabilities"],
+            fall_intervals=report["fall_intervals"],
+            graph=predictor.graph,
+            pixel_landmarks=pixel_landmarks(result),
+            threshold=threshold)
+        report["annotated_video"] = output_video
+        if output_json:
+            with open(output_json, "w") as f:
+                json.dump(report, f, indent=2)
+    return report
+
+
+def add_checkpoint_args(parser) -> None:
+    """Install the model-selection CLI args shared by the offline
+    pipeline and the streaming CLI (streaming.py)."""
+    parser.add_argument("--joint", default=None)
+    parser.add_argument("--bone", default=None)
+    parser.add_argument("--joint-motion", default=None)
+    parser.add_argument("--bone-motion", default=None)
+    parser.add_argument("--fourstream", default=None,
+                        help="one four-stream checkpoint (not read by the "
+                        "port yet: ROADMAP A9)")
+    parser.add_argument("--save-dir", default=None,
+                        help="auto-detect per-modality checkpoints under "
+                        "this save-models root (reference "
+                        "inference_pipeline.py:28-38)")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the models (default cuda; "
+                        "'cpu' runs the kernels' plain versions)")
+
+
+def resolve_checkpoint_args(parser, args) -> Dict[str, str]:
+    """args from :func:`add_checkpoint_args` -> per-modality checkpoint
+    dict.  parser.error()s on an unusable combination and on
+    --fourstream."""
+    if args.fourstream is not None:
+        parser.error(f"--fourstream {args.fourstream}: the port does not "
+                     "read four-stream checkpoints yet (ROADMAP A9)")
+    if args.save_dir:
+        ckpts = auto_detect_checkpoints(args.save_dir)
+        if not ckpts:
+            parser.error(f"no checkpoints found under {args.save_dir}")
+        return ckpts
+    if args.joint is None:
+        parser.error("--joint (or --save-dir) is required")
+    ckpts = {"joint": args.joint}
+    for key in ("bone", "joint_motion", "bone_motion"):
+        val = getattr(args, key)
+        if val:
+            ckpts[key] = val
+    return ckpts
+
+
+def main(argv=None):
+    import argparse
+
+    parser = argparse.ArgumentParser(description="fall-detection inference")
+    parser.add_argument("--video", required=True)
+    add_checkpoint_args(parser)
+    parser.add_argument("--output", default="results.json")
+    parser.add_argument("--output-video", default=None,
+                        help="write an annotated mp4 here")
+    parser.add_argument("--threshold", type=float, default=0.5)
+    parser.add_argument("--window", type=int, default=300)
+    parser.add_argument("--stride", type=int, default=150)
+    args = parser.parse_args(argv)
+    ckpts = resolve_checkpoint_args(parser, args)
+    report = run_pipeline(
+        args.video, ckpts, output_json=args.output,
+        output_video=args.output_video, window=args.window,
+        stride=args.stride, threshold=args.threshold, device=args.device)
+    print(json.dumps({k: v for k, v in report.items()
+                      if k != "frame_probabilities"}, indent=2))
+
+
+if __name__ == "__main__":
+    main()

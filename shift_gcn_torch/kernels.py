@@ -141,8 +141,9 @@ def refuse_grad(kernel: str, *tensors) -> None:
 
     A kernel's output has no ``grad_fn``: called in grad mode on an input
     that requires grad, it would silently cut every gradient upstream.
-    Only the kernel's ``torch.autograd.Function`` may call it then (its
-    forward and backward run with grad mode off).
+    Only the kernel's ``torch.autograd.Function`` and its registered
+    operator (``ops/library.py``) may call it then: grad mode is off
+    inside both.
     """
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in tensors):

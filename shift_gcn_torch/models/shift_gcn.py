@@ -288,11 +288,17 @@ class Model(nn.Module):
         return h @ self.fc.weight.t() + self.fc.bias
 
 
-def _check_shift_range(module: Model, incompatible) -> None:
-    for name, param in module.named_parameters():
+def check_shift_range(named_tensors) -> None:
+    """Raise if a ``*.ypos`` of (name, tensor) pairs (``named_parameters()``
+    or a state_dict's items) reaches the reference lowering's default tap
+    radius; for weights that do not pass through ``load_state_dict``."""
+    for name, param in named_tensors:
         if name.endswith(".ypos"):
-            # the reference lowering's default tap radius
             temporal_shift.assert_in_range(param, name)
+
+
+def _check_shift_range(module: Model, incompatible) -> None:
+    check_shift_range(module.named_parameters())
 
 
 def config_from_reference_args(model_args: Dict[str, Any]) -> ModelConfig:

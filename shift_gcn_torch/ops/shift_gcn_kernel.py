@@ -23,8 +23,11 @@ dx is skipped when x needs no gradient.  (In the model every unit's x
 needs one: the first unit's input is the output of the trainable
 ``data_bn``.)
 
-The three raw launchers (``shift_gcn_forward`` K4, ``shift_gcn_dx`` K5,
-``shift_gcn_wgrad`` K6) run their plain PyTorch versions
+Without autograd, and in the Function's forward, K4 runs as the
+registered operator ``shift_gcn_torch::shift_gcn`` (``ops/library.py``),
+so a tracer records it as one node.  The three raw launchers
+(``shift_gcn_forward`` K4, ``shift_gcn_dx`` K5, ``shift_gcn_wgrad`` K6)
+run their plain PyTorch versions
 (``ops.spatial_shift``) on a CPU tensor and the hand-written kernels
 (``csrc/shift_gcn.cu``) on a CUDA tensor, or raise; called in grad mode
 on an input that requires grad, each raises.  Math is fp32; activations
@@ -165,7 +168,7 @@ class FusedShiftGCNFunction(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, gate, w, bias):
         ctx.save_for_backward(x, gate, w)
-        return shift_gcn_forward(x, gate, w, bias)
+        return torch.ops.shift_gcn_torch.shift_gcn(x, gate, w, bias)
 
     @staticmethod
     def backward(ctx, g):
@@ -186,4 +189,4 @@ def fused_shift_gcn(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, gate, w, bias)):
         return FusedShiftGCNFunction.apply(x, gate, w, bias)
-    return shift_gcn_forward(x, gate, w, bias)
+    return torch.ops.shift_gcn_torch.shift_gcn(x, gate, w, bias)

@@ -40,7 +40,10 @@ that radius, so the two agree by construction.
 
 ``temporal_shift`` is the entry point.  When autograd records it (grad
 mode on and an input requires grad) it runs ``TemporalShiftFunction``;
-otherwise the forward alone.  The raw launchers are
+otherwise the forward alone, as the registered operator
+``shift_gcn_torch::temporal_shift`` (``ops/library.py``), which the
+Function's forward calls too, so a tracer records K1 as one node either
+way.  The raw launchers are
 ``temporal_shift_forward`` (K1), ``temporal_shift_backward`` (K2 and K3
 fused: dx and gy_raw) and its one-output forms
 ``temporal_shift_grad_input`` and ``temporal_shift_position_grad``, which
@@ -277,7 +280,7 @@ class TemporalShiftFunction(torch.autograd.Function):
         ctx.save_for_backward(x, ypos)
         ctx.xpos_meta = (None if xpos is None
                          else (xpos.shape, xpos.dtype, xpos.device))
-        return temporal_shift_forward(x, ypos, stride)
+        return torch.ops.shift_gcn_torch.temporal_shift(x, ypos, stride)
 
     @staticmethod
     def backward(ctx, g):
@@ -308,7 +311,7 @@ def temporal_shift(x: torch.Tensor, ypos: torch.Tensor, stride: int = 1,
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, xpos, ypos)):
         return TemporalShiftFunction.apply(x, xpos, ypos, stride)
-    return temporal_shift_forward(x, ypos, stride)
+    return torch.ops.shift_gcn_torch.temporal_shift(x, ypos, stride)
 
 
 def assert_in_range(ypos, name: str = "ypos",

@@ -2,6 +2,7 @@
 reference package's pipeline on the CPU, from the same exported
 reference ``.pt`` checkpoints; plus the port's import hygiene."""
 
+import json
 import pathlib
 import pickle
 import re
@@ -172,3 +173,222 @@ def test_port_import_leaves_jax_unloaded():
                           cwd=PORT_ROOT.parent, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+# ---------------------------------------------------------------------------
+# Video -> report: run_pipeline, checkpoint discovery, the CLI
+# ---------------------------------------------------------------------------
+
+
+def _write_video(path, frames, size=(64, 48)):
+    cv2 = pytest.importorskip("cv2")
+    writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25,
+                             size)
+    assert writer.isOpened()
+    for i in range(frames):
+        writer.write(np.full((size[1], size[0], 3), (i * 7) % 255, np.uint8))
+    writer.release()
+    return str(path)
+
+
+def _stub_backend(landmarks):
+    """A pose backend returning fixed world and pixel landmarks."""
+    t = landmarks.shape[1]
+    pixels = np.random.default_rng(1).uniform(
+        1, 40, (t, 33, 2)).astype(np.float32)
+    return lambda path, max_frame: (landmarks[:, :max_frame], pixels)
+
+
+def _read_frames(path):
+    import cv2
+
+    cap = cv2.VideoCapture(str(path))
+    n = 0
+    while cap.read()[0]:
+        n += 1
+    cap.release()
+    return n
+
+
+def test_run_pipeline_matches_reference(checkpoints, tmp_path, monkeypatch):
+    """The same stub pose backend registered on both sides: equal report
+    keys, windows and intervals, probabilities within 1e-5; the JSON on
+    disk is the returned report, and the annotated video has every frame."""
+    from shift_gcn_tpu.data.gendata import mediapipe as jax_mediapipe
+    from shift_gcn_torch.data.gendata import mediapipe
+
+    cfg, paths = checkpoints
+    landmarks = _landmarks(60, 4)
+    video = _write_video(tmp_path / "clip.mp4", 60)
+    backend = _stub_backend(landmarks)
+    monkeypatch.setitem(jax_mediapipe._BACKENDS, "stub", backend)
+    monkeypatch.setitem(mediapipe._BACKENDS, "stub", backend)
+    kw = {"window": 32, "stride": 16, "pose_backend": "stub"}
+    probe = jax_pipeline.run_pipeline(video, paths, model_config=cfg, **kw)
+    threshold = _separated_threshold(probe["frame_probabilities"])
+    want = jax_pipeline.run_pipeline(video, paths, model_config=cfg,
+                                     threshold=threshold, **kw)
+    out_json, out_video = tmp_path / "r.json", tmp_path / "annotated.mp4"
+    got = pipeline.run_pipeline(
+        video, paths, model_config=config_from_reference_args(ARGS),
+        threshold=threshold, output_json=str(out_json),
+        output_video=str(out_video), device="cpu", **kw)
+    assert got.pop("annotated_video") == str(out_video)
+    assert list(got) == list(want)
+    for key in ("total_frames", "num_windows", "fall_detected", "video"):
+        assert got[key] == want[key], key
+    assert ([(iv["start_frame"], iv["end_frame"])
+             for iv in got["fall_intervals"]]
+            == [(iv["start_frame"], iv["end_frame"])
+                for iv in want["fall_intervals"]])
+    np.testing.assert_allclose(got["frame_probabilities"],
+                               want["frame_probabilities"], atol=1e-5)
+    saved = json.loads(out_json.read_text())
+    assert saved.pop("annotated_video") == str(out_video)
+    assert saved == json.loads(json.dumps(got))
+    assert _read_frames(out_video) == 60
+
+
+def test_run_pipeline_writes_report_before_render(checkpoints, tmp_path,
+                                                  monkeypatch):
+    """A render that fails leaves the report JSON on disk, without the
+    annotated_video key (it is added only once the video exists)."""
+    from shift_gcn_torch.data.gendata import mediapipe
+    from shift_gcn_torch.inference import render
+
+    _, paths = checkpoints
+    monkeypatch.setitem(mediapipe._BACKENDS, "stub",
+                        _stub_backend(_landmarks(40, 5)))
+
+    def broken(*args, **kwargs):
+        raise RuntimeError("render failed")
+
+    monkeypatch.setattr(render, "render_annotated_video", broken)
+    out_json = tmp_path / "r.json"
+    with pytest.raises(RuntimeError, match="render failed"):
+        pipeline.run_pipeline(
+            "clip.mp4", paths, model_config=config_from_reference_args(ARGS),
+            window=32, stride=16, pose_backend="stub",
+            output_json=str(out_json), output_video=str(tmp_path / "v.mp4"),
+            device="cpu")
+    saved = json.loads(out_json.read_text())
+    assert saved["total_frames"] == 40 and "annotated_video" not in saved
+
+
+def test_run_pipeline_refuses_fourstream_and_bad_combinations(checkpoints):
+    _, paths = checkpoints
+    with pytest.raises(NotImplementedError, match="A9"):
+        pipeline.run_pipeline("clip.mp4", fourstream_checkpoint="four.pt",
+                              device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        pipeline.run_pipeline("clip.mp4", device="cpu")
+    with pytest.raises(ValueError, match="exactly one"):
+        pipeline.run_pipeline("clip.mp4", paths,
+                              fourstream_checkpoint="four.pt", device="cpu")
+
+
+def _touch(path):
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_bytes(b"")
+    return str(path)
+
+
+def test_auto_detect_checkpoints(tmp_path):
+    """Port run dirs (the highest (epoch, step) across every matching
+    dir) ahead of reference files (the highest epoch; a non-numeric epoch
+    counts as 0); plain joint/bone never match a *_motion name."""
+    root = tmp_path / "save_models"
+    _touch(root / "fall_joint" / "fall_joint-5-100.pt")
+    _touch(root / "fall_joint" / "fall_joint-12-240.pt")
+    want_joint = _touch(root / "fall_joint_v2" / "fall_joint_v2-12-300.pt")
+    want_jm = _touch(root / "fall-joint-motion" / "fall-joint-motion-3-60.pt")
+    _touch(root / "fall_joint" / "notes.txt")
+    _touch(root / "mp_joint-99-1.pt")  # a run dir was found: ignored
+    _touch(root / "mp_bone-10-1.pt")
+    want_bone = _touch(root / "mp_bone-30-2.pt")
+    _touch(root / "mp_bone-final-9.pt")
+    want_bm = _touch(root / "mp_bone_motion-50-3.pt")
+    found = pipeline.auto_detect_checkpoints(str(root))
+    assert found == {"joint": want_joint, "joint_motion": want_jm,
+                     "bone": want_bone, "bone_motion": want_bm}
+    assert pipeline.auto_detect_checkpoints(str(tmp_path / "missing")) == {}
+
+
+@pytest.mark.parametrize("names", [
+    ["mp_joint-3-1.pt", "mp_joint-12-2.pt", "mp_bone-final-9.pt",
+     "mp_bone_motion-4-1.pt", "mp_joint_motion-7-1.pt"],
+    ["x-bone-final.pt", "y_bone-2-1.pt", "z_joint-motion-5-1.pt"],
+])
+def test_auto_detect_reference_files_match_reference(tmp_path, names):
+    """On reference-layout files alone the port picks what the reference
+    package picks."""
+    for name in names:
+        _touch(tmp_path / name)
+    assert (pipeline.auto_detect_checkpoints(str(tmp_path))
+            == jax_pipeline.auto_detect_checkpoints(str(tmp_path)))
+
+
+def test_pipeline_cli_full_width_model(tmp_path, monkeypatch, capsys):
+    """The CLI on the full-width MediaPipe fall model (at window 32),
+    checkpoints found under --save-dir, landmarks from the pose backend."""
+    from shift_gcn_torch.data.gendata import mediapipe
+    from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
+
+    model = Model(ModelConfig(num_class=2, num_point=33, num_person=1,
+                              graph="mediapipe_pose"), device="cpu")
+    model.init_weights(torch.Generator().manual_seed(0))
+    run_dir = tmp_path / "save" / "fall_joint"
+    run_dir.mkdir(parents=True)
+    torch.save({"model_state_dict": model.state_dict(), "epoch": 1,
+                "global_step": 5, "best_acc": 0.0},
+               run_dir / "fall_joint-1-5.pt")
+    monkeypatch.setitem(mediapipe._BACKENDS, "mediapipe",
+                        _stub_backend(_landmarks(48, 6)))
+    out = tmp_path / "results.json"
+    pipeline.main(["--video", "clip.mp4", "--save-dir",
+                   str(tmp_path / "save"), "--output", str(out),
+                   "--window", "32", "--stride", "16", "--device", "cpu"])
+    report = json.loads(out.read_text())
+    assert report["total_frames"] == 48 and report["num_windows"] == 2
+    assert report["video"] == "clip.mp4"
+    assert np.isfinite(report["frame_probabilities"]).all()
+    assert '"num_windows": 2' in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        pipeline.main(["--video", "clip.mp4", "--fourstream", "four.pt",
+                       "--device", "cpu"])
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            pipeline.main(["--video", "clip.mp4", "--save-dir",
+                           str(tmp_path / "save"), "--output", str(out)])
+
+
+def test_graph_inward_edges_match_reference():
+    from shift_gcn_tpu.graphs import get_graph as jax_get_graph
+    from shift_gcn_torch.graphs import get_graph
+
+    for name in ("ntu_rgb_d", "ntu120_rgb_d", "mediapipe_pose"):
+        assert get_graph(name).inward == jax_get_graph(name).inward, name
+
+
+def test_pose_backend_registry_and_unwrapping():
+    import importlib.util
+
+    from shift_gcn_tpu.data.gendata import mediapipe as jax_mediapipe
+    from shift_gcn_torch.data.gendata import mediapipe
+    from shift_gcn_torch.graphs import get_graph
+
+    assert mediapipe.MEDIAPIPE_AXES == jax_mediapipe.MEDIAPIPE_AXES
+    graph = get_graph("mediapipe_pose")
+    assert (graph.zaxis, graph.xaxis, graph.center_joint) == tuple(
+        mediapipe.MEDIAPIPE_AXES[k]
+        for k in ("zaxis", "xaxis", "center_joint"))
+    world, pixels = np.zeros((3, 4, 33, 1)), np.ones((4, 33, 2))
+    assert mediapipe.world_landmarks((world, pixels)) is world
+    assert mediapipe.world_landmarks(world) is world
+    assert mediapipe.pixel_landmarks((world, pixels)) is pixels
+    assert mediapipe.pixel_landmarks(world) is None
+    with pytest.raises(KeyError, match="unknown pose backend"):
+        mediapipe.get_backend("no-such-backend")
+    if importlib.util.find_spec("mediapipe") is None:
+        with pytest.raises(ImportError, match="register_backend"):
+            mediapipe.get_backend("mediapipe")
