@@ -47,9 +47,11 @@ Phases, in order; any failure exits non-zero:
    gap that 2^-22 noise on the plain K4's output makes;
 9. ``Trainer.start()`` on ``configs/mediapipe/train_joint.yaml`` unchanged
    in model and batch (bf16 activations, batch 64, T=300) for one epoch
-   of 8 steps on synthetic data, with eval and save; the launch counters
+   of 8 steps on synthetic data, with eval and save, batches prefetched
+   one step ahead on the Trainer's worker thread; the launch counters
    must equal the stated per-step counts x 8 plus the eval forwards, and
-   the saved checkpoint must reproduce the best-score pickle;
+   the saved checkpoint must reproduce the best-score pickle; prints the
+   feeder's share of the epoch;
 10. training timings: each backward kernel per step beside its bound, its
    plain version and a library call (the fused backward: the sum of the
    two library calls for grad_input and the position grad, also at
@@ -71,7 +73,25 @@ Phases, in order; any failure exits non-zero:
    weights baked), saved, loaded, and 130 clips scored through
    ``serve.score_clips`` (three batches, the last padded): the scores
    equal the live module within 1e-5, with 20 K1 and 10 K4 launches per
-   batch; each artifact's time per batch beside the live module's.
+   batch; each artifact's time per batch beside the live module's;
+14. four-stream training: ``Trainer.start()`` on
+   ``configs/mediapipe/train_fourstream.yaml`` unchanged in model and
+   batch (the joint, bone, joint-motion and bone-motion models, bf16,
+   batch 64, T=300, SGD nesterov lr 0.1) with the native loader, one
+   epoch of 8 steps on 512 synthetic clips and 128 validation clips: the
+   train feeder gathers natively; the launch counters equal 4 x the
+   per-step counts x 8 plus 4 x the eval forwards; finite per-stream
+   losses; the per-stream and ensemble best pickles exist, the ensemble's
+   0.6/0.6/0.4/0.4 of the streams' within 1e-5; the four-stream
+   checkpoint through ``EnsemblePredictor.from_fourstream_checkpoint``
+   reproduces every stream's pickle within 1e-5 and serves
+   ``run_on_landmarks`` as the per-modality predictor on the same state
+   dicts does; one four-stream step on copies of the four models equals
+   four ``state.train_step``s on the same weights (STEP_GRAD_TOL); the
+   device guard's check passes on the card and raises, without
+   sleeping, on an injected failing probe.  Prints the four-stream step
+   time (CUDA events) and its peak memory beside a single-stream step's,
+   the epoch's clips/s and the feeder's share.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -82,6 +102,7 @@ without CUDA the script fails.
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import os
 import pickle
@@ -119,6 +140,8 @@ KERNEL_ROWS = {
     "shift_gcn_wgrad": (K4_SOURCE, f"{SGCN_PALLAS}:158"),
 }
 TRAIN_CONFIG = "configs/mediapipe/train_joint.yaml"
+FOURSTREAM_CONFIG = "configs/mediapipe/train_fourstream.yaml"
+STREAMS = 4
 GY_RAW_TOL = 2e-5      # of sum|terms|: gy_raw vs its plain version (phases 7, 8)
 WGRAD_TOL = 2e-5       # of scale: K6's outputs vs its plain version (phase 7)
 STEP_GRAD_TOL = 1e-5   # of scale: a true gradient, kernel vs plain step
@@ -926,17 +949,11 @@ def check_train_step(config, rng, dev, seed: int):
     return worst, gy_ratio
 
 
-def run_trainer(rng, dev, workdir: str):
-    """Phase 9: ``Trainer.start()`` on the MediaPipe joint config for one
-    epoch of synthetic data.  Returns the launch counts of the run and the
-    epoch's statistics (``Trainer.train_epoch``)."""
-    from shift_gcn_torch import kernels
-    from shift_gcn_torch.data.feeder import BatchIterator, Feeder
-    from shift_gcn_torch.models.shift_gcn import Model
+def training_config(config_path: str, rng, workdir: str, *extra: str):
+    """The training config at ``config_path`` for one epoch, with eval and
+    save, on TRAIN_CLIPS + VAL_CLIPS synthetic clips written under
+    ``workdir``; returns it and the two splits' feeder arguments."""
     from shift_gcn_torch.train.config import load_config
-    from shift_gcn_torch.train.trainer import Trainer
-    from shift_gcn_torch.utils.checkpoint import (
-        latest_checkpoint, load_reference_checkpoint)
 
     feeder_args = {}
     for split, n in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
@@ -949,18 +966,40 @@ def run_trainer(rng, dev, workdir: str):
                          labels.tolist()), f)
         feeder_args[split] = paths
     cfg = load_config([
-        "--config", TRAIN_CONFIG, "--num_epoch", "1", "--eval_interval", "1",
+        "--config", config_path, "--num_epoch", "1", "--eval_interval", "1",
         "--save_interval", "1", "--log_interval", "4",
         "--work_dir", os.path.join(workdir, "work"),
         "--model_saved_name", os.path.join(workdir, "save"),
         "--train_feeder_args", json.dumps(feeder_args["train"]),
-        "--test_feeder_args", json.dumps(feeder_args["val"])])
+        "--test_feeder_args", json.dumps(feeder_args["val"]), *extra])
     if (cfg.batch_size, cfg.activation_dtype) != (N_WINDOWS, "bfloat16"):
-        fail(f"{TRAIN_CONFIG} no longer trains batch {N_WINDOWS} in bf16")
-    trainer = Trainer(cfg)
+        fail(f"{config_path} no longer trains batch {N_WINDOWS} in bf16")
+    return cfg, feeder_args
+
+
+def record_epochs(trainer):
+    """Keep every ``train_epoch`` result of ``trainer`` in the returned
+    list."""
     epochs = []
     train_epoch = trainer.train_epoch
     trainer.train_epoch = lambda e: epochs.append(train_epoch(e)) or epochs[-1]
+    return epochs
+
+
+def run_trainer(rng, dev, workdir: str):
+    """Phase 9: ``Trainer.start()`` on the MediaPipe joint config for one
+    epoch of synthetic data.  Returns the launch counts of the run and the
+    epoch's statistics (``Trainer.train_epoch``)."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.data.feeder import BatchIterator, Feeder
+    from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.train.trainer import Trainer
+    from shift_gcn_torch.utils.checkpoint import (
+        latest_checkpoint, load_reference_checkpoint)
+
+    cfg, feeder_args = training_config(TRAIN_CONFIG, rng, workdir)
+    trainer = Trainer(cfg)
+    epochs = record_epochs(trainer)
     steps = TRAIN_CLIPS // cfg.batch_size
     eval_forwards = -(-VAL_CLIPS // cfg.test_batch_size)
 
@@ -1006,7 +1045,9 @@ def run_trainer(rng, dev, workdir: str):
           f"{cfg.batch_size}, T={T_WINDOW}): {steps} steps + "
           f"{eval_forwards} eval batches in {wall:.1f} s, epoch "
           f"{epochs[0]['clips_per_sec']:.1f} clips/s with the feeder "
-          f"{100 * epochs[0]['dataloader_share']:.1f}% of it, losses "
+          f"{100 * epochs[0]['dataloader_share']:.1f}% of it (prefetch "
+          "thread; the serial feeder took 14.7-19.2% of this epoch on an "
+          "H100 80GB HBM3 at 700 W, root PERF.md section 5), losses "
           f"{[round(v, 4) for v in losses]}, best acc {best:.4f}, "
           f"checkpoint {os.path.basename(ckpt)} (epoch {meta['epoch']}, "
           f"step {meta['global_step']}) reproduces best_acc.pkl to {gap:.3g}; "
@@ -1515,6 +1556,224 @@ def check_artifacts(state_dict, config, rng, dev, card: str):
     return times
 
 
+# ---------------------------------------------------------------------------
+# Four-stream training
+# ---------------------------------------------------------------------------
+
+
+def step_gap(before, after, ref) -> float:
+    """Largest gap between two state_dicts after one step from the
+    ``before`` weights, each parameter's as a share of the reference
+    step's update of it (the update of its layer's weight for the biases
+    whose exact gradient is 0); buffers (BN statistics) of their scale."""
+    worst = 0.0
+    for name, want in ref.items():
+        gap = float((after[name].float() - want.float()).abs().max())
+        if name.endswith(("shift_in", "shift_out", "num_batches_tracked")):
+            if gap:
+                fail(f"{name} differs after the step")
+            continue
+        base = name
+        bias = next((b for b in ZERO_GRAD_BIASES if name.endswith(b)), None)
+        if bias is not None:
+            base = name[:-len(bias)] + ZERO_GRAD_BIASES[bias]
+        if "running_" in name:
+            scale = max(float(want.abs().max()), 1e-30)
+        else:
+            scale = max(float((ref[base] - before[base]).abs().max()), 1e-30)
+        worst = max(worst, gap / scale)
+    return worst
+
+
+def run_fourstream(rng, dev, workdir: str, card: str):
+    """Phase 14: four-stream training of the MediaPipe fall ensemble
+    through ``Trainer.start()``, its pickles and checkpoint, the served
+    ensemble, one step against four single-stream steps, and the device
+    guard.  Returns the launch counts, the epoch's statistics and the
+    four-stream step in ms."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.data.feeder import BatchIterator, Feeder
+    from shift_gcn_torch.data.modalities import derive_modalities
+    from shift_gcn_torch.graphs import get_graph
+    from shift_gcn_torch.inference import pipeline
+    from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
+    from shift_gcn_torch.train import fourstream
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+    from shift_gcn_torch.train.trainer import Trainer
+    from shift_gcn_torch.utils import device_guard
+
+    cfg, feeder_args = training_config(FOURSTREAM_CONFIG, rng, workdir,
+                                       "--native_loader", "true")
+    full = ModelConfig(num_class=2, num_point=V, num_person=1,
+                       graph="mediapipe_pose", activation_dtype="bfloat16")
+    trainer = Trainer(cfg)
+    if not (cfg.fourstream and trainer.model_config == full
+            and (cfg.base_lr, cfg.nesterov) == (0.1, True)):
+        fail(f"{FOURSTREAM_CONFIG} no longer trains the four full-width "
+             "streams with SGD nesterov at lr 0.1")
+    if not trainer.feeders["train"].supports_native_batch():
+        fail("the four-stream train feeder does not gather natively")
+    epochs = record_epochs(trainer)
+    steps = TRAIN_CLIPS // cfg.batch_size
+    eval_forwards = -(-VAL_CLIPS // cfg.test_batch_size)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+
+    expect = {k: STREAMS * (PER_STEP[k] * steps + PER_EVAL_FORWARD.get(k, 0)
+                            * eval_forwards) for k in PER_STEP}
+    if launches != expect:
+        fail(f"four-stream launch counts {launches} != expected {expect}")
+    stream_losses = np.asarray(epochs[0].get("stream_losses", []))
+    if stream_losses.shape != (steps, STREAMS) or not np.isfinite(
+            stream_losses).all():
+        fail(f"four-stream losses {stream_losses.tolist()}")
+    eval_dir = os.path.join(trainer.work_dir, "eval_results")
+    pkls = {s: os.path.join(eval_dir, f"best_acc_{s}.pkl")
+            for s in fourstream.STREAMS}
+    pkls["ensemble"] = os.path.join(eval_dir, "best_acc.pkl")
+    if not all(os.path.exists(p) for p in pkls.values()):
+        fail(f"missing score pickles: {sorted(os.listdir(eval_dir))}")
+    scores = {}
+    for key, path in pkls.items():
+        with open(path, "rb") as f:
+            scores[key] = pickle.load(f)
+    names = list(scores["ensemble"])
+    ens_gap = max(float(np.abs(scores["ensemble"][n] - sum(
+        a * scores[s][n] for a, s in zip(fourstream.ENSEMBLE_ALPHAS,
+                                         fourstream.STREAMS))).max())
+        for n in names)
+    if not ens_gap <= 1e-5:
+        fail(f"ensemble pickle off 0.6/0.6/0.4/0.4 of the streams by "
+             f"{ens_gap:.3g}")
+
+    # the checkpoint, served, reproduces every stream's pickle
+    predictor = pipeline.EnsemblePredictor.from_fourstream_checkpoint(
+        trainer.save_dir, model_config=trainer.model_config)
+    parents = trainer.parents
+    test = BatchIterator(Feeder(**feeder_args["val"]), cfg.test_batch_size)
+    pkl_gap = 0.0
+    with torch.no_grad():
+        for data, _, index, mask in test.epoch(0):
+            x = torch.from_numpy(data).to(torch.bfloat16).to(dev).float()
+            derived = fourstream.derive_modalities_device(x, parents)
+            for i, stream in enumerate(fourstream.STREAMS):
+                logits = predictor._models[stream](derived[i]).cpu().numpy()
+                for j in np.nonzero(mask > 0)[0]:
+                    pkl_gap = max(pkl_gap, float(np.abs(
+                        logits[j] - scores[stream][f"val{index[j]}"]).max()))
+    if not pkl_gap <= 1e-5:
+        fail(f"the served four-stream checkpoint misses the stream "
+             f"pickles by {pkl_gap:.3g}")
+    track = landmark_sequence(rng, STREAM_WINDOWS * T_WINDOW)
+    per_modality = pipeline.EnsemblePredictor(
+        {s: m.state_dict() for s, m in trainer.models.items()},
+        model_config=trainer.model_config)
+    got, want = (pipeline.run_on_landmarks(track, p, window=T_WINDOW,
+                                           stride=150)
+                 for p in (predictor, per_modality))
+    serve_gap = float(np.abs(np.asarray(got["frame_probabilities"])
+                             - np.asarray(want["frame_probabilities"])).max())
+    if not (serve_gap <= 1e-5 and got["fall_intervals"]
+            == want["fall_intervals"]):
+        fail(f"run_on_landmarks through the four-stream checkpoint differs "
+             f"from the per-modality predictor by {serve_gap:.3g}")
+    del predictor, per_modality
+
+    # one four-stream step vs four single-stream steps on the same weights
+    def copies():
+        models, opts = {}, {}
+        for s, m in trainer.models.items():
+            models[s] = Model(trainer.model_config)
+            models[s].load_state_dict(m.state_dict())
+            opts[s] = build_optimizer(models[s], cfg.base_lr)
+            # a copy: load_state_dict keeps the momentum tensors it is
+            # given, and SGD updates them in place
+            opts[s].load_state_dict(copy.deepcopy(
+                trainer.optimizers[s].state_dict()))
+        return models, opts
+
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    before = {s: {k: v.clone() for k, v in m.state_dict().items()}
+              for s, m in trainer.models.items()}
+    four, four_opts = copies()
+    losses, _ = fourstream.train_step(four, four_opts, batch, cfg.base_lr,
+                                      parents)
+    single, single_opts = copies()
+    mods = derive_modalities(data, get_graph(full.graph))
+    ref_losses = [train_step(single[s], single_opts[s], {
+        "data": torch.from_numpy(np.ascontiguousarray(mods[s])).to(dev),
+        "label": batch["label"]}, cfg.base_lr)[0] for s in fourstream.STREAMS]
+    loss_gap = max(abs(float(a) - float(b)) / abs(float(b))
+                   for a, b in zip(losses, ref_losses))
+    gap = max(step_gap(before[s], four[s].state_dict(),
+                       single[s].state_dict()) for s in fourstream.STREAMS)
+    equal = sum(torch.equal(v, single[s].state_dict()[k])
+                for s in fourstream.STREAMS
+                for k, v in four[s].state_dict().items())
+    total = sum(len(m.state_dict()) for m in four.values())
+    if not (loss_gap <= 1e-5 and gap <= STEP_GRAD_TOL):
+        fail(f"four-stream step vs four single-stream steps: loss "
+             f"{loss_gap:.3g}, weights {gap:.3g} of their update's scale")
+
+    # the step's time and its peak memory beside a single-stream step's
+    step_ms = time_ms(lambda: fourstream.train_step(
+        four, four_opts, batch, cfg.base_lr, parents), iters=2, reps=3)
+    peaks = {}
+    for label, fn in (("four", lambda: fourstream.train_step(
+            four, four_opts, batch, cfg.base_lr, parents)),
+                      ("single", lambda: train_step(
+            single["joint"], single_opts["joint"], batch, cfg.base_lr))):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        fn()
+        torch.cuda.synchronize()
+        peaks[label] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+
+    # the device guard: healthy here; a failing probe raises, no sleep
+    if not device_guard.device_healthy(dev):
+        fail("device_guard.device_healthy() is false on the card")
+    waits = []
+    try:
+        device_guard.check(healthy_fn=lambda: False, sleep_fn=waits.append)
+        fail("device_guard.check() passed a failing probe")
+    except device_guard.DeviceUnhealthyError:
+        pass
+    if len(waits) != 3:
+        fail(f"device_guard.check() waited {waits}")
+
+    stats = epochs[0]
+    print(f"[fourstream] Trainer.start() on {FOURSTREAM_CONFIG} (4 streams, "
+          f"bf16, batch {cfg.batch_size}, T={T_WINDOW}, native loader): "
+          f"{steps} steps + {eval_forwards} eval batches in {wall:.1f} s, "
+          f"epoch {stats['clips_per_sec']:.1f} clips/s with the feeder "
+          f"{100 * stats['dataloader_share']:.1f}% of it; step "
+          f"{step_ms:.3f} ms ({N_WINDOWS / step_ms * 1e3:.1f} clips/s, "
+          f"{STREAMS * N_WINDOWS / step_ms * 1e3:.1f} stream-clips/s), peak "
+          f"memory {peaks['four']:.2f} GiB vs {peaks['single']:.2f} GiB "
+          f"single-stream; per-stream losses "
+          f"{np.round(stream_losses, 4).tolist()}, best ensemble acc "
+          f"{best:.4f}; ensemble pickle within {ens_gap:.3g} of "
+          f"0.6/0.6/0.4/0.4 of the streams, served checkpoint within "
+          f"{pkl_gap:.3g} of the stream pickles and {serve_gap:.3g} of the "
+          f"per-modality predictor; one step vs four single-stream steps: "
+          f"loss {loss_gap:.3g}, weights {gap:.3g} of the update's scale "
+          f"({equal} of {total} tensors bit-equal); device guard healthy, "
+          f"a failing probe raised after {len(waits)} checks; launches "
+          f"{launches} = 4 x (per step {PER_STEP} x {steps} + per eval "
+          f"forward {PER_EVAL_FORWARD} x {eval_forwards}) | {card}")
+    del trainer, four, single, four_opts, single_opts
+    torch.cuda.empty_cache()
+    return launches, stats, step_ms
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1776,6 +2035,10 @@ def main() -> None:
     artifact_ms = check_artifacts(serve_dicts["joint"], config, rng, dev,
                                   card)
 
+    # 14. four-stream training ----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        _, epoch4, step4_ms = run_fourstream(rng, dev, workdir, card)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -1797,7 +2060,7 @@ def main() -> None:
           f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
           "the Trainer run, the fused kernel's library_ms the sum of two "
           "calls, K6's that of index_select x2 + bmm + three reductions; "
-          "summary: phases 6, 8, 9 and 10")
+          "summary: phases 6, 8, 9, 10, 12, 13 and 14")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -1814,7 +2077,9 @@ def main() -> None:
           + f"; grads {grad_gap:.2g}, gy_raw {gy_ratio:.2g}; stream "
           f"p50/p90 {stream_p50:.4g}/{stream_p90:.4g}; pt2 in/baked/live "
           f"{artifact_ms['inputs'][0]:.4g}/{artifact_ms['baked'][0]:.4g}/"
-          f"{artifact_ms['inputs'][1]:.4g}")
+          f"{artifact_ms['inputs'][1]:.4g}; 4-stream step {step4_ms:.4g}, "
+          f"epoch {epoch4['clips_per_sec']:.1f} clips/s, feeder "
+          f"{100 * epoch4['dataloader_share']:.1f}%")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -4,8 +4,12 @@ A numpy copy of the reference package's ``Feeder`` / ``BatchIterator``
 (its own replacement of the reference torch Dataset/DataLoader,
 feeders/feeder.py:11-95, main.py:231-251) for one process: the same
 epoch permutations and augmentation draws from the same seed, so both
-packages see the same batches.  Batches are built in the caller's thread
-(no prefetch thread, no native loader).
+packages see the same batches.  Batches are built in the caller's
+thread; the Trainer runs the iterator one step ahead on its prefetch
+thread.  With ``native=True`` the feeder gathers unaugmented full clips
+through the native loader (``data/native_loader.py``), which raises
+when it cannot be built or cannot open the data: there is no numpy
+fallback, unlike the reference package's feeder.
 """
 
 from __future__ import annotations
@@ -38,6 +42,8 @@ class Feeder:
         window_size: int = -1,
         normalization: bool = False,
         debug: bool = False,
+        native: bool = False,
+        native_threads: int = 4,
     ):
         self.data_path = data_path
         self.label_path = label_path
@@ -61,8 +67,23 @@ class Feeder:
             self.label = self.label[:100]
             self.data = self.data[:100]
             self.sample_name = self.sample_name[:100]
+        # the native gather serves only the plain path (no augmentation,
+        # normalization, windowing or debug truncation): see
+        # supports_native_batch
+        self.native_loader = None
+        if native and not debug:
+            from shift_gcn_torch.data.native_loader import NativeClipLoader
+
+            self.native_loader = NativeClipLoader(
+                data_path, num_threads=native_threads)
         if normalization:
             self._compute_mean_map()
+
+    def supports_native_batch(self) -> bool:
+        return (self.native_loader is not None
+                and not (self.normalization or self.random_shift
+                         or self.random_choose or self.random_move
+                         or self.window_size > 0))
 
     def _compute_mean_map(self) -> None:
         # reference: feeders/feeder.py:62-66
@@ -134,7 +155,10 @@ class BatchIterator:
     def _make_batch(
         self, idx: np.ndarray, rng: np.random.Generator
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-        data = np.stack([self.feeder.get(int(i), rng) for i in idx])
+        if self.feeder.supports_native_batch():
+            data = self.feeder.native_loader.gather(idx)
+        else:
+            data = np.stack([self.feeder.get(int(i), rng) for i in idx])
         labels = np.asarray([self.feeder.label[int(i)] for i in idx],
                             dtype=np.int32)
         mask = np.ones(len(idx), dtype=np.float32)

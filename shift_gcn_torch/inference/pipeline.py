@@ -10,9 +10,11 @@ has the same keys and semantics as the reference package's.
 ``python -m shift_gcn_torch.inference.pipeline``) first extracts them from
 a video through a pose backend (``data/gendata/mediapipe.py``) and can
 write an annotated video (``inference/render.py``).  Checkpoints are the
-port's or the reference's ``.pt`` / ``.pkl`` files
-(``auto_detect_checkpoints`` finds them under a save-models root); the
-models run on CUDA unless the caller passes ``device="cpu"``.
+port's or the reference's ``.pt`` / ``.pkl`` files, one per modality
+(``auto_detect_checkpoints`` finds them under a save-models root), or
+one four-stream checkpoint of the port's trainer
+(``EnsemblePredictor.from_fourstream_checkpoint``); the models run on
+CUDA unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -28,14 +30,15 @@ import torch
 
 from shift_gcn_torch.data.modalities import derive_modalities
 from shift_gcn_torch.data.preprocess import pre_normalization
+from shift_gcn_torch.ensemble import DEFAULT_ALPHA
 from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
 from shift_gcn_torch.utils.checkpoint import (
-    _CHECKPOINT_NAME, latest_checkpoint, load_reference_checkpoint)
+    _CHECKPOINT_NAME, latest_checkpoint, load_fourstream_checkpoint,
+    load_reference_checkpoint)
 from shift_gcn_torch.utils.device import resolve_device
 
 MODALITY_ORDER = ("joint", "bone", "joint_motion", "bone_motion")
-DEFAULT_ALPHA = (0.6, 0.6, 0.4, 0.4)
 
 Checkpoint = Union[str, Mapping[str, torch.Tensor]]
 
@@ -143,6 +146,29 @@ class EnsemblePredictor:
             model = Model(self.config, device=self.device)
             model.load_state_dict(source, strict=True)
             self._models[modality] = model
+
+    @classmethod
+    def from_fourstream_checkpoint(
+        cls,
+        path: str,
+        model_config: Optional[ModelConfig] = None,
+        alpha: Sequence[float] = DEFAULT_ALPHA,
+        graph: str = "mediapipe_pose",
+        device="cuda",
+    ) -> "EnsemblePredictor":
+        """The ensemble of ONE four-stream checkpoint of the port's
+        trainer (``train/fourstream.py``): a ``.pt`` path, or a run's
+        save dir, whose newest checkpoint is read (reference package
+        pipeline.py:131-172, which reads its stacked Orbax checkpoint)."""
+        if os.path.isdir(path):
+            latest = latest_checkpoint(path)
+            if latest is None:
+                raise FileNotFoundError(f"no checkpoints under {path}")
+            path = latest
+        streams, _ = load_fourstream_checkpoint(path)
+        return cls({m: streams[m]["model_state_dict"] for m in MODALITY_ORDER
+                    if m in streams}, model_config=model_config, alpha=alpha,
+                   graph=graph, device=device)
 
     def predict(self, windows: np.ndarray) -> np.ndarray:
         """windows: (W, C, T, V, M) pre-normalized joint windows ->
@@ -258,6 +284,26 @@ def auto_detect_checkpoints(save_dir: str) -> Dict[str, str]:
     return found
 
 
+def load_predictor(
+    checkpoints: Optional[Mapping[str, Checkpoint]] = None,
+    fourstream_checkpoint: Optional[str] = None,
+    *,
+    model_config: Optional[ModelConfig] = None,
+    device="cuda",
+) -> EnsemblePredictor:
+    """The predictor of exactly one of per-modality ``checkpoints`` or a
+    ``fourstream_checkpoint`` (a ``.pt`` or a four-stream run's save
+    dir)."""
+    if (checkpoints is None) == (fourstream_checkpoint is None):
+        raise ValueError(
+            "pass exactly one of checkpoints / fourstream_checkpoint")
+    if fourstream_checkpoint is not None:
+        return EnsemblePredictor.from_fourstream_checkpoint(
+            fourstream_checkpoint, model_config=model_config, device=device)
+    return EnsemblePredictor(checkpoints, model_config=model_config,
+                             device=device)
+
+
 def run_pipeline(
     video_path: str,
     checkpoints: Optional[Mapping[str, Checkpoint]] = None,
@@ -274,9 +320,9 @@ def run_pipeline(
     device="cuda",
 ) -> Dict:
     """Full video -> report (reference: run_pipeline,
-    inference_pipeline.py:574-670).  Models come from per-modality
-    ``checkpoints``; a ``fourstream_checkpoint`` raises
-    NotImplementedError (ROADMAP A9).
+    inference_pipeline.py:574-670).  Models come from exactly one of
+    per-modality ``checkpoints`` or a ``fourstream_checkpoint``
+    (``load_predictor``).
 
     The report JSON is written before the annotated video is rendered,
     so a failing render never loses the result, and rewritten with
@@ -287,16 +333,8 @@ def run_pipeline(
     from shift_gcn_torch.data.gendata.mediapipe import (
         get_backend, pixel_landmarks, world_landmarks)
 
-    if (checkpoints is None) == (fourstream_checkpoint is None):
-        raise ValueError(
-            "pass exactly one of checkpoints / fourstream_checkpoint")
-    if fourstream_checkpoint is not None:
-        raise NotImplementedError(
-            f"four-stream checkpoint {fourstream_checkpoint!r}: the port "
-            "does not read four-stream checkpoints yet (ROADMAP A9); pass "
-            "one checkpoint per modality")
-    predictor = EnsemblePredictor(checkpoints, model_config=model_config,
-                                  device=device)
+    predictor = load_predictor(checkpoints, fourstream_checkpoint,
+                               model_config=model_config, device=device)
     result = get_backend(pose_backend)(video_path, max_frames)
     landmarks = world_landmarks(result)
     if landmarks is None:
@@ -333,8 +371,9 @@ def add_checkpoint_args(parser) -> None:
     parser.add_argument("--joint-motion", default=None)
     parser.add_argument("--bone-motion", default=None)
     parser.add_argument("--fourstream", default=None,
-                        help="one four-stream checkpoint (not read by the "
-                        "port yet: ROADMAP A9)")
+                        help="one four-stream checkpoint of the port's "
+                        "trainer (.pt, or the run's save dir), in place of "
+                        "the per-modality checkpoints")
     parser.add_argument("--save-dir", default=None,
                         help="auto-detect per-modality checkpoints under "
                         "this save-models root (reference "
@@ -344,18 +383,27 @@ def add_checkpoint_args(parser) -> None:
                         "'cpu' runs the kernels' plain versions)")
 
 
-def resolve_checkpoint_args(parser, args) -> Dict[str, str]:
-    """args from :func:`add_checkpoint_args` -> per-modality checkpoint
-    dict.  parser.error()s on an unusable combination and on
-    --fourstream."""
+def resolve_checkpoint_args(
+        parser, args) -> Tuple[Optional[Dict[str, str]], Optional[str]]:
+    """args from :func:`add_checkpoint_args` -> (per-modality checkpoint
+    dict, four-stream checkpoint), exactly one of them set, for
+    :func:`load_predictor`.  parser.error()s on an unusable
+    combination."""
     if args.fourstream is not None:
-        parser.error(f"--fourstream {args.fourstream}: the port does not "
-                     "read four-stream checkpoints yet (ROADMAP A9)")
+        given = [flag for flag, value in (
+            ("--joint", args.joint), ("--bone", args.bone),
+            ("--joint-motion", args.joint_motion),
+            ("--bone-motion", args.bone_motion),
+            ("--save-dir", args.save_dir)) if value]
+        if given:
+            parser.error(f"--fourstream takes no per-modality checkpoints "
+                         f"({', '.join(given)})")
+        return None, args.fourstream
     if args.save_dir:
         ckpts = auto_detect_checkpoints(args.save_dir)
         if not ckpts:
             parser.error(f"no checkpoints found under {args.save_dir}")
-        return ckpts
+        return ckpts, None
     if args.joint is None:
         parser.error("--joint (or --save-dir) is required")
     ckpts = {"joint": args.joint}
@@ -363,7 +411,7 @@ def resolve_checkpoint_args(parser, args) -> Dict[str, str]:
         val = getattr(args, key)
         if val:
             ckpts[key] = val
-    return ckpts
+    return ckpts, None
 
 
 def main(argv=None):
@@ -379,9 +427,10 @@ def main(argv=None):
     parser.add_argument("--window", type=int, default=300)
     parser.add_argument("--stride", type=int, default=150)
     args = parser.parse_args(argv)
-    ckpts = resolve_checkpoint_args(parser, args)
+    ckpts, fourstream = resolve_checkpoint_args(parser, args)
     report = run_pipeline(
-        args.video, ckpts, output_json=args.output,
+        args.video, ckpts, fourstream_checkpoint=fourstream,
+        output_json=args.output,
         output_video=args.output_video, window=args.window,
         stride=args.stride, threshold=args.threshold, device=args.device)
     print(json.dumps({k: v for k, v in report.items()

@@ -289,7 +289,7 @@ def main(argv=None):
     import yaml
 
     from shift_gcn_torch.inference.pipeline import (
-        add_checkpoint_args, resolve_checkpoint_args)
+        add_checkpoint_args, load_predictor, resolve_checkpoint_args)
     from shift_gcn_torch.models.shift_gcn import config_from_reference_args
 
     parser = argparse.ArgumentParser(
@@ -321,9 +321,9 @@ def main(argv=None):
     model_args.setdefault("num_person", 1)
     model_args.setdefault("graph", "mediapipe_pose")
     cfg = config_from_reference_args(model_args)
-    ckpts = resolve_checkpoint_args(parser, args)
-    predictor = EnsemblePredictor(ckpts, model_config=cfg,
-                                  device=args.device)
+    ckpts, fourstream = resolve_checkpoint_args(parser, args)
+    predictor = load_predictor(ckpts, fourstream, model_config=cfg,
+                               device=args.device)
     if args.landmarks is not None:
         landmarks = np.load(args.landmarks).astype(np.float32)
     else:

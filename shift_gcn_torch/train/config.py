@@ -8,11 +8,12 @@ strings name this package's modules.
 
 Keys this port cannot honor yet raise in ``check_supported`` (called by
 ``load_config`` and the ``Trainer``), naming the key and its ROADMAP
-item.  Keys that only tune the reference package's compiler or device
-(``sync_bn``, ``donate_state``, ``remat``, ``use_pallas``,
-``profile_dir``, ``profile_steps``, ``debug_nans``, ``device_guard``,
-``num_worker``, ``edge_strategy``) and the reference's ``device`` GPU ids
-change no result here and are read by nothing; ``optimizer``,
+item.  ``fourstream``, ``native_loader`` and ``device_guard`` are read by
+the Trainer.  Keys that only tune the reference package's compiler or
+device (``sync_bn``, ``donate_state``, ``remat``, ``use_pallas``,
+``profile_dir``, ``profile_steps``, ``debug_nans``, ``num_worker``,
+``edge_strategy``) and the reference's ``device`` GPU ids change no
+result here and are read by nothing; ``optimizer``,
 ``nesterov`` and ``weight_decay`` are read by nothing either: the SGD is
 always nesterov with momentum 0.9 and the per-parameter weight-decay
 table (``train/optim.py``), as in the reference package's trainer.
@@ -96,11 +97,14 @@ class ExperimentConfig:
     donate_state: bool = True
     remat: bool = False
     use_pallas: bool = False
-    native_loader: bool = False             # (refused)
+    native_loader: bool = False             # gather through the native
+                                            # loader; raises if it cannot
+                                            # be built
     profile_dir: Optional[str] = None
     profile_steps: int = 5
     debug_nans: bool = False
-    fourstream: bool = False                # (refused)
+    fourstream: bool = False                # train the four modality
+                                            # streams in one run
     lowering: Dict[str, Any] = dataclasses.field(
         default_factory=dict)               # (refused when non-empty)
     device_guard: bool = True
@@ -116,11 +120,9 @@ def check_supported(cfg: ExperimentConfig) -> None:
     """Raise ValueError naming the first key this port cannot honor yet
     and the ROADMAP item that will."""
     refused = (
-        ("fourstream", cfg.fourstream, "A9 (four-stream training)"),
         ("mesh_shape", cfg.mesh_shape, "A13 (parallel modes)"),
         ("shard_time", cfg.shard_time, "A13 (parallel modes)"),
         ("edge_partition", cfg.edge_partition, "A13 (parallel modes)"),
-        ("native_loader", cfg.native_loader, "A6 (native loader)"),
         ("lowering", cfg.lowering or cfg.model_args.get("lowering"),
          "A11 (lowering knobs)"),
         ("compute_dtype", cfg.compute_dtype, "A11 (lowering knobs)"),

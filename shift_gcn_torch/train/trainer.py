@@ -6,16 +6,23 @@ LR with warmup (main.py:342-353), the per-parameter weight-decay table
 (main.py:307-317), the save / eval cadence, the best-accuracy and
 per-epoch score pickles the ensemble tools read (main.py:493-515), the
 wrong/right prediction files of the test phase (main.py:534-546), resume
-from the newest checkpoint (``resume: auto``), and the shift tap-radius
-check at every save and eval.  Checkpoints are the reference's torch
+from the newest checkpoint (``resume: auto``), the shift tap-radius
+check at every save and eval, and the device guard after every train
+epoch (``utils/device_guard.py``).  Checkpoints are the reference's torch
 resume dicts (``utils/checkpoint.py``).
+
+``fourstream: true`` trains the joint, bone, joint-motion and
+bone-motion models in one run from the joint data (``train/fourstream.py``):
+per-stream and ensemble score pickles, one four-stream checkpoint.
 
 ``device`` defaults to CUDA, where the model runs the hand-written
 kernels; ``device="cpu"`` runs their plain versions and must be asked
-for.  With bf16 transfer (``transfer_dtype``, 'auto' under bf16
-activations) each batch is rounded to bf16 on the host, moved, and cast
-back to fp32 on the device before ``data_bn``, as the reference package
-does.
+for.  A worker thread batches step b+1 and starts its host-to-device
+copy while step b runs (``BatchTransfer``).  With bf16 transfer
+(``transfer_dtype``, 'auto' under bf16 activations) each batch is
+rounded to bf16 on the host, moved, and cast back to fp32 on the device
+before ``data_bn`` (and before the four-stream derivation), as the
+reference package does.
 """
 
 from __future__ import annotations
@@ -27,18 +34,23 @@ import os
 import pickle
 import shutil
 import time
-from typing import Dict, Optional
+from concurrent.futures import ThreadPoolExecutor
+from contextlib import ExitStack
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from shift_gcn_torch.data.feeder import BatchIterator, Feeder
+from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models import shift_gcn
 from shift_gcn_torch.ops.temporal_shift import assert_in_range
 from shift_gcn_torch.train import config as config_lib
+from shift_gcn_torch.train import fourstream
 from shift_gcn_torch.train import state as state_lib
 from shift_gcn_torch.train.optim import build_optimizer, step_decay_lr
 from shift_gcn_torch.utils import checkpoint as ckpt_lib
+from shift_gcn_torch.utils import device_guard
 from shift_gcn_torch.utils.device import resolve_device
 from shift_gcn_torch.utils.logging import RunLogger
 
@@ -56,6 +68,69 @@ def resolve_transfer_dtype(setting: str,
         return torch.bfloat16
     raise ValueError(f"transfer_dtype={setting!r}: expected 'auto', "
                      "'bfloat16' or 'float32'")
+
+
+class BatchTransfer:
+    """Host batches -> device tensors.
+
+    ``stage`` (the prefetch thread) casts each array to its transfer type
+    on the host and starts its copy; ``receive`` (the step's thread)
+    returns the tensors ready for the step, data cast back to fp32 on the
+    device.  On CUDA the copies come from page-locked host buffers, SLOTS
+    of them used in turn, on a side stream made for the trainer's device;
+    an event recorded after the copies is what the step's stream waits
+    on, and ``record_stream`` keeps the caching allocator from reusing the
+    tensors' memory before the step is done with them.  A slot is
+    refilled only after its previous copy has finished.  On the CPU the
+    same casts run with no pinning.
+    """
+
+    SLOTS = 2
+
+    def __init__(self, device: torch.device, data_dtype: torch.dtype):
+        self.device = device
+        self.data_dtype = data_dtype
+        self.stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                       else None)
+        self._slots = [None] * self.SLOTS
+        self._turn = 0
+
+    def stage(self, data: np.ndarray, label: np.ndarray,
+              mask: Optional[np.ndarray] = None):
+        arrays = {"data": (data, self.data_dtype),
+                  "label": (label, torch.long)}
+        if mask is not None:
+            arrays["mask"] = (mask, torch.float32)
+        if self.stream is None:
+            return {k: torch.from_numpy(a).to(dtype)
+                    for k, (a, dtype) in arrays.items()}, None
+        i = self._turn
+        self._turn = (i + 1) % self.SLOTS
+        slot = self._slots[i]
+        if slot is None:
+            slot = self._slots[i] = {"done": torch.cuda.Event()}
+        slot["done"].synchronize()  # this slot's last copy has finished
+        out = {}
+        with torch.cuda.device(self.device), torch.cuda.stream(self.stream):
+            for key, (array, dtype) in arrays.items():
+                buf = slot.get(key)
+                if buf is None or buf.shape != array.shape:
+                    buf = slot[key] = torch.empty(array.shape, dtype=dtype,
+                                                  pin_memory=True)
+                buf.copy_(torch.from_numpy(array))
+                out[key] = buf.to(self.device, non_blocking=True)
+            slot["done"].record(self.stream)
+        return out, slot["done"]
+
+    def receive(self, staged) -> Dict[str, torch.Tensor]:
+        tensors, done = staged
+        if done is not None:
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(done)
+            for tensor in tensors.values():
+                tensor.record_stream(current)
+        tensors["data"] = tensors["data"].float()
+        return tensors
 
 
 class Trainer:
@@ -91,10 +166,22 @@ class Trainer:
                                                  "config.yaml"))
         self.transfer_dtype = resolve_transfer_dtype(
             cfg.transfer_dtype, self.model_config.activation_dtype)
+        self.transfer = BatchTransfer(self.device, self.transfer_dtype)
 
-        self.model = shift_gcn.Model(self.model_config, device=self.device)
-        self.model.init_weights(torch.Generator().manual_seed(cfg.seed))
-        self.optimizer = build_optimizer(self.model, cfg.base_lr)
+        self.fourstream = bool(cfg.fourstream)
+        if self.fourstream:
+            self.models = fourstream.create_models(
+                self.model_config, cfg.seed, self.device)
+            self.optimizers = {stream: build_optimizer(model, cfg.base_lr)
+                               for stream, model in self.models.items()}
+            self.parents = torch.as_tensor(
+                get_graph(self.model_config.graph).bone_parents(),
+                device=self.device)
+        else:
+            self.model = shift_gcn.Model(self.model_config,
+                                         device=self.device)
+            self.model.init_weights(torch.Generator().manual_seed(cfg.seed))
+            self.optimizer = build_optimizer(self.model, cfg.base_lr)
         self.global_step = 0
         self.best_acc = 0.0
         self.start_epoch = cfg.start_epoch
@@ -124,12 +211,13 @@ class Trainer:
         cfg = self.cfg
         self.feeders: Dict[str, Feeder] = {}
         self.iterators: Dict[str, BatchIterator] = {}
+        extra = {"native": True} if cfg.native_loader else {}
         if cfg.phase == "train":
-            self.feeders["train"] = Feeder(**cfg.train_feeder_args)
+            self.feeders["train"] = Feeder(**cfg.train_feeder_args, **extra)
             self.iterators["train"] = BatchIterator(
                 self.feeders["train"], cfg.batch_size, shuffle=True,
                 drop_last=True, seed=cfg.seed)
-        self.feeders["test"] = Feeder(**cfg.test_feeder_args)
+        self.feeders["test"] = Feeder(**cfg.test_feeder_args, **extra)
         self.iterators["test"] = BatchIterator(
             self.feeders["test"], cfg.test_batch_size, shuffle=False,
             drop_last=False, seed=cfg.seed)
@@ -138,27 +226,43 @@ class Trainer:
                    mask: Optional[np.ndarray] = None
                    ) -> Dict[str, torch.Tensor]:
         """Host batch -> device tensors; data arrives fp32 on the device."""
-        x = torch.from_numpy(data).to(self.transfer_dtype)
-        batch = {"data": x.to(self.device).float(),
-                 "label": torch.from_numpy(label).long().to(self.device)}
-        if mask is not None:
-            batch["mask"] = torch.from_numpy(mask).to(self.device)
-        return batch
+        return self.transfer.receive(self.transfer.stage(data, label, mask))
 
     def _load_weights(self, path: str, ignore: Optional[list] = None) -> None:
         """Load model weights from a reference .pt / .pkl / .pth
         (main.py:261-292): keys named in ``ignore`` are dropped, missing
-        keys are reported and keep their initial values."""
+        keys are reported and keep their initial values.  A four-stream
+        run takes a four-stream checkpoint and loads it stream by stream,
+        ``ignore`` applied to each."""
         self.logger.log(f"Load weights from {path}.")
         if not path.endswith((".pt", ".pkl", ".pth")):
             raise ValueError(f"weights {path!r}: expected a .pt, .pkl or "
                              ".pth file")
-        weights, _ = ckpt_lib.load_reference_checkpoint(path)
+        if not self.fourstream:
+            weights, _ = ckpt_lib.load_reference_checkpoint(path)
+            self._merge_weights(self.model, weights, ignore)
+            return
+        if path.endswith(".pkl"):
+            raise ValueError(f"weights {path!r}: a four-stream run takes a "
+                             "four-stream checkpoint (.pt)")
+        streams, _ = ckpt_lib.load_fourstream_checkpoint(path)
+        missing = [s for s in fourstream.STREAMS if s not in streams]
+        if missing:
+            raise ValueError(f"weights {path!r}: streams {missing} are not "
+                             "in this four-stream checkpoint")
+        for stream, model in self.models.items():
+            self.logger.log(f"  stream {stream}:")
+            self._merge_weights(model, dict(
+                streams[stream]["model_state_dict"]), ignore)
+
+    def _merge_weights(self, model: torch.nn.Module,
+                       weights: Dict[str, torch.Tensor],
+                       ignore: Optional[list]) -> None:
         for name in ignore or []:
             for k in [k for k in weights if name in k]:
                 weights.pop(k)
                 self.logger.log(f"Successfully Remove Weights: {k}.")
-        own = self.model.state_dict()
+        own = model.state_dict()
         missing = sorted(set(own) - set(weights))
         if missing:
             self.logger.log("Can not find these weights:")
@@ -168,15 +272,24 @@ class Trainer:
             if k in own and own[k].shape != v.shape:
                 raise ValueError(f"shape mismatch for {k}: "
                                  f"{tuple(own[k].shape)} vs {tuple(v.shape)}")
-        self.model.load_state_dict(
+        model.load_state_dict(
             {k: v for k, v in weights.items() if k in own}, strict=False)
 
     def _resume(self, path: str) -> None:
         # reference: main.py:215-229
         self.logger.log(f"Resuming from checkpoint: {path}")
-        blob = torch.load(path, map_location=self.device, weights_only=True)
-        self.model.load_state_dict(blob["model_state_dict"], strict=True)
-        self.optimizer.load_state_dict(blob["optimizer_state_dict"])
+        if self.fourstream:
+            streams, blob = ckpt_lib.load_fourstream_checkpoint(path)
+            for stream, model in self.models.items():
+                model.load_state_dict(streams[stream]["model_state_dict"],
+                                      strict=True)
+                self.optimizers[stream].load_state_dict(
+                    streams[stream]["optimizer_state_dict"])
+        else:
+            blob = torch.load(path, map_location=self.device,
+                              weights_only=True)
+            self.model.load_state_dict(blob["model_state_dict"], strict=True)
+            self.optimizer.load_state_dict(blob["optimizer_state_dict"])
         self.start_epoch = int(blob["epoch"]) + 1
         self.global_step = int(blob["global_step"])
         self.best_acc = float(blob["best_acc"])
@@ -194,7 +307,7 @@ class Trainer:
             self.logger.log(f"Parameters:\n{cfg}\n")
             for epoch in range(self.start_epoch, cfg.num_epoch):
                 is_last = epoch + 1 == cfg.num_epoch
-                self.train_epoch(epoch)
+                self._guard_device(self.train_epoch(epoch))
                 if is_last or (epoch + 1) % cfg.save_interval == 0:
                     self.save(epoch)
                 if is_last or (epoch + 1) % cfg.eval_interval == 0:
@@ -222,37 +335,73 @@ class Trainer:
             self.logger.log("Done.\n")
         return self.best_acc
 
+    def _train_step(self, batch: Dict[str, torch.Tensor],
+                    lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+        """One step: (loss, acc) device tensors, (4,) under fourstream."""
+        if self.fourstream:
+            return fourstream.train_step(self.models, self.optimizers, batch,
+                                         lr, self.parents)
+        return state_lib.train_step(self.model, self.optimizer, batch, lr)
+
     def train_epoch(self, epoch: int) -> Dict[str, float]:
+        """One epoch; the prefetch thread batches step b+1 and starts its
+        copy while step b runs (reference package trainer.py:555-588).
+        The ``dataloader`` time is the wait for that thread's batch."""
         cfg = self.cfg
         self.logger.log(f"Training epoch: {epoch + 1}")
         lr = step_decay_lr(epoch, cfg.base_lr, cfg.step, cfg.warm_up_epoch)
         it = self.iterators["train"]
         nb = it.batches_per_epoch()
+        batches = iter(it.epoch(epoch))
+
+        def fetch_next():
+            for data, label, _, _ in batches:
+                return self.transfer.stage(data, label)
+            return None
+
         timer = {"dataloader": 1e-3, "model": 1e-3}
         # per-step metrics stay on the device until the epoch ends: reading
         # one would wait for the device every step
         losses, accs = [], []
-        t0 = mark = time.time()
-        for b, (data, label, _, _) in enumerate(it.epoch(epoch)):
-            batch = self._put_batch(data, label)
-            now = time.time()
-            timer["dataloader"] += now - mark
-            loss, acc = state_lib.train_step(self.model, self.optimizer,
-                                             batch, lr)
-            losses.append(loss)
-            accs.append(acc)
-            self.global_step += 1
-            if self.global_step % cfg.log_interval == 0:
-                self.logger.log(f"\tBatch({b}/{nb}) done. Loss: "
-                                f"{float(loss):.4f}  lr:{lr:.6f}")
-            mark = time.time()
-            timer["model"] += mark - now
+        t0 = time.time()
+        with ThreadPoolExecutor(max_workers=1) as pool:
+            pending = pool.submit(fetch_next)
+            b = 0
+            while True:
+                mark = time.time()
+                staged = pending.result()
+                now = time.time()
+                timer["dataloader"] += now - mark
+                if staged is None:
+                    break
+                pending = pool.submit(fetch_next)
+                loss, acc = self._train_step(self.transfer.receive(staged),
+                                             lr)
+                losses.append(loss)
+                accs.append(acc)
+                self.global_step += 1
+                if self.global_step % cfg.log_interval == 0:
+                    streams = loss.reshape(-1).tolist()
+                    extra = ("  streams:" + "/".join(f"{v:.3f}"
+                                                     for v in streams)
+                             if self.fourstream else "")
+                    self.logger.log(f"\tBatch({b}/{nb}) done. Loss: "
+                                    f"{np.mean(streams):.4f}  "
+                                    f"lr:{lr:.6f}{extra}")
+                timer["model"] += time.time() - now
+                b += 1
+        mark = time.time()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         timer["model"] += time.time() - mark
         dt = time.time() - t0
-        losses = torch.stack(losses).tolist() if losses else []
-        accs = torch.stack(accs).tolist() if accs else []
+        per_step = torch.stack(losses).cpu().numpy() if losses else None
+        # under fourstream a step's loss is the mean over the streams, as
+        # the reference package logs it
+        losses = [] if per_step is None else (
+            per_step.mean(-1) if self.fourstream else per_step).tolist()
+        accs = (torch.stack(accs).reshape(len(accs), -1).mean(-1).tolist()
+                if accs else [])
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         mean_acc = float(np.mean(accs)) if accs else float("nan")
         total = sum(timer.values())
@@ -262,32 +411,75 @@ class Trainer:
         self.logger.log(
             f"\tMean training loss: {mean_loss:.4f}  acc: {mean_acc:.4f}  "
             f"({clips / max(dt, 1e-9):.1f} clips/s)  time: {proportion}")
-        return {"loss": mean_loss, "acc": mean_acc, "losses": losses,
-                "clips_per_sec": clips / max(dt, 1e-9),
-                "dataloader_share": timer["dataloader"] / total}
+        stats = {"loss": mean_loss, "acc": mean_acc, "losses": losses,
+                 "clips_per_sec": clips / max(dt, 1e-9),
+                 "dataloader_share": timer["dataloader"] / total}
+        if self.fourstream and per_step is not None:
+            stats["stream_losses"] = per_step.tolist()
+        return stats
+
+    def _guard_device(self, epoch_stats: Dict[str, float]) -> None:
+        """After a train epoch: an implausibly fast epoch or a non-finite
+        mean loss triggers the device check; a device that stays
+        unhealthy cannot be trusted to save the train state, so the run
+        restarts in a fresh process from its last checkpoint (reference
+        package trainer.py:743-768)."""
+        if not self.cfg.device_guard:
+            return
+        suspicious = (
+            not device_guard.plausible_throughput(
+                epoch_stats.get("clips_per_sec", 0.0))
+            or not np.isfinite(epoch_stats.get("loss", 0.0)))
+        if not suspicious:
+            return
+        self.logger.log(
+            "\tSuspicious epoch reading "
+            f"({epoch_stats.get('clips_per_sec', 0):.0f} clips/s, "
+            f"loss={epoch_stats.get('loss', float('nan'))}); "
+            "checking device health")
+        try:
+            device_guard.check(logger=self.logger, device=self.device)
+        except device_guard.DeviceUnhealthyError:
+            device_guard.reexec_with_resume(logger=self.logger,
+                                            device=self.device)
 
     def evaluate(self, epoch: int, wrong_file: Optional[str] = None,
                  result_file: Optional[str] = None) -> float:
+        """Score the test split.  Under fourstream the pickles are the
+        ensemble's (best_acc.pkl, epoch_<e>_<acc>.pkl) plus each stream's
+        (epoch_<e>_<stream>.pkl, and best_acc_<stream>.pkl beside every
+        write of best_acc.pkl), and the wrong/right files hold the
+        ensemble's predictions (reference package trainer.py:770-884)."""
         self.check_shift_range()
         cfg = self.cfg
-        self.logger.log(f"Eval epoch: {epoch + 1}")
+        self.logger.log(f"Eval epoch: {epoch + 1}"
+                        + (" (four-stream)" if self.fourstream else ""))
         feeder = self.feeders["test"]
         outputs = []
         for data, label, index, mask in self.iterators["test"].epoch(0):
-            logits, lsum, n = state_lib.eval_step(
-                self.model, self._put_batch(data, label, mask))
-            outputs.append((logits, lsum, n, label, index, mask))
-        scores = []
-        loss_sum = n_sum = 0.0
-        f_w = open(wrong_file, "w") if wrong_file else None
-        f_r = open(result_file, "w") if result_file else None
-        try:
-            for logits, lsum, n, label, index, mask in outputs:
+            batch = self._put_batch(data, label, mask)
+            if self.fourstream:
+                logits4, logits, lsum, n = fourstream.eval_step(
+                    self.models, batch, self.parents)
+            else:
+                logits, lsum, n = state_lib.eval_step(self.model, batch)
+                logits4, lsum, n = logits[None], lsum[None], n[None]
+            outputs.append((logits4, logits, lsum, n, label, index, mask))
+        scores, stream_scores = [], []
+        loss_sum, n_sum = 0.0, 0.0
+        with ExitStack() as files:
+            f_w = f_r = None
+            if wrong_file:
+                f_w = files.enter_context(open(wrong_file, "w"))
+            if result_file:
+                f_r = files.enter_context(open(result_file, "w"))
+            for logits4, logits, lsum, n, label, index, mask in outputs:
                 logits = logits.cpu().numpy()
                 valid = mask > 0
                 scores.append(logits[valid])
-                loss_sum += float(lsum)
-                n_sum += float(n)
+                stream_scores.append(logits4.cpu().numpy()[:, valid])
+                loss_sum = loss_sum + lsum.double().cpu().numpy()
+                n_sum += float(n[0])
                 if f_w or f_r:
                     preds = logits.argmax(-1)
                     for i in np.nonzero(valid)[0]:
@@ -295,41 +487,61 @@ class Trainer:
                             f_r.write(f"{preds[i]},{label[i]}\n")
                         if f_w and preds[i] != label[i]:
                             f_w.write(f"{index[i]},{preds[i]},{label[i]}\n")
-        finally:
-            if f_w:
-                f_w.close()
-            if f_r:
-                f_r.close()
         score = np.concatenate(scores)
+        stream_scores = np.concatenate(stream_scores, axis=1)
         accuracy = feeder.top_k(score, 1)
-        score_dict = dict(zip(feeder.sample_name, score))
         eval_dir = os.path.join(self.work_dir, "eval_results")
-        best_pkl = os.path.join(eval_dir, "best_acc.pkl")
-        if accuracy > self.best_acc or not os.path.exists(best_pkl):
+
+        def dump(scores_, name):
+            with open(os.path.join(eval_dir, name), "wb") as f:
+                pickle.dump(dict(zip(feeder.sample_name, scores_)), f)
+
+        if self.fourstream:
+            for stream, s in zip(fourstream.STREAMS, stream_scores):
+                i = fourstream.STREAMS.index(stream)
+                self.logger.log(
+                    f"\t{stream}: loss {loss_sum[i] / max(n_sum, 1):.4f}  "
+                    f"top1 {100 * feeder.top_k(s, 1):.2f}%")
+                dump(s, f"epoch_{epoch}_{stream}.pkl")
+            self.logger.log(f"\tensemble top1: {100 * accuracy:.2f}%")
+        else:
+            self.logger.log(
+                f"\tMean test loss: {loss_sum[0] / max(n_sum, 1):.4f}.")
+        if accuracy > self.best_acc or not os.path.exists(
+                os.path.join(eval_dir, "best_acc.pkl")):
             # on improvement, or to restore a best pickle that is gone
             # (best_acc keeps the historical value then)
             self.best_acc = max(self.best_acc, accuracy)
-            with open(best_pkl, "wb") as f:
-                pickle.dump(score_dict, f)
-        self.logger.log(f"\tMean test loss: {loss_sum / max(n_sum, 1):.4f}.")
+            dump(score, "best_acc.pkl")
+            if self.fourstream:
+                for stream, s in zip(fourstream.STREAMS, stream_scores):
+                    dump(s, f"best_acc_{stream}.pkl")
         for k in cfg.show_topk:
             self.logger.log(f"\tTop{k}: {100 * feeder.top_k(score, k):.2f}%")
-        with open(os.path.join(eval_dir, f"epoch_{epoch}_{accuracy}.pkl"),
-                  "wb") as f:
-            pickle.dump(score_dict, f)
+        dump(score, f"epoch_{epoch}_{accuracy}.pkl")
         return accuracy
 
     def check_shift_range(self) -> None:
         """Every ypos must stay inside the reference lowering's tap
         radius, which the kernels agree with by construction."""
-        for name, param in self.model.named_parameters():
-            if name.endswith("ypos"):
-                assert_in_range(param, name)
+        models = self.models if self.fourstream else {"": self.model}
+        for stream, model in models.items():
+            for name, param in model.named_parameters():
+                if name.endswith("ypos"):
+                    assert_in_range(param,
+                                    f"{stream}.{name}" if stream else name)
 
     def save(self, epoch: int) -> str:
         self.check_shift_range()
-        path = ckpt_lib.save_checkpoint(
-            self.save_dir, self.cfg.Experiment_name, epoch, self.global_step,
-            float(self.best_acc), self.model, self.optimizer)
+        if self.fourstream:
+            path = ckpt_lib.save_fourstream_checkpoint(
+                self.save_dir, self.cfg.Experiment_name, epoch,
+                self.global_step, float(self.best_acc), self.models,
+                self.optimizers)
+        else:
+            path = ckpt_lib.save_checkpoint(
+                self.save_dir, self.cfg.Experiment_name, epoch,
+                self.global_step, float(self.best_acc), self.model,
+                self.optimizer)
         self.logger.log(f"\tSaved checkpoint: {path}")
         return path

@@ -14,7 +14,13 @@ The trainer writes ``save_checkpoint``: a ``torch.save`` of the reference
 resume dict ``{model_state_dict, optimizer_state_dict, epoch, global_step,
 best_acc}`` named ``<Experiment_name>-<epoch>-<global_step>.pt``
 (reference: main.py:436-448), which ``load_reference_checkpoint`` reads
-back; ``latest_checkpoint`` finds the newest one.
+back; ``latest_checkpoint`` finds the newest one.  A four-stream run
+writes ``save_fourstream_checkpoint`` under the same name: one
+``{model_state_dict, optimizer_state_dict}`` dict under each stream's
+name beside ``epoch``, ``global_step`` and ``best_acc``, read back by
+``load_fourstream_checkpoint``.  ``stream_state_dicts_from_arrays``
+splits the reference package's stacked four-stream parameter trees into
+one state_dict per stream.
 
 Orbax checkpoints of the reference package's trainer are not read here:
 reading them needs orbax and its array library.  Export one to a ``.pt``
@@ -26,7 +32,7 @@ from __future__ import annotations
 import os
 import pickle
 import re
-from typing import Any, Dict, Mapping, Optional, Tuple
+from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -80,6 +86,31 @@ def state_dict_from_arrays(
     return {k: torch.from_numpy(np.array(v)) for k, v in out.items()}
 
 
+def stream_state_dicts_from_arrays(
+    params4: Mapping[str, Any], bn_state4: Mapping[str, Any],
+    streams: Sequence[str],
+) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The reference package's four-stream (params, bn_state), every leaf
+    stacked on axis 0 in ``streams`` order, as numpy -> {stream:
+    state_dict} through ``state_dict_from_arrays``."""
+    def take(tree: Mapping[str, Any], i: int) -> Dict[str, Any]:
+        return {k: take(v, i) if isinstance(v, Mapping) else np.asarray(v)[i]
+                for k, v in tree.items()}
+
+    return {stream: state_dict_from_arrays(take(params4, i),
+                                           take(bn_state4, i))
+            for i, stream in enumerate(streams)}
+
+
+def _stream_entries(blob: Any) -> Dict[str, Dict[str, Any]]:
+    """The per-stream resume dicts of a four-stream checkpoint ({} for any
+    other file)."""
+    if not isinstance(blob, dict):
+        return {}
+    return {k: v for k, v in blob.items()
+            if isinstance(v, dict) and "model_state_dict" in v}
+
+
 def load_reference_checkpoint(
     path: str,
 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, Any]]:
@@ -95,6 +126,11 @@ def load_reference_checkpoint(
             blob = pickle.load(f)
     else:
         blob = torch.load(path, map_location="cpu", weights_only=True)
+    if _stream_entries(blob):
+        raise ValueError(
+            f"{path} is a four-stream checkpoint: read it with "
+            "load_fourstream_checkpoint or "
+            "EnsemblePredictor.from_fourstream_checkpoint")
     meta: Dict[str, Any] = {}
     if isinstance(blob, dict) and "model_state_dict" in blob:
         meta = {k: blob[k] for k in ("epoch", "global_step", "best_acc")
@@ -111,22 +147,59 @@ def load_reference_checkpoint(
 _CHECKPOINT_NAME = re.compile(r"(?P<name>.+)-(?P<epoch>\d+)-(?P<step>\d+)\.pt")
 
 
+def _resume_entry(model: torch.nn.Module,
+                  optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    return {"model_state_dict": {k: v.detach().cpu()
+                                 for k, v in model.state_dict().items()},
+            "optimizer_state_dict": optimizer.state_dict()}
+
+
+def _write_checkpoint(save_dir: str, experiment: str, epoch: int,
+                      global_step: int, best_acc: float,
+                      blob: Dict[str, Any]) -> str:
+    os.makedirs(save_dir, exist_ok=True)
+    path = os.path.join(save_dir, f"{experiment}-{epoch}-{global_step}.pt")
+    torch.save(dict(blob, epoch=epoch, global_step=global_step,
+                    best_acc=best_acc), path)
+    return path
+
+
 def save_checkpoint(save_dir: str, experiment: str, epoch: int,
                     global_step: int, best_acc: float,
                     model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer) -> str:
     """Write the reference resume dict; returns its path."""
-    os.makedirs(save_dir, exist_ok=True)
-    path = os.path.join(save_dir, f"{experiment}-{epoch}-{global_step}.pt")
-    torch.save({
-        "model_state_dict": {k: v.detach().cpu()
-                             for k, v in model.state_dict().items()},
-        "optimizer_state_dict": optimizer.state_dict(),
-        "epoch": epoch,
-        "global_step": global_step,
-        "best_acc": best_acc,
-    }, path)
-    return path
+    return _write_checkpoint(save_dir, experiment, epoch, global_step,
+                             best_acc, _resume_entry(model, optimizer))
+
+
+def save_fourstream_checkpoint(
+        save_dir: str, experiment: str, epoch: int, global_step: int,
+        best_acc: float, models: Mapping[str, torch.nn.Module],
+        optimizers: Mapping[str, torch.optim.Optimizer]) -> str:
+    """Write one resume dict per stream, under the stream's name, in one
+    file; returns its path."""
+    return _write_checkpoint(
+        save_dir, experiment, epoch, global_step, best_acc,
+        {stream: _resume_entry(model, optimizers[stream])
+         for stream, model in models.items()})
+
+
+def load_fourstream_checkpoint(
+    path: str,
+) -> Tuple[Dict[str, Dict[str, Any]], Dict[str, Any]]:
+    """A four-stream checkpoint -> ({stream: {model_state_dict,
+    optimizer_state_dict}} on the CPU, meta).  Raises ValueError for any
+    other file, a single-stream checkpoint included."""
+    blob = torch.load(path, map_location="cpu", weights_only=True)
+    streams = _stream_entries(blob)
+    if not streams:
+        raise ValueError(
+            f"{path} is not a four-stream checkpoint (one model_state_dict "
+            "per stream): a four-stream run takes a four-stream checkpoint")
+    meta = {k: blob[k] for k in ("epoch", "global_step", "best_acc")
+            if k in blob}
+    return streams, meta
 
 
 def latest_checkpoint(save_dir: str) -> Optional[str]:

@@ -275,10 +275,58 @@ def test_run_pipeline_writes_report_before_render(checkpoints, tmp_path,
     assert saved["total_frames"] == 40 and "annotated_video" not in saved
 
 
-def test_run_pipeline_refuses_fourstream_and_bad_combinations(checkpoints):
+def _fourstream_checkpoint(root, config=None):
+    """A four-stream checkpoint of the port's trainer (the 3-unit model
+    unless ``config`` is given, seeded init), its save dir, and the four
+    state_dicts in it."""
+    from shift_gcn_torch.train import fourstream, optim
+    from shift_gcn_torch.utils.checkpoint import save_fourstream_checkpoint
+
+    models = fourstream.create_models(
+        config or config_from_reference_args(ARGS), 3, device="cpu")
+    for model in models.values():
+        model.fc.weight.data *= 0.02  # keep the probabilities unsaturated
+    save_dir = root / "save" / "fall_fourstream"
+    path = save_fourstream_checkpoint(
+        str(save_dir), "fall_fourstream", 4, 40, 0.5, models,
+        {s: optim.build_optimizer(m, 0.1) for s, m in models.items()})
+    return path, str(save_dir), {s: m.state_dict() for s, m in models.items()}
+
+
+def test_run_pipeline_refuses_fourstream_and_bad_combinations(
+        checkpoints, tmp_path, monkeypatch):
+    """A four-stream checkpoint the port's trainer wrote serves through
+    run_pipeline (a .pt or its run's save dir) with the report of the
+    per-modality predictor on the same four state_dicts; what is refused
+    now: an empty run dir, a file that is not a four-stream checkpoint,
+    and any but exactly one of checkpoints / fourstream_checkpoint."""
+    from shift_gcn_torch.data.gendata import mediapipe
+
     _, paths = checkpoints
-    with pytest.raises(NotImplementedError, match="A9"):
-        pipeline.run_pipeline("clip.mp4", fourstream_checkpoint="four.pt",
+    four, save_dir, state_dicts = _fourstream_checkpoint(tmp_path)
+    landmarks = _landmarks(50, 7)
+    monkeypatch.setitem(mediapipe._BACKENDS, "stub",
+                        _stub_backend(landmarks))
+    cfg = config_from_reference_args(ARGS)
+    want = pipeline.run_on_landmarks(
+        landmarks, pipeline.EnsemblePredictor(state_dicts, model_config=cfg,
+                                              device="cpu"),
+        window=32, stride=16)
+    for source in (four, save_dir):
+        got = pipeline.run_pipeline(
+            "clip.mp4", fourstream_checkpoint=source, model_config=cfg,
+            window=32, stride=16, pose_backend="stub", device="cpu")
+        assert got.pop("video") == "clip.mp4"
+        assert got == want
+    (tmp_path / "empty").mkdir()
+    with pytest.raises(FileNotFoundError, match="no checkpoints"):
+        pipeline.run_pipeline("clip.mp4",
+                              fourstream_checkpoint=str(tmp_path / "empty"),
+                              model_config=cfg, pose_backend="stub",
+                              device="cpu")
+    with pytest.raises(ValueError, match="not a four-stream checkpoint"):
+        pipeline.run_pipeline("clip.mp4", fourstream_checkpoint=paths["joint"],
+                              model_config=cfg, pose_backend="stub",
                               device="cpu")
     with pytest.raises(ValueError, match="exactly one"):
         pipeline.run_pipeline("clip.mp4", device="cpu")
@@ -353,8 +401,18 @@ def test_pipeline_cli_full_width_model(tmp_path, monkeypatch, capsys):
     assert report["video"] == "clip.mp4"
     assert np.isfinite(report["frame_probabilities"]).all()
     assert '"num_windows": 2' in capsys.readouterr().out
+    # --fourstream serves a four-stream checkpoint of the port's trainer,
+    # and takes no per-modality checkpoints beside it
+    four, _, _ = _fourstream_checkpoint(tmp_path, model.config)
+    pipeline.main(["--video", "clip.mp4", "--fourstream", four,
+                   "--output", str(out), "--window", "32", "--stride", "16",
+                   "--device", "cpu"])
+    four_report = json.loads(out.read_text())
+    assert four_report["num_windows"] == 2
+    assert np.isfinite(four_report["frame_probabilities"]).all()
     with pytest.raises(SystemExit):
-        pipeline.main(["--video", "clip.mp4", "--fourstream", "four.pt",
+        pipeline.main(["--video", "clip.mp4", "--fourstream", four,
+                       "--save-dir", str(tmp_path / "save"),
                        "--device", "cpu"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

@@ -293,8 +293,7 @@ def test_batch_iterator_matches_reference(tmp_path):
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "configs", "mediapipe",
                                         "*.yaml"))) + [
     os.path.join(REPO, "configs", "smoke.yaml")]
-REFUSED = {"train_fourstream.yaml": "fourstream",
-           "train_seqpar.yaml": "mesh_shape"}
+REFUSED = {"train_seqpar.yaml": "mesh_shape"}
 
 
 @pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
