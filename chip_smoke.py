@@ -91,7 +91,45 @@ Phases, in order; any failure exits non-zero:
    device guard's check passes on the card and raises, without
    sleeping, on an injected failing probe.  Prints the four-stream step
    time (CUDA events) and its peak memory beside a single-stream step's,
-   the epoch's clips/s and the feeder's share.
+   the epoch's clips/s and the feeder's share;
+15. lowering knobs on the full-width MediaPipe model, 64 clips x T=300,
+   the kernels against the plain path on the same weights and batch:
+   ``exact_xpos`` with xpos U(-0.9, 0.9) in fp32 (the eval forward within
+   1e-4 of the logits' scale with 20 K1 / 10 K4 launches, and phase 8's
+   train-step check); ``max_shift: 16`` with ypos U(-15, 15) (the forward
+   in fp32 within 1e-4 and in bf16 within 3e-2, phase 8's step in fp32,
+   a bf16 step within the bf16 envelope of
+   tests/test_torch_train.py::test_bf16_step_within_envelope; a state
+   dict with |ypos| = 12 loads under 16 and is refused under the default
+   8); and one ``Trainer`` step each of ``configs/mediapipe/
+   train_joint.yaml`` with ``lowering: {bn_lp: true}``, with
+   ``{bn_lp_eval: false}``, and with fp32 activations and
+   ``compute_dtype: bfloat16``, within that envelope of the plain path,
+   with an eval forward;
+16. NTU-60: ``Trainer.start()`` on ``configs/nturgbd-cross-subject/
+   train_joint.yaml`` unchanged in model and batch (60 classes, V=25,
+   M=2, batch 64, T=300, fp32; the largest batch that fits if 64 does
+   not, printed) for one epoch of 4 steps on synthetic clips with eval
+   and save: the launch counts equal 4 x the per-step counts plus one
+   eval forward; K1 bit-equal, K4/K5 within 2e-5 of scale, the fused
+   K2+K3 and K6 within phase 7's gates at every launch shape of the
+   model (128 skeleton rows a batch); prints the step and forward times
+   (CUDA events) and the step's peak memory;
+17. the other families, each through ``Trainer.start()`` for 4 steps
+   with eval and save, launching none of the port's kernels, and held
+   from its seeded init against the same module on the CPU and on the
+   CPU in float64, with the same weights and clips (``card_vs_cpu``:
+   logits within 1e-4 of scale of the CPU's; each gradient's relative
+   L2 gap to float64 within GRAD_RATIO x the CPU fp32's plus
+   GRAD_FLOOR; ``index_add_`` adds in no fixed order on the card):
+   ST-GCN with ``configs/stgcn_edges.yaml``'s
+   model_args (MediaPipe, V=33, M=1, 2 classes, channels 64..256,
+   temporal kernel 9, adaptive B) at batch 64 x T=300, the CPU on 8 of
+   the clips, and one step with ``adaptive_embed: 16``; ring-GNN with
+   ``configs/synthetic_ring.yaml``'s (V=256, C=8, hidden 32/32) at its
+   batch of 16 node-feature clips made in-process.  Both configs lose
+   their parallel-mode keys (``mesh_shape``, ``edge_partition``,
+   ``edge_strategy``: ROADMAP A13).  Prints the step times.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -141,6 +179,17 @@ KERNEL_ROWS = {
 }
 TRAIN_CONFIG = "configs/mediapipe/train_joint.yaml"
 FOURSTREAM_CONFIG = "configs/mediapipe/train_fourstream.yaml"
+NTU60_CONFIG = "configs/nturgbd-cross-subject/train_joint.yaml"
+STGCN_CONFIG = "configs/stgcn_edges.yaml"
+RING_CONFIG = "configs/synthetic_ring.yaml"
+# the parallel-mode keys phase 17 drops from its configs (ROADMAP A13)
+MESH_KEYS = ("mesh_shape", "edge_partition", "edge_strategy")
+NTU_STEPS = FAMILY_STEPS = 4   # train steps of phases 16 and 17
+RING_BATCH = 16                # RING_CONFIG's batch_size
+# phase 17: a card gradient's relative L2 gap to the float64 run may be
+# GRAD_RATIO x the CPU fp32 run's plus GRAD_FLOOR (cuDNN's FFT
+# convolutions on the card measured up to ~3x the CPU's gap, PERF.md)
+GRAD_RATIO, GRAD_FLOOR = 4, 1e-3
 STREAMS = 4
 GY_RAW_TOL = 2e-5      # of sum|terms|: gy_raw vs its plain version (phases 7, 8)
 WGRAD_TOL = 2e-5       # of scale: K6's outputs vs its plain version (phase 7)
@@ -809,9 +858,11 @@ def synthetic_batch(rng, n: int, t: int):
     return data, labels
 
 
-def check_train_step(config, rng, dev, seed: int):
+def check_train_step(config, rng, dev, seed: int, prepare=None,
+                     label: str = "fp32"):
     """Phase 8: one fp32 train step's loss and gradients, kernel path vs
-    plain path, from the same seeded state and batch."""
+    plain path, from the same seeded state and batch; ``prepare(model)``
+    edits the seeded state first (phase 15: the shift positions)."""
     from shift_gcn_torch.models.shift_gcn import Model
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
@@ -819,6 +870,9 @@ def check_train_step(config, rng, dev, seed: int):
     from shift_gcn_torch.train.state import cross_entropy
 
     model = Model(config).init_weights(torch.Generator().manual_seed(seed))
+    if prepare is not None:
+        with torch.no_grad():
+            prepare(model)
     start = {k: v.clone() for k, v in model.state_dict().items()}
     data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
     x = torch.from_numpy(data).to(dev)
@@ -931,7 +985,7 @@ def check_train_step(config, rng, dev, seed: int):
             fail("a ypos step differs on a channel clear of a tie")
         ties += int((~clear).sum())
         differ += int((~same).sum())
-    print(f"[step] fp32 train step, {N_WINDOWS} clips x T={T_WINDOW}: loss "
+    print(f"[step] {label} train step, {N_WINDOWS} clips x T={T_WINDOW}: loss "
           f"{loss:.7f} vs {loss_p:.7f} plain backward, {loss_full:.7f} "
           f"plain; true gradients vs the plain backward max |diff|/scale "
           f"{worst:.3g} (tol {STEP_GRAD_TOL:g}); biases ahead of a train BN "
@@ -949,29 +1003,43 @@ def check_train_step(config, rng, dev, seed: int):
     return worst, gy_ratio
 
 
-def training_config(config_path: str, rng, workdir: str, *extra: str):
+def write_split(workdir: str, split: str, data: np.ndarray,
+                labels: np.ndarray) -> dict:
+    """Write one split's clips and labels under ``workdir``; returns its
+    feeder arguments."""
+    paths = {"data_path": os.path.join(workdir, f"{split}_data.npy"),
+             "label_path": os.path.join(workdir, f"{split}_label.pkl")}
+    np.save(paths["data_path"], data)
+    with open(paths["label_path"], "wb") as f:
+        pickle.dump(([f"{split}{i}" for i in range(len(labels))],
+                     np.asarray(labels).tolist()), f)
+    return paths
+
+
+def one_epoch_config(config_path: str, workdir: str, feeder_args: dict,
+                     *extra: str):
     """The training config at ``config_path`` for one epoch, with eval and
-    save, on TRAIN_CLIPS + VAL_CLIPS synthetic clips written under
-    ``workdir``; returns it and the two splits' feeder arguments."""
+    save, on the splits of ``feeder_args``, CLI overrides ``extra``."""
     from shift_gcn_torch.train.config import load_config
 
-    feeder_args = {}
-    for split, n in (("train", TRAIN_CLIPS), ("val", VAL_CLIPS)):
-        data, labels = synthetic_batch(rng, n, T_WINDOW)
-        paths = {"data_path": os.path.join(workdir, f"{split}_data.npy"),
-                 "label_path": os.path.join(workdir, f"{split}_label.pkl")}
-        np.save(paths["data_path"], data)
-        with open(paths["label_path"], "wb") as f:
-            pickle.dump(([f"{split}{i}" for i in range(n)],
-                         labels.tolist()), f)
-        feeder_args[split] = paths
-    cfg = load_config([
+    return load_config([
         "--config", config_path, "--num_epoch", "1", "--eval_interval", "1",
         "--save_interval", "1", "--log_interval", "4",
         "--work_dir", os.path.join(workdir, "work"),
         "--model_saved_name", os.path.join(workdir, "save"),
         "--train_feeder_args", json.dumps(feeder_args["train"]),
         "--test_feeder_args", json.dumps(feeder_args["val"]), *extra])
+
+
+def training_config(config_path: str, rng, workdir: str, *extra: str):
+    """The training config at ``config_path`` for one epoch, with eval and
+    save, on TRAIN_CLIPS + VAL_CLIPS synthetic clips written under
+    ``workdir``; returns it and the two splits' feeder arguments."""
+    feeder_args = {split: write_split(workdir, split,
+                                      *synthetic_batch(rng, n, T_WINDOW))
+                   for split, n in (("train", TRAIN_CLIPS),
+                                    ("val", VAL_CLIPS))}
+    cfg = one_epoch_config(config_path, workdir, feeder_args, *extra)
     if (cfg.batch_size, cfg.activation_dtype) != (N_WINDOWS, "bfloat16"):
         fail(f"{config_path} no longer trains batch {N_WINDOWS} in bf16")
     return cfg, feeder_args
@@ -1597,6 +1665,7 @@ def run_fourstream(rng, dev, workdir: str, card: str):
     from shift_gcn_torch.graphs import get_graph
     from shift_gcn_torch.inference import pipeline
     from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
+    from shift_gcn_torch.ops.lowering import Lowering
     from shift_gcn_torch.train import fourstream
     from shift_gcn_torch.train.optim import build_optimizer
     from shift_gcn_torch.train.state import train_step
@@ -1606,7 +1675,8 @@ def run_fourstream(rng, dev, workdir: str, card: str):
     cfg, feeder_args = training_config(FOURSTREAM_CONFIG, rng, workdir,
                                        "--native_loader", "true")
     full = ModelConfig(num_class=2, num_point=V, num_person=1,
-                       graph="mediapipe_pose", activation_dtype="bfloat16")
+                       graph="mediapipe_pose", activation_dtype="bfloat16",
+                       lowering=Lowering())
     trainer = Trainer(cfg)
     if not (cfg.fourstream and trainer.model_config == full
             and (cfg.base_lr, cfg.nesterov) == (0.1, True)):
@@ -1772,6 +1842,700 @@ def run_fourstream(rng, dev, workdir: str, card: str):
     del trainer, four, single, four_opts, single_opts
     torch.cuda.empty_cache()
     return launches, stats, step_ms
+
+
+# ---------------------------------------------------------------------------
+# Lowering knobs (phase 15)
+# ---------------------------------------------------------------------------
+
+
+def shift_arrays(config, rng, xpos_bound=None, ypos_bound=None):
+    """``random_arrays`` with every xpos drawn from U(-xpos_bound,
+    xpos_bound) and every ypos from U(-ypos_bound, ypos_bound) where
+    given, as a state_dict."""
+    from shift_gcn_torch.utils.checkpoint import state_dict_from_arrays
+
+    params, state = random_arrays(config, rng)
+    for block in params.values():
+        for shift in (block["tcn1"]["shift_in"], block["tcn1"]["shift_out"]
+                      ) if "tcn1" in block else ():
+            c = shift["ypos"].shape[0]
+            if xpos_bound is not None:
+                shift["xpos"] = rng.uniform(-xpos_bound, xpos_bound, c
+                                            ).astype(np.float32)
+            if ypos_bound is not None:
+                shift["ypos"] = rng.uniform(-ypos_bound, ypos_bound, c
+                                            ).astype(np.float32)
+    return state_dict_from_arrays(params, state)
+
+
+def check_knob_forward(model, x, label: str, tol: float) -> float:
+    """One eval forward on the kernel path (20 K1 / 10 K4 launches) against
+    the plain path on the same model and batch: logits within ``tol`` of
+    their scale.  Returns the gap as a share of the scale."""
+    from shift_gcn_torch import kernels
+
+    model.eval()
+    kernels.reset_launches()
+    with torch.no_grad():
+        got = model(x)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    expect = {k: PER_EVAL_FORWARD.get(k, 0) for k in kernels.KERNELS}
+    if launches != expect:
+        fail(f"{label} forward: launch counts {launches} != {expect}")
+    with torch.no_grad(), plain_path():
+        want = model(x)
+    err, scale = max_err(got, want)
+    if not (torch.isfinite(got).all() and err <= tol * scale):
+        fail(f"{label} forward: logits off the plain path by {err:.3g} > "
+             f"{tol:g} of scale {scale:.3g}")
+    return err / scale
+
+
+def check_step_envelope(model, optimizer, step, batch, label: str):
+    """One train step on the kernel path (the per-step launch counts) and
+    one on the plain path from the same weights and optimizer state, held
+    to the bf16 envelope of tests/test_torch_train.py::
+    test_bf16_step_within_envelope: loss within 1e-2 relative, the
+    concatenated true gradient at cosine >= 0.98 and within 0.25 relative
+    L2, ypos steps equal on >= 90% of channels, xpos's zero.  Returns
+    (loss gap, cosine, relative L2, ypos share equal)."""
+    from shift_gcn_torch import kernels
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    opt_start = copy.deepcopy(optimizer.state_dict())
+
+    def run():
+        model.load_state_dict(start)
+        optimizer.load_state_dict(copy.deepcopy(opt_start))
+        loss, _ = step(batch)
+        torch.cuda.synchronize()
+        return float(loss), {n: p.grad.detach().float().clone()
+                             for n, p in model.named_parameters()}
+
+    kernels.reset_launches()
+    loss, grads = run()
+    launches = dict(kernels.LAUNCHES)
+    if launches != PER_STEP:
+        fail(f"{label} step: launch counts {launches} != {PER_STEP}")
+    with plain_path():
+        loss_p, grads_p = run()
+    names = [n for n in grads if not n.endswith(("xpos", "ypos"))]
+    got = torch.cat([grads[n].reshape(-1) for n in names])
+    want = torch.cat([grads_p[n].reshape(-1) for n in names])
+    cos = float(got @ want / (got.norm() * want.norm()))
+    rel = float((got - want).norm() / want.norm())
+    ypos = [n for n in grads if n.endswith("ypos")]
+    agree = sum(int((grads[n] == grads_p[n]).sum()) for n in ypos) / sum(
+        grads[n].numel() for n in ypos)
+    loss_gap = abs(loss - loss_p) / abs(loss_p)
+    if any(bool(grads[n].any()) for n in grads if n.endswith("xpos")):
+        fail(f"{label} step: nonzero xpos gradient")
+    if not (loss_gap <= 1e-2 and cos >= 0.98 and rel <= 0.25
+            and agree >= 0.9):
+        fail(f"{label} step outside the bf16 envelope: loss {loss_gap:.3g}, "
+             f"cosine {cos:.6f}, relative L2 {rel:.3g}, ypos equal "
+             f"{agree:.3f}")
+    model.load_state_dict(start)
+    optimizer.load_state_dict(opt_start)
+    return loss_gap, cos, rel, agree
+
+
+def run_lowering_knobs(config, rng, dev, workdir: str, seed: int,
+                       card: str):
+    """Phase 15: the lowering knobs that change numerics on the full-width
+    MediaPipe model at 64 clips x T=300, the kernels against the plain
+    path on the same weights and batch."""
+    import dataclasses
+
+    from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.ops.batchnorm import BatchNorm
+    from shift_gcn_torch.ops.lowering import Lowering, as_dict
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+    from shift_gcn_torch.train.trainer import Trainer
+
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    x = torch.from_numpy(data).to(dev)
+    batch = {"data": x, "label": torch.from_numpy(labels).to(dev)}
+    out = {}
+
+    # exact_xpos, fp32: xpos U(-0.9, 0.9)
+    cfg_x = dataclasses.replace(config, lowering=Lowering(exact_xpos=True))
+    model = Model(cfg_x)
+    model.load_state_dict(shift_arrays(cfg_x, rng, xpos_bound=0.9))
+    out["xpos_fwd"] = check_knob_forward(model, x, "exact_xpos fp32", 1e-4)
+
+    def wide_xpos(m):
+        for name, p in m.named_parameters():
+            if name.endswith("xpos"):
+                p.copy_((torch.rand(p.shape, generator=torch.Generator()
+                                    .manual_seed(seed)) * 1.8 - 0.9))
+
+    out["xpos_step"] = check_train_step(cfg_x, rng, dev, seed,
+                                        prepare=wide_xpos,
+                                        label="exact_xpos fp32")[0]
+    del model
+
+    # max_shift 16, ypos U(-15, 15): fp32 and bf16
+    cfg_m = dataclasses.replace(config, lowering=Lowering(max_shift=16),
+                                shift_init_scale=15.0)
+    weights = shift_arrays(cfg_m, rng, ypos_bound=15.0)
+    model = Model(cfg_m)
+    model.load_state_dict(weights)
+    out["far_fwd"] = check_knob_forward(model, x, "max_shift 16 fp32", 1e-4)
+    model16 = Model(dataclasses.replace(cfg_m, activation_dtype="bfloat16"))
+    model16.load_state_dict(weights)
+    out["far_fwd16"] = check_knob_forward(model16, x, "max_shift 16 bf16",
+                                          3e-2)
+    out["far_step"] = check_train_step(cfg_m, rng, dev, seed,
+                                       label="max_shift 16 fp32")[0]
+    model16.init_weights(torch.Generator().manual_seed(seed))
+    opt = build_optimizer(model16, 0.1)
+    out["far_step16"] = check_step_envelope(
+        model16, opt, lambda b: train_step(model16, opt, b, 0.1), batch,
+        "max_shift 16 bf16")
+    # a state dict with |ypos| = 12 (the others U(-1, 1)) loads under 16
+    # and is refused under 8
+    at12 = shift_arrays(config, rng)
+    at12["l5.tcn1.shift_out.ypos"][:2] = torch.tensor([12.0, -12.0])
+    model.load_state_dict(at12)
+    try:
+        Model(config).load_state_dict(at12)
+        fail("a state dict with |ypos| = 12 loaded under max_shift 8")
+    except ValueError as err:
+        if "max_shift=8" not in str(err):
+            raise
+    del model, model16, opt
+
+    # the Trainer's bf16 config with bn_lp, with bn_lp_eval off, and with
+    # fp32 activations and compute_dtype bfloat16: one step each, and an
+    # eval forward
+    feeder_args = {split: write_split(workdir, split,
+                                      *synthetic_batch(rng, n, T_WINDOW))
+                   for split, n in (("train", N_WINDOWS),
+                                    ("val", N_WINDOWS))}
+    cases = (("bn_lp", ("--lowering", "{bn_lp: true}")),
+             ("bn_lp_eval off", ("--lowering", "{bn_lp_eval: false}")),
+             ("fp32 + compute_dtype bf16",
+              ("--activation_dtype", "float32", "--compute_dtype",
+               "bfloat16")))
+    for i, (label, extra) in enumerate(cases):
+        cfg = one_epoch_config(TRAIN_CONFIG, os.path.join(workdir, str(i)),
+                               feeder_args, *extra)
+        trainer = Trainer(cfg)
+        model = trainer.model
+        low = trainer.model_config.lowering
+        fp32_act = cfg.activation_dtype == "float32"
+        wired = (low.bn_lp == (label == "bn_lp")
+                 and low.bn_lp_eval == (label != "bn_lp_eval off")
+                 and cfg.lowering == as_dict(low)
+                 and (trainer.model_config.dtype == torch.bfloat16)
+                 == fp32_act
+                 and all((m.lp_train, m.lp_eval) == (low.bn_lp,
+                                                     low.bn_lp_eval)
+                         for m in model.modules()
+                         if isinstance(m, BatchNorm)))
+        if not wired:
+            fail(f"{label}: the Trainer did not wire {extra}")
+        tbatch = trainer._put_batch(data, labels)
+        envelope = check_step_envelope(
+            model, trainer.optimizer,
+            lambda b: trainer._train_step(b, cfg.base_lr), tbatch, label)
+        fwd = check_knob_forward(model, tbatch["data"], label,
+                                 1e-4 if fp32_act else 3e-2)
+        out[label] = envelope + (fwd,)
+        del trainer, model
+    torch.cuda.empty_cache()
+    print(f"[knobs] exact_xpos (xpos U(-0.9, 0.9)) fp32: forward "
+          f"{out['xpos_fwd']:.3g} of scale off the plain path (tol 1e-4), "
+          f"step gradients {out['xpos_step']:.3g} of scale off the plain "
+          f"backward (tol {STEP_GRAD_TOL:g}); max_shift 16 (ypos U(-15, 15)):"
+          f" forward fp32 {out['far_fwd']:.3g} (tol 1e-4), bf16 "
+          f"{out['far_fwd16']:.3g} (tol 3e-2), step fp32 "
+          f"{out['far_step']:.3g} (tol {STEP_GRAD_TOL:g}), bf16 step vs "
+          "plain (loss gap, cosine, rel L2, ypos equal) "
+          f"{tuple(sig(v) for v in out['far_step16'])}; |ypos| 12 loads "
+          "under 16, refused under 8; 20 K1 / 10 K4 launches a forward | "
+          f"{card}")
+    for label, _ in cases:
+        loss_gap, cos, rel, agree, fwd = out[label]
+        print(f"[knobs] Trainer step, {TRAIN_CONFIG} with {label}: vs the "
+              f"plain path loss {loss_gap:.3g}, gradient cosine {cos:.7f}, "
+              f"rel L2 {rel:.3g}, ypos equal {agree:.3f} (envelope 1e-2, "
+              f"0.98, 0.25, 0.9); eval forward {fwd:.3g} of scale | {card}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# NTU-60 (phase 16)
+# ---------------------------------------------------------------------------
+
+
+def ntu_clips(rng, n: int, t: int, v: int, m: int, classes: int):
+    """(N, 3, T, V, M) clips whose class moves the mean of channel 0, and
+    labels."""
+    labels = rng.integers(0, classes, n)
+    data = rng.standard_normal((n, 3, t, v, m)).astype(np.float32) * 0.1
+    data[:, 0] += (labels / classes * 0.6)[:, None, None, None].astype(
+        np.float32)
+    return data, labels
+
+
+def check_kernels_at(config, n: int, gen, rng, dev, label: str):
+    """K1 bit-equal, K4 and K5 within 2e-5 of scale, the fused K2+K3 and
+    K6 within phase 7's gates, fp32, at every launch shape of one train
+    step of ``config`` with ``n`` skeleton rows a batch.  Returns the
+    number of shapes checked."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    v = config.num_point
+    k1_shapes, k4_shapes = forward_shapes(config, T_WINDOW)
+    for t, c, stride in sorted(set(k1_shapes)):
+        x = torch.randn(n, t, v, c, generator=gen, device=dev)
+        g = torch.randn(n, t // stride, v, c, generator=gen, device=dev)
+        ypos = torch.from_numpy(shift_positions(rng, c, "U(-1, 1)")).to(dev)
+        got = ts.temporal_shift(x, ypos, stride)
+        want = ts.temporal_shift_reference(x, ypos, stride)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            fail(f"{label} K1 T={t} C={c} s={stride}: not bit-equal "
+                 f"(max|err| {max_err(got, want)[0]:.3g})")
+        check_fused_backward(x, g, ypos, stride,
+                             f"{label} T={t} C={c} s={stride}")
+        del x, g, got, want
+    for t, c, d in sorted(set(k4_shapes)):
+        r = n * t
+        x = torch.randn(r, v, c, generator=gen, device=dev)
+        g = torch.randn(r, v, d, generator=gen, device=dev)
+        gate = torch.tanh(torch.randn(v, c, generator=gen, device=dev)) + 1.0
+        w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+        b = torch.randn(d, generator=gen, device=dev) * 0.1
+        for name, got, want in (
+                ("K4", sk.fused_shift_gcn(x, gate, w, b),
+                 ss.shift_gcn_transform(x, gate, w, b)),
+                ("K5", sk.shift_gcn_dx(g, gate, w),
+                 ss.shift_gcn_dx_reference(g, gate, w))):
+            err, scale = max_err(got, want)
+            if not err <= 2e-5 * scale:
+                fail(f"{label} {name} T={t} C={c} D={d}: max|err| "
+                     f"{err:.3g} > {2e-5 * scale:.3g}")
+        check_wgrad(x, g, gate, w, f"{label} T={t} C={c} D={d}")
+        del x, g
+    torch.cuda.empty_cache()
+    return len(set(k1_shapes)) + len(set(k4_shapes))
+
+
+def step_cost(model, batch, lr: float, dev, label: str, card: str):
+    """(train step ms, eval forward ms, the step's peak memory in GiB, the
+    profiled step's device busy share) of ``model`` on ``batch``, by CUDA
+    events and one profiled step; the weights are restored."""
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    opt = build_optimizer(model, lr)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    train_step(model, opt, batch, lr)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    step_ms = time_ms(lambda: train_step(model, opt, batch, lr), iters=2,
+                      reps=3)
+    busy = profile_call(lambda: train_step(model, opt, batch, lr), label,
+                        card, top=12)
+    model.eval()
+    with torch.inference_mode():
+        fwd_ms = time_ms(lambda: model(batch["data"]), iters=3, reps=3)
+    model.load_state_dict(start)
+    del opt
+    return step_ms, fwd_ms, peak, busy
+
+
+def run_ntu(rng, gen, dev, workdir: str, card: str):
+    """Phase 16: ``Trainer.start()`` on NTU60_CONFIG (60 classes, V=25,
+    M=2, batch 64, T=300, fp32) for one epoch of NTU_STEPS steps on
+    synthetic clips, with eval and save; the kernels at every launch shape
+    of the model; the step and forward times and the step's peak memory.
+    Returns (launches, step ms, forward ms, peak GiB, batch)."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.models.shift_gcn import (
+        Model, config_from_reference_args)
+    from shift_gcn_torch.train.config import load_config
+    from shift_gcn_torch.train.trainer import Trainer
+    from shift_gcn_torch.utils.checkpoint import latest_checkpoint
+
+    base = load_config(["--config", NTU60_CONFIG])
+    config = config_from_reference_args(base.model_args)
+    if not ((config.num_class, config.num_point, config.num_person,
+             config.graph, base.batch_size) == (60, 25, 2, "ntu_rgb_d", 64)
+            and base.activation_dtype is None):
+        fail(f"{NTU60_CONFIG} no longer trains NTU-60 (60 classes, V=25, "
+             "M=2) at batch 64 in fp32")
+    v, m = config.num_point, config.num_person
+    # the largest batch that fits, from the config's 64 down
+    batch_size = base.batch_size
+    while True:
+        model = Model(config).init_weights(torch.Generator().manual_seed(0))
+        data, labels = ntu_clips(rng, batch_size, T_WINDOW, v, m, 60)
+        batch = {"data": torch.from_numpy(data).to(dev),
+                 "label": torch.from_numpy(labels).to(dev)}
+        try:
+            cost = step_cost(model, batch, base.base_lr, dev,
+                             f"one NTU-60 fp32 train step, batch {batch_size}",
+                             card)
+        except torch.cuda.OutOfMemoryError:
+            cost = None
+        if cost is not None:
+            step_ms, fwd_ms, peak, busy = cost
+            break
+        # the exception and its frames are gone here, so is their memory
+        del model, batch
+        torch.cuda.empty_cache()
+        print(f"[ntu] batch {batch_size} does not fit in the card's "
+              f"memory | {card}")
+        if batch_size == 1:
+            fail("NTU-60 does not train at batch 1")
+        batch_size //= 2
+    del model, batch
+    torch.cuda.empty_cache()
+
+    feeder_args = {
+        split: write_split(workdir, split, *ntu_clips(
+            rng, n, T_WINDOW, v, m, 60))
+        for split, n in (("train", NTU_STEPS * batch_size),
+                         ("val", batch_size))}
+    cfg = one_epoch_config(NTU60_CONFIG, workdir, feeder_args,
+                           "--batch_size", str(batch_size),
+                           "--test_batch_size", str(batch_size))
+    trainer = Trainer(cfg)
+    epochs = record_epochs(trainer)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    expect = {k: PER_STEP[k] * NTU_STEPS + PER_EVAL_FORWARD.get(k, 0)
+              for k in PER_STEP}
+    if launches != expect:
+        fail(f"NTU-60 launch counts {launches} != expected {expect}")
+    losses = epochs[0]["losses"]
+    if len(losses) != NTU_STEPS or not np.isfinite(losses).all():
+        fail(f"NTU-60 train losses {losses}")
+    eval_dir = os.path.join(trainer.work_dir, "eval_results")
+    ckpt = latest_checkpoint(trainer.save_dir)
+    if ckpt is None or not os.path.exists(os.path.join(eval_dir,
+                                                       "best_acc.pkl")):
+        fail("the NTU-60 run left no checkpoint or best_acc.pkl")
+    with open(os.path.join(eval_dir, "best_acc.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    if len(scores) != batch_size or any(
+            s.shape != (60,) or not np.isfinite(s).all()
+            for s in scores.values()):
+        fail("NTU-60 scores are not finite 60-class rows per clip")
+    del trainer
+    torch.cuda.empty_cache()
+    shapes = check_kernels_at(config, batch_size * m, gen, rng, dev,
+                              "NTU-60")
+    print(f"[ntu] Trainer.start() on {NTU60_CONFIG} (60 classes, V={v}, "
+          f"M={m}, fp32, batch {batch_size}"
+          f"{'' if batch_size == base.batch_size else ' (64 does not fit)'},"
+          f" T={T_WINDOW}): {NTU_STEPS} steps + 1 eval batch in {wall:.1f} s,"
+          f" losses {[round(x, 4) for x in losses]}, best acc {best:.4f}, "
+          f"checkpoint {os.path.basename(ckpt)}; launches {launches} = per "
+          f"step {PER_STEP} x {NTU_STEPS} + per eval forward "
+          f"{PER_EVAL_FORWARD}; K1 bit-equal, K4/K5 within 2e-5, K2+K3 and "
+          f"K6 within phase 7's gates at {shapes} launch shapes of "
+          f"{batch_size * m} skeleton rows; step {step_ms:.3f} ms "
+          f"({batch_size / step_ms * 1e3:.1f} clips/s), eval forward "
+          f"{fwd_ms:.3f} ms, step peak memory {peak:.2f} GiB, device busy "
+          f"{'n/a' if busy is None else f'{100 * busy:.1f}%'} of the "
+          f"profiled step | {card}")
+    return launches, step_ms, fwd_ms, peak, batch_size
+
+
+# ---------------------------------------------------------------------------
+# The other families (phase 17)
+# ---------------------------------------------------------------------------
+
+
+def config_without_mesh(config_path: str, workdir: str) -> str:
+    """A copy of the YAML at ``config_path`` without MESH_KEYS (the
+    parallel modes), written under ``workdir``; returns its path."""
+    import yaml
+
+    with open(config_path) as f:
+        cfg = yaml.safe_load(f)
+    for key in MESH_KEYS:
+        cfg.pop(key, None)
+    path = os.path.join(workdir, os.path.basename(config_path))
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def card_vs_cpu(model, build, x, label: str, zero_grad_biases=()) -> dict:
+    """``model``'s weights on the card, on the CPU, and on the CPU in
+    float64, one forward and backward each on the same clips ``x``, with
+    the BNs on their running statistics (eval) and on batch statistics
+    (train).  The labels run through the classes in turn, so that the
+    loss is not saturated (a batch of one class at large logits has a
+    loss of 0 in fp32 and gradients below its resolution):
+
+    - logits on the card within 1e-4 of their scale of the CPU's, in
+      both modes;
+    - gradients: each true gradient's relative L2 gap to the float64
+      run, ||g - g64|| / ||g64||, on the card no more than GRAD_RATIO
+      times the CPU fp32 run's gap for the same parameter plus
+      GRAD_FLOOR: the card's fp32 arithmetic as accurate as the CPU's.
+      Summed in fp32, some of ST-GCN's gradients are only so accurate:
+      the adjacency B's, those behind a batch-statistics BN, and theta /
+      phi behind a saturated attention softmax sum terms that cancel, so
+      that the CPU's own fp32 run can be far from float64 (0.61 of the
+      norm for one phi under batch statistics, at the full width on 8
+      clips), and a fixed bound between card and CPU would hold roundoff
+      to a limit that neither side meets.  The largest gaps are printed
+      with their parameters;
+    - a bias in ``zero_grad_biases`` ((suffix, weight): under batch
+      statistics its exact gradient is 0, each side gives roundoff)
+      within 5e-4 of its weight gradient's scale, as
+      tests/test_torch_stgcn.py holds it.
+
+    Returns {mode: (logits gap, (card gradients' largest gap to float64,
+    its parameter), the CPU's, zero-gradient biases)}.  ``index_add_`` (ring-GNN) adds
+    in no fixed order on the card: roundoff only."""
+    from shift_gcn_torch.train.state import cross_entropy
+
+    state = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    cpu = torch.device("cpu")
+    labels = np.arange(len(x)) % model.config.num_class
+
+    def run(device, dtype, train: bool):
+        copy_ = build(model.config, device=cpu)
+        copy_.load_state_dict(state, strict=True)
+        copy_ = copy_.to(device=device, dtype=dtype).train(train)
+        logits = copy_(torch.from_numpy(x).to(device=device, dtype=dtype))
+        cross_entropy(logits, torch.from_numpy(labels).to(device)
+                      ).backward()
+        return logits.detach().cpu().double(), {
+            n: p.grad.detach().cpu().double()
+            for n, p in copy_.named_parameters()}
+
+    def weight_of(name):
+        return next((name[:-len(b)] + w for b, w in zero_grad_biases
+                     if name.endswith(b)), None)
+
+    out = {}
+    for train in (False, True):
+        mode = "train" if train else "eval"
+        (card_logits, card), (cpu_logits, cpu32), (_, ref) = (
+            run(device, dtype, train) for device, dtype in (
+                (model.fc.weight.device, torch.float32),
+                (cpu, torch.float32), (cpu, torch.float64)))
+        err, _ = max_err(card_logits, cpu_logits)
+        scale = float(cpu_logits.abs().max())
+        if not err <= 1e-4 * scale:
+            fail(f"{label}: {mode}-mode logits on the card off the CPU's by "
+                 f"{err:.3g} > 1e-4 of {scale:.3g}")
+        true = [n for n in ref if not (train and weight_of(n))]
+
+        def off(g, n):
+            return float((g[n] - ref[n]).norm()) / max(float(ref[n].norm()),
+                                                       1e-30)
+
+        for name in true:
+            if not off(card, name) <= (GRAD_RATIO * off(cpu32, name)
+                                       + GRAD_FLOOR):
+                fail(f"{label}: {mode}-mode gradient {name} off float64 by "
+                     f"{off(card, name):.3g} on the card, more than "
+                     f"{GRAD_RATIO}x the CPU's {off(cpu32, name):.3g} + "
+                     f"{GRAD_FLOOR:g}")
+        gaps = [max((off(g, n), n) for n in true) for g in (card, cpu32)]
+        bias_gap = 0.0
+        for name in ref:
+            weight = weight_of(name) if train else None
+            if weight is None:
+                continue
+            wscale = float(ref[weight].abs().max())
+            worst = max(float(card[name].abs().max()),
+                        float(cpu32[name].abs().max())) / wscale
+            if not worst <= 5e-4:
+                fail(f"{label}: zero-gradient bias {name} at {worst:.3g} of "
+                     "its weight gradient's scale > 5e-4")
+            bias_gap = max(bias_gap, worst)
+        out[mode] = (err / scale, gaps[0], gaps[1], bias_gap)
+    return out
+
+
+def gap_text(gaps) -> str:
+    return "; ".join(
+        f"{mode}: logits {g[0]:.3g} of scale off the CPU's (tol 1e-4), "
+        f"gradients' relative L2 off float64 at most {g[1][0]:.3g} card "
+        f"({g[1][1]}), {g[2][0]:.3g} CPU ({g[2][1]}) (tol {GRAD_RATIO}x "
+        f"the CPU's + {GRAD_FLOOR:g} a parameter)" + (
+            f", zero-gradient biases {g[3]:.3g} of their weight's (tol "
+            "5e-4)" if mode == "train" else "")
+        for mode, g in gaps.items())
+
+
+def train_family(config_path: str, data, labels, val, workdir: str,
+                 batch_size: int, *extra: str):
+    """``Trainer.start()`` on ``config_path`` without its mesh keys for one
+    epoch on (data, labels), eval on ``val``, with save; every port kernel
+    launched no time.  Returns the trainer, its epoch statistics, the wall
+    time and the best accuracy."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.train.trainer import Trainer
+    from shift_gcn_torch.utils.checkpoint import latest_checkpoint
+
+    feeder_args = {"train": write_split(workdir, "train", data, labels),
+                   "val": write_split(workdir, "val", *val)}
+    cfg = one_epoch_config(config_without_mesh(config_path, workdir),
+                           workdir, feeder_args, "--batch_size",
+                           str(batch_size), "--test_batch_size",
+                           str(batch_size), *extra)
+    trainer = Trainer(cfg)
+    epochs = record_epochs(trainer)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(kernels.LAUNCHES.values()):
+        fail(f"{config_path}: the family launched the port's kernels "
+             f"{kernels.LAUNCHES}")
+    losses = epochs[0]["losses"]
+    if (len(losses) != len(labels) // batch_size
+            or not np.isfinite(losses).all()):
+        fail(f"{config_path}: train losses {losses}")
+    if latest_checkpoint(trainer.save_dir) is None or not os.path.exists(
+            os.path.join(trainer.work_dir, "eval_results", "best_acc.pkl")):
+        fail(f"{config_path}: no checkpoint or best_acc.pkl")
+    return trainer, epochs[0], wall, best
+
+
+def run_families(rng, dev, workdir: str, card: str):
+    """Phase 17: ST-GCN (STGCN_CONFIG's model_args: MediaPipe, adaptive B,
+    channels 64..256, temporal kernel 9) and ring-GNN (RING_CONFIG's:
+    V=256, C=8, hidden 32/32) trained through ``Trainer.start()`` without
+    their mesh keys, each family's seeded init against the same module on
+    the CPU; ST-GCN also with adaptive_embed 16.  Returns {label: step
+    ms}."""
+    import dataclasses
+
+    from shift_gcn_torch.models import ring_gnn, stgcn
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+
+    times = {}
+    zero_grad = (("gcn_bias", "gcn_weight"), ("tcn.bias", "tcn.weight"),
+                 ("down.bias", "down.weight"))
+    # ST-GCN: 4 steps of 64 clips x T=300, eval on 64
+    os.makedirs(os.path.join(workdir, "stgcn"))
+    trainer, epoch, wall, best = train_family(
+        STGCN_CONFIG, *synthetic_batch(rng, FAMILY_STEPS * N_WINDOWS,
+                                       T_WINDOW),
+        synthetic_batch(rng, N_WINDOWS, T_WINDOW),
+        os.path.join(workdir, "stgcn"), N_WINDOWS)
+    want = stgcn.STGCNConfig(num_class=2, num_point=V, num_person=1,
+                             graph="mediapipe_pose")
+    if not (isinstance(trainer.model, stgcn.Model)
+            and trainer.model_config == want):
+        fail(f"{STGCN_CONFIG} no longer builds the full-width ST-GCN "
+             f"{want}: {trainer.model_config}")
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    model = trainer.model
+    opt = build_optimizer(model, 0.1)
+    times["stgcn"] = time_ms(lambda: train_step(model, opt, batch, 0.1),
+                             iters=2, reps=3)
+    profile_call(lambda: train_step(model, opt, batch, 0.1),
+                 f"one ST-GCN train step, batch {N_WINDOWS}", card, top=12)
+    # against the CPU from the seeded init (4 steps on the separable
+    # synthetic clips saturate the trained model: its gradients are ~1e-12),
+    # on 8 of the clips (the full batch would take minutes on the host)
+    gaps = card_vs_cpu(stgcn.Model(want).init_weights(
+        torch.Generator().manual_seed(0)), stgcn.Model, data[:8], "ST-GCN",
+        zero_grad)
+    print(f"[families] ST-GCN, Trainer.start() on {STGCN_CONFIG} without "
+          f"{list(MESH_KEYS)} (V={V}, M=1, channels {want.channels}, "
+          f"temporal kernel {want.temporal_kernel}, adaptive B, batch "
+          f"{N_WINDOWS}, T={T_WINDOW}): {FAMILY_STEPS} steps + 1 eval batch "
+          f"in {wall:.1f} s, losses {[round(v, 4) for v in epoch['losses']]},"
+          f" best acc {best:.4f}; no port kernel launched; card vs CPU "
+          f"(seeded init) on 8 clips: {gap_text(gaps)}; step "
+          f"{times['stgcn']:.3f} ms "
+          f"({N_WINDOWS / times['stgcn'] * 1e3:.1f} clips/s) | {card}")
+    del trainer, model, opt
+
+    embed_cfg = dataclasses.replace(want, adaptive_embed=16)
+    model = stgcn.Model(embed_cfg).init_weights(
+        torch.Generator().manual_seed(1))
+    opt = build_optimizer(model, 0.1)
+    loss, _ = train_step(model, opt, batch, 0.1)
+    if not np.isfinite(float(loss)):
+        fail(f"ST-GCN adaptive_embed 16: loss {float(loss)}")
+    times["stgcn_embed16"] = time_ms(
+        lambda: train_step(model, opt, batch, 0.1), iters=2, reps=3)
+    # from the seeded init too: the timed steps leave weights that the
+    # card's unordered sums make differ from run to run
+    gaps = card_vs_cpu(stgcn.Model(embed_cfg).init_weights(
+        torch.Generator().manual_seed(1)), stgcn.Model, data[:8],
+        "ST-GCN adaptive_embed 16", zero_grad)
+    print(f"[families] ST-GCN adaptive_embed 16: step "
+          f"{times['stgcn_embed16']:.3f} ms at batch {N_WINDOWS}; card vs "
+          f"CPU (seeded init) on 8 clips: {gap_text(gaps)} | {card}")
+    del model, opt, batch
+    torch.cuda.empty_cache()
+
+    # ring-GNN: node-feature clips (N, 8, 1, 256, 1), its YAML's batch
+    ring_cfg = ring_gnn.RingGNNConfig()
+
+    def ring_clips(n):
+        labels = rng.integers(0, 2, n)
+        data = rng.standard_normal((n, ring_cfg.in_channels, 1,
+                                    ring_cfg.num_nodes, 1)).astype(
+            np.float32)
+        data[:, 0] += (labels * 1.5 - 0.75)[:, None, None, None]
+        return data, labels
+
+    os.makedirs(os.path.join(workdir, "ring"))
+    trainer, epoch, wall, best = train_family(
+        RING_CONFIG, *ring_clips(FAMILY_STEPS * RING_BATCH),
+        ring_clips(RING_BATCH), os.path.join(workdir, "ring"), RING_BATCH)
+    if not (isinstance(trainer.model, ring_gnn.Model)
+            and trainer.model_config == ring_cfg):
+        fail(f"{RING_CONFIG} no longer builds {ring_cfg}: "
+             f"{trainer.model_config}")
+    data, labels = ring_clips(RING_BATCH)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    model = trainer.model
+    opt = build_optimizer(model, 0.05)
+    times["ring_gnn"] = time_ms(lambda: train_step(model, opt, batch, 0.05),
+                                iters=10, reps=5)
+    profile_call(lambda: train_step(model, opt, batch, 0.05),
+                 f"one ring-GNN train step, batch {RING_BATCH}", card, top=8)
+    # index_add_ on the card adds with atomics in no fixed order: fp32
+    # roundoff apart from the CPU's sum, within 1e-4; from the seeded init
+    gaps = card_vs_cpu(ring_gnn.Model(ring_cfg).init_weights(
+        torch.Generator().manual_seed(0)), ring_gnn.Model, data, "ring-GNN")
+    print(f"[families] ring-GNN, Trainer.start() on {RING_CONFIG} without "
+          f"{list(MESH_KEYS)} (V={ring_cfg.num_nodes}, C="
+          f"{ring_cfg.in_channels}, hidden {ring_cfg.hidden}, batch "
+          f"{RING_BATCH}): {FAMILY_STEPS} steps + 1 eval batch in "
+          f"{wall:.1f} s, losses {[round(v, 4) for v in epoch['losses']]}, "
+          f"best acc {best:.4f}; no port kernel launched; card vs CPU "
+          f"(seeded init, index_add_ in no fixed order on the card): "
+          f"{gap_text(gaps)}; step {times['ring_gnn']:.4f} ms | {card}")
+    del trainer, model, opt
+    torch.cuda.empty_cache()
+    return times
 
 
 def main() -> None:
@@ -2039,6 +2803,15 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         _, epoch4, step4_ms = run_fourstream(rng, dev, workdir, card)
 
+    # 15.-17. lowering knobs, NTU-60, the other families --------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        run_lowering_knobs(config, rng, dev, workdir, args.seed, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        _, ntu_step, ntu_fwd, ntu_peak, ntu_batch = run_ntu(rng, gen, dev,
+                                                            workdir, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        family_ms = run_families(rng, dev, workdir, card)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -2079,7 +2852,11 @@ def main() -> None:
           f"{artifact_ms['inputs'][0]:.4g}/{artifact_ms['baked'][0]:.4g}/"
           f"{artifact_ms['inputs'][1]:.4g}; 4-stream step {step4_ms:.4g}, "
           f"epoch {epoch4['clips_per_sec']:.1f} clips/s, feeder "
-          f"{100 * epoch4['dataloader_share']:.1f}%")
+          f"{100 * epoch4['dataloader_share']:.1f}%; NTU-60 batch "
+          f"{ntu_batch} step/fwd {ntu_step:.4g}/{ntu_fwd:.4g}, peak "
+          f"{ntu_peak:.3g} GiB; step ST-GCN {family_ms['stgcn']:.4g}, "
+          f"embed16 {family_ms['stgcn_embed16']:.4g}, ring-GNN "
+          f"{family_ms['ring_gnn']:.4g}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

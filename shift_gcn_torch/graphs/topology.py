@@ -1,23 +1,52 @@
-"""Skeleton graph topologies: the data the serving path needs of a skeleton.
+"""Skeleton graph topologies.
 
-A copy of the reference package's ``SkeletonGraph`` cut to what the
-Shift-GCN forward, its data preparation and the annotated video read: the
-joint count, the bone pairs that derive the bone modality (reference:
+A copy of the reference package's ``SkeletonGraph``: the joint count, the
+bone pairs that derive the bone modality (reference:
 data_gen/gen_bone_data.py:5-30, data_gen/gen_bone_data_mediapipe.py:7-43),
-the joints that pre-normalization centres and aligns, and the inward edges
-that ``inference/render.py`` draws.  The forward never uses the adjacency
-(reference: model/shift_gcn.py:121-142, only ``num_point`` matters), so
-none is built here.
+the joints that pre-normalization centres and aligns, the inward edges
+(which ``inference/render.py`` draws), and the spatial adjacency stack
+``A`` (I / normalized inward / normalized outward, reference:
+graph/tools.py:4-27) with its COO form.  The Shift-GCN forward never uses
+the adjacency (reference: model/shift_gcn.py:121-142, only ``num_point``
+matters); the ST-GCN family (``models/stgcn.py``) aggregates over ``A``.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import numpy as np
 
 Edge = Tuple[int, int]
+
+
+def edge_matrix(edges: Sequence[Edge], num_nodes: int) -> np.ndarray:
+    """Dense adjacency with A[target, source] = 1 (reference: graph/tools.py:4-8)."""
+    a = np.zeros((num_nodes, num_nodes), dtype=np.float64)
+    for src, dst in edges:
+        a[dst, src] = 1.0
+    return a
+
+
+def normalize_columns(a: np.ndarray) -> np.ndarray:
+    """Column-normalize a digraph adjacency: A @ D^-1 (reference: graph/tools.py:11-19)."""
+    col_sum = a.sum(axis=0)
+    inv = np.where(col_sum > 0, 1.0 / np.where(col_sum > 0, col_sum, 1.0), 0.0)
+    return a * inv[None, :]
+
+
+def spatial_adjacency(num_nodes: int, inward: Sequence[Edge]) -> np.ndarray:
+    """Stack (I, norm(inward), norm(outward)) -> (3, V, V) float32.
+
+    Matches reference graph/tools.py:22-27 with self-links as identity.
+    """
+    self_link = [(i, i) for i in range(num_nodes)]
+    outward = [(j, i) for (i, j) in inward]
+    eye = edge_matrix(self_link, num_nodes)
+    a_in = normalize_columns(edge_matrix(inward, num_nodes))
+    a_out = normalize_columns(edge_matrix(outward, num_nodes))
+    return np.stack([eye, a_in, a_out]).astype(np.float32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -34,7 +63,8 @@ class SkeletonGraph:
       zaxis: (bottom, top) joint pair aligned to z during pre-normalization.
       xaxis: (right, left) joint pair aligned to x during pre-normalization.
       inward: (child, parent) edges, 0-indexed, pointing toward the root:
-        the skeleton the annotated video draws.
+        the skeleton the adjacency is built from and the annotated video
+        draws.
     """
 
     name: str
@@ -45,12 +75,43 @@ class SkeletonGraph:
     xaxis: Tuple[int, int] = (8, 4)
     inward: Tuple[Edge, ...] = ()
 
+    @property
+    def outward(self) -> Tuple[Edge, ...]:
+        return tuple((j, i) for (i, j) in self.inward)
+
+    @property
+    def neighbor(self) -> Tuple[Edge, ...]:
+        return self.inward + self.outward
+
+    @property
+    def A(self) -> np.ndarray:
+        """(3, V, V) spatial adjacency stack, float32."""
+        return spatial_adjacency(self.num_nodes, self.inward)
+
     def bone_parents(self) -> np.ndarray:
         """parents[v] = parent joint of v (v itself for roots). Shape (V,)."""
         parents = np.arange(self.num_nodes)
         for child, parent in self.bone_pairs:
             parents[child] = parent
         return parents
+
+    def coo(self) -> Dict[str, np.ndarray]:
+        """COO form of the 3-subset adjacency: ``src``, ``dst``, ``weight``
+        and ``subset`` arrays of equal length E, subset by subset, each in
+        row-major (dst, src) order, for ``ops/aggregate.edge_aggregate``."""
+        srcs, dsts, weights, subsets = [], [], [], []
+        for k, mat in enumerate(self.A):
+            dst_idx, src_idx = np.nonzero(mat)
+            srcs.append(src_idx)
+            dsts.append(dst_idx)
+            weights.append(mat[dst_idx, src_idx])
+            subsets.append(np.full(len(src_idx), k))
+        return {
+            "src": np.concatenate(srcs).astype(np.int32),
+            "dst": np.concatenate(dsts).astype(np.int32),
+            "weight": np.concatenate(weights).astype(np.float32),
+            "subset": np.concatenate(subsets).astype(np.int32),
+        }
 
 
 def _ntu_inward() -> Tuple[Edge, ...]:

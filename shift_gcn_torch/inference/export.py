@@ -22,7 +22,9 @@ An artifact records the device it was exported for (its clip input's
 device); ``serve.score_clips`` refuses to run it on any other device
 rather than moving it.  Weights that reach an artifact without passing
 through ``Model.load_state_dict`` (``restore_weights_for_artifact``,
-``serve.score_clips``) get its load-time shift range check all the same.
+``serve.score_clips``) get its load-time shift range check all the same,
+at the ``max_shift`` the caller gives (an artifact holds no lowering:
+the model config's ``lowering.max_shift``, 8 by default).
 
 CLI: ``python -m shift_gcn_torch.inference.export --checkpoint <.pt or run
 dir> --out model.pt2 [--baked] [--device cuda]``.
@@ -40,6 +42,8 @@ from torch.utils import _pytree as pytree
 
 from shift_gcn_torch.models.shift_gcn import (
     Model, ModelConfig, check_shift_range)
+from shift_gcn_torch.ops.lowering import Lowering
+from shift_gcn_torch.ops.temporal_shift import DEFAULT_MAX_SHIFT
 from shift_gcn_torch.utils.checkpoint import (
     latest_checkpoint, load_reference_checkpoint)
 from shift_gcn_torch.utils.device import resolve_device
@@ -79,9 +83,11 @@ def _serialize(program) -> bytes:
     return buf.getvalue()
 
 
-def _check_weights(weights: Weights, specs: Dict[str, torch.Tensor]) -> None:
+def _check_weights(weights: Weights, specs: Dict[str, torch.Tensor],
+                   max_shift: int) -> None:
     """Raise unless ``weights`` has exactly the names of ``specs``, each of
-    its shape, and every shift position inside the tap radius."""
+    its shape, and every shift position inside the tap radius
+    ``max_shift``."""
     missing = sorted(set(specs) - set(weights))
     unexpected = sorted(set(weights) - set(specs))
     if missing or unexpected:
@@ -91,7 +97,7 @@ def _check_weights(weights: Weights, specs: Dict[str, torch.Tensor]) -> None:
         if tuple(weights[name].shape) != tuple(spec.shape):
             raise ValueError(f"{name}: shape {tuple(weights[name].shape)} "
                              f"!= {tuple(spec.shape)}")
-    check_shift_range(weights.items())
+    check_shift_range(weights.items(), max_shift)
 
 
 def export_eval(state_dict: Weights, config: ModelConfig, batch_size: int,
@@ -101,7 +107,9 @@ def export_eval(state_dict: Weights, config: ModelConfig, batch_size: int,
     architecture.  ``state_dict`` gives the inputs' shapes and dtypes."""
     device = resolve_device(device)
     wrapper = _WeightsAsInputs(config)
-    _check_weights(state_dict, wrapper._structure[0].state_dict())
+    structure = wrapper._structure[0]
+    _check_weights(state_dict, structure.state_dict(),
+                   structure.lowering.max_shift)
     weights = {k: v.to(device) for k, v in state_dict.items()}
     program = torch.export.export(
         wrapper, (weights, _clips(config, batch_size, seq_len, device)),
@@ -197,16 +205,18 @@ def restore_eval_weights(checkpoint_path: str,
     return model.state_dict()
 
 
-def restore_weights_for_artifact(checkpoint_path: str, artifact) -> Weights:
+def restore_weights_for_artifact(checkpoint_path: str, artifact,
+                                 max_shift: int = DEFAULT_MAX_SHIFT
+                                 ) -> Weights:
     """Weights for a params-as-inputs artifact, with the artifact's own
     inputs as the template: any architecture serves without its config.
     Raises on a name or shape that does not fit and on a shift position
-    at the tap radius; returns them in the artifact's order, dtypes and
-    device."""
+    at the tap radius ``max_shift`` (the model's lowering's); returns them
+    in the artifact's order, dtypes and device."""
     specs = weight_specs(artifact)
     state_dict, _ = load_reference_checkpoint(_checkpoint_file(
         checkpoint_path))
-    _check_weights(state_dict, specs)
+    _check_weights(state_dict, specs, max_shift)
     return {name: state_dict[name].to(dtype=spec.dtype, device=spec.device)
             for name, spec in specs.items()}
 
@@ -253,13 +263,16 @@ def main(argv=None):
     parser.add_argument("--num-point", type=int, default=33)
     parser.add_argument("--num-person", type=int, default=1)
     parser.add_argument("--graph", default="mediapipe_pose")
+    parser.add_argument("--max-shift", type=int, default=DEFAULT_MAX_SHIFT,
+                        help="the model's tap radius (lowering.max_shift)")
     parser.add_argument("--device", default="cuda",
                         help="the device the artifact runs on (default "
                         "cuda)")
     args = parser.parse_args(argv)
     config = ModelConfig(
         num_class=args.num_class, num_point=args.num_point,
-        num_person=args.num_person, graph=args.graph)
+        num_person=args.num_person, graph=args.graph,
+        lowering=Lowering(max_shift=args.max_shift))
     out = export_checkpoint(
         args.checkpoint, args.out, config=config,
         batch_size=args.batch_size, seq_len=args.seq_len, baked=args.baked,

@@ -25,24 +25,27 @@ from shift_gcn_torch.inference.export import (
     Weights, artifact_is_baked, check_artifact_device, load_exported,
     restore_weights_for_artifact, weight_specs)
 from shift_gcn_torch.models.shift_gcn import check_shift_range
+from shift_gcn_torch.ops.temporal_shift import DEFAULT_MAX_SHIFT
 from shift_gcn_torch.utils.device import resolve_device
 
 
 def score_clips(artifact, data: np.ndarray, batch_size: int,
                 weights: Optional[Weights] = None,
-                device="cuda") -> np.ndarray:
+                device="cuda",
+                max_shift: int = DEFAULT_MAX_SHIFT) -> np.ndarray:
     """Run (N, C, T, V, M) clips through the artifact in fixed batches.
 
     ``weights``: a state_dict for the weights-as-inputs flavour (checked
-    for the shift range, as ``load_state_dict`` would); None for baked
-    artifacts.  ``device`` must be the artifact's."""
+    for the shift range at ``max_shift``, the model's lowering's, as
+    ``load_state_dict`` would); None for baked artifacts.  ``device`` must
+    be the artifact's."""
     device = resolve_device(device)
     check_artifact_device(artifact, device)
     if (weights is None) != artifact_is_baked(artifact):
         raise ValueError("a baked artifact takes no weights; a "
                          "weights-as-inputs artifact needs them")
     if weights is not None:
-        check_shift_range(weights.items())
+        check_shift_range(weights.items(), max_shift)
         weights = {name: weights[name].to(device)
                    for name in weight_specs(artifact)}
     call = artifact.module()
@@ -77,6 +80,9 @@ def main(argv=None):
                         "weights-as-inputs artifacts")
     parser.add_argument("--device", default="cuda",
                         help="the artifact's device (default cuda)")
+    parser.add_argument("--max-shift", type=int, default=DEFAULT_MAX_SHIFT,
+                        help="the model's tap radius (lowering.max_shift), "
+                        "for the weights' shift range check")
     args = parser.parse_args(argv)
 
     artifact = load_exported(args.artifact)
@@ -86,10 +92,11 @@ def main(argv=None):
             raise SystemExit(
                 "this artifact takes weights as inputs (exported with "
                 "--no-baked); pass --weights <checkpoint>")
-        weights = restore_weights_for_artifact(args.weights, artifact)
+        weights = restore_weights_for_artifact(args.weights, artifact,
+                                               args.max_shift)
     data = np.load(args.data, mmap_mode="r")
     scores = score_clips(artifact, data, args.batch_size, weights=weights,
-                         device=args.device)
+                         device=args.device, max_shift=args.max_shift)
     np.save(args.out, scores)
     print(json.dumps({"clips": int(scores.shape[0]),
                       "classes": int(scores.shape[-1]),

@@ -18,6 +18,16 @@ Layout: input (N, C, T, V, M) as the reference feeder gives it; inside,
 (N*M, T, V, C) channels-last.  Each unit launches the fused spatial
 kernel once and the temporal-shift kernel twice on a CUDA device in its
 forward.
+
+``ModelConfig.lowering`` (``ops/lowering.py``, resolved with the ``SGT_*``
+environment overrides when the model is built) sets the shift range
+check's ``max_shift``, the joint-axis pass (``exact_xpos``) and the BN
+normalize precision (``bn_lp`` / ``bn_lp_eval``); its other knobs choose
+among the reference's XLA formulations, which the kernels replace.
+``ModelConfig.compute_dtype`` rounds the inputs of the 1x1 convs
+(``temporal_linear`` and the down convs) to that type; the residual
+temporal conv and the fused spatial kernel ignore it, as the reference's
+conv and Pallas paths do.
 """
 
 from __future__ import annotations
@@ -33,8 +43,11 @@ from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.ops import shift_gcn_kernel, temporal_shift
 from shift_gcn_torch.ops.batchnorm import BatchNorm
 from shift_gcn_torch.ops.conv import Conv, pointwise_conv, temporal_conv
+from shift_gcn_torch.ops.lowering import Lowering
+from shift_gcn_torch.ops.lowering import from_dict as lowering_from_dict
+from shift_gcn_torch.ops.lowering import resolve as resolve_lowering
 from shift_gcn_torch.ops.spatial_shift import flat_shift_index
-from shift_gcn_torch.utils.device import resolve_device
+from shift_gcn_torch.utils.device import pin_fp32_math, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,9 +88,19 @@ class ModelConfig:
         default_factory=default_backbone)
     # ypos init is U(-shift_init_scale, shift_init_scale)
     shift_init_scale: float = 1.0
+    # round the 1x1 convs' matmul inputs to this dtype ("bfloat16")
+    compute_dtype: Optional[str] = None
     # run the backbone in this activation dtype ("bfloat16"); parameters,
     # BN statistics, pooling and the classifier stay fp32
     activation_dtype: Optional[str] = None
+    # lowering knobs (ops/lowering.py); None: the defaults, with the SGT_*
+    # environment overrides applied when the model is built
+    lowering: Optional[Lowering] = None
+
+    @property
+    def dtype(self) -> Optional[torch.dtype]:
+        return (getattr(torch, self.compute_dtype)
+                if self.compute_dtype else None)
 
     @property
     def act_dtype(self) -> Optional[torch.dtype]:
@@ -88,8 +111,10 @@ class ModelConfig:
 class ShiftGCN(nn.Module):
     """Spatial block (reference: model/shift_gcn.py:77-142)."""
 
-    def __init__(self, cin: int, cout: int, v: int):
+    def __init__(self, cin: int, cout: int, v: int,
+                 compute_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.Linear_weight = nn.Parameter(torch.zeros(cin, cout))
         self.Linear_bias = nn.Parameter(torch.zeros(1, 1, cout))
         self.Feature_Mask = nn.Parameter(torch.zeros(1, v, cin))
@@ -112,15 +137,17 @@ class ShiftGCN(nn.Module):
         h = self.bn(h.reshape(n, t, v, -1))
         if self.down is not None:
             conv, bn = self.down
-            res = bn(pointwise_conv(x, conv.weight, conv.bias))
+            res = bn(pointwise_conv(x, conv.weight, conv.bias,
+                                    self.compute_dtype))
         else:
             res = x
         return torch.relu(h + res)
 
 
 class Shift(nn.Module):
-    """Shift positions (reference: shift.py:39-43).  xpos is read by no
-    arithmetic and gets a zero gradient (see ops/temporal_shift.py)."""
+    """Shift positions (reference: shift.py:39-43).  xpos is read only by
+    the ``exact_xpos`` joint pass, and gets a zero gradient (see
+    ops/temporal_shift.py)."""
 
     def __init__(self, channels: int):
         super().__init__()
@@ -131,9 +158,13 @@ class Shift(nn.Module):
 class ShiftTCN(nn.Module):
     """Temporal block (reference: model/shift_gcn.py:48-74)."""
 
-    def __init__(self, channels: int, stride: int):
+    def __init__(self, channels: int, stride: int,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 exact_xpos: bool = False):
         super().__init__()
         self.stride = stride
+        self.compute_dtype = compute_dtype
+        self.exact_xpos = exact_xpos
         self.bn = BatchNorm(channels)
         self.bn2 = BatchNorm(channels)
         self.shift_in = Shift(channels)
@@ -142,12 +173,14 @@ class ShiftTCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = temporal_shift.temporal_shift(self.bn(x), self.shift_in.ypos, 1,
-                                          xpos=self.shift_in.xpos)
+                                          xpos=self.shift_in.xpos,
+                                          exact_xpos=self.exact_xpos)
         h = pointwise_conv(h, self.temporal_linear.weight,
-                           self.temporal_linear.bias)
+                           self.temporal_linear.bias, self.compute_dtype)
         h = torch.relu(h)
         h = temporal_shift.temporal_shift(h, self.shift_out.ypos, self.stride,
-                                          xpos=self.shift_out.xpos)
+                                          xpos=self.shift_out.xpos,
+                                          exact_xpos=self.exact_xpos)
         return self.bn2(h)
 
 
@@ -168,15 +201,19 @@ class ResidualTCN(nn.Module):
 class TCNGCNUnit(nn.Module):
     """TCN_GCN_unit (reference: model/shift_gcn.py:145-162)."""
 
-    def __init__(self, spec: BlockSpec, v: int):
+    def __init__(self, spec: BlockSpec, v: int,
+                 compute_dtype: Optional[torch.dtype] = None,
+                 exact_xpos: bool = False):
         super().__init__()
         self.residual_kind = (
             "none" if not spec.residual
             else "conv" if (spec.in_channels != spec.out_channels
                             or spec.stride != 1)
             else "identity")
-        self.gcn1 = ShiftGCN(spec.in_channels, spec.out_channels, v)
-        self.tcn1 = ShiftTCN(spec.out_channels, spec.stride)
+        self.gcn1 = ShiftGCN(spec.in_channels, spec.out_channels, v,
+                             compute_dtype)
+        self.tcn1 = ShiftTCN(spec.out_channels, spec.stride, compute_dtype,
+                             exact_xpos)
         if self.residual_kind == "conv":
             self.residual = ResidualTCN(spec.in_channels, spec.out_channels,
                                         spec.stride)
@@ -205,17 +242,19 @@ class Model(nn.Module):
     def __init__(self, config: ModelConfig, device="cuda"):
         super().__init__()
         device = resolve_device(device)
-        # cuDNN convolutions default to TF32, which keeps ~3 decimal digits
-        # and would break fp32 parity of the residual conv; matmuls are
-        # pinned to full fp32 for the same reason
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
+        pin_fp32_math()
         self.config = config
+        self.lowering = resolve_lowering(config.lowering)
         v = config.num_point
         self.data_bn = BatchNorm(config.num_person * config.in_channels * v)
         for i, spec in enumerate(config.blocks):
-            self.add_module(f"l{i + 1}", TCNGCNUnit(spec, v))
+            self.add_module(f"l{i + 1}", TCNGCNUnit(
+                spec, v, config.dtype, self.lowering.exact_xpos))
         self.fc = Linear(config.blocks[-1].out_channels, config.num_class)
+        for module in self.modules():
+            if isinstance(module, BatchNorm):
+                module.lp_train = self.lowering.bn_lp
+                module.lp_eval = self.lowering.bn_lp_eval
         self.register_load_state_dict_post_hook(_check_shift_range)
         self.to(device)
         self.eval()
@@ -288,28 +327,32 @@ class Model(nn.Module):
         return h @ self.fc.weight.t() + self.fc.bias
 
 
-def check_shift_range(named_tensors) -> None:
+def check_shift_range(named_tensors,
+                      max_shift: int = temporal_shift.DEFAULT_MAX_SHIFT
+                      ) -> None:
     """Raise if a ``*.ypos`` of (name, tensor) pairs (``named_parameters()``
-    or a state_dict's items) reaches the reference lowering's default tap
-    radius; for weights that do not pass through ``load_state_dict``."""
+    or a state_dict's items) reaches the tap radius ``max_shift`` (the
+    model's lowering's); for weights that do not pass through
+    ``load_state_dict``."""
     for name, param in named_tensors:
         if name.endswith(".ypos"):
-            temporal_shift.assert_in_range(param, name)
+            temporal_shift.assert_in_range(param, name, max_shift=max_shift)
 
 
 def _check_shift_range(module: Model, incompatible) -> None:
-    check_shift_range(module.named_parameters())
+    check_shift_range(module.named_parameters(), module.lowering.max_shift)
 
 
 def config_from_reference_args(model_args: Dict[str, Any]) -> ModelConfig:
     """ModelConfig from reference-style YAML ``model_args`` (num_class /
     num_point / num_person / graph / in_channels), plus ``blocks``: rows of
     [in_channels, out_channels, stride, residual] replacing the default
-    backbone.  A ``lowering`` dict is ignored: it chooses among equivalent
-    implementations the port does not have, and loaded shift positions are
-    held to the default tap radius (``temporal_shift.DEFAULT_MAX_SHIFT``)."""
+    backbone, and ``lowering``, a dict of lowering knobs
+    (``ops/lowering.py``)."""
     graph = get_graph(model_args.get("graph", "ntu_rgb_d"))
     kwargs: Dict[str, Any] = {}
+    if "lowering" in model_args:
+        kwargs["lowering"] = lowering_from_dict(model_args["lowering"])
     if "blocks" in model_args:
         kwargs["blocks"] = tuple(
             BlockSpec(int(b[0]), int(b[1]),

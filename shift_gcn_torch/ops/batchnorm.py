@@ -10,18 +10,20 @@ in every one the features are the trailing axes of a channels-last tensor:
   (N, T, V, C) (reference: model/shift_gcn.py:99, 137),
 - Shift_tcn / residual / down BN: C features of (N, T, V, C).
 
-Numerics follow the reference package.  Eval: fp32 activations are
-normalized as ``(x - mean) * rsqrt(var + eps) * w + b``; low-precision
-activations use per-feature coefficients ``x * a + b`` with a and b
-derived in fp32 and cast to the activation dtype (its eval default).
-Train (``batch_norm_train``): batch mean and biased variance in fp32 as
-E[x^2] - E[x]^2 over every axis but the features, the same fp32
-normalize whatever the activation dtype (its training default), output
-in x.dtype; running statistics move with momentum 0.1 toward the batch
-mean and the unbiased variance, and ``num_batches_tracked`` counts the
-batch (PyTorch's BatchNorm semantics).  Gradients come from autograd
-through these stock ops, as the reference package takes them from
-autodiff.
+Numerics follow the reference package.  The normalize pass is
+``(x32 - mean) * rsqrt(var + eps) * w + b`` in fp32, output in x.dtype;
+with ``lp`` set and low-precision activations it is instead ``x * a + b``
+in the activation dtype, with per-feature coefficients a and b derived
+in fp32 and cast to it.  ``lp`` follows the model's lowering
+(``ops/lowering.py``): ``bn_lp`` in training (default off), ``bn_lp_eval``
+in eval (default on), which ``BatchNorm`` holds as ``lp_train`` and
+``lp_eval``.  Eval normalizes by the running statistics.  Train
+(``batch_norm_train``): batch mean and biased variance in fp32 as
+E[x^2] - E[x]^2 over every axis but the features; running statistics
+move with momentum 0.1 toward the batch mean and the unbiased variance,
+and ``num_batches_tracked`` counts the batch (PyTorch's BatchNorm
+semantics).  Gradients come from autograd through these stock ops, as
+the reference package takes them from autodiff.
 """
 
 from __future__ import annotations
@@ -30,19 +32,40 @@ import torch
 from torch import nn
 
 
+def stat_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The type of the statistics and the full-precision normalize: fp32,
+    or fp64 for fp64 activations (a float64 reference run)."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def _normalize(x: torch.Tensor, mean: torch.Tensor, inv: torch.Tensor,
+               weight: torch.Tensor, bias: torch.Tensor, shape, lp: bool,
+               x_wide=None) -> torch.Tensor:
+    """The normalize pass with fp32 statistics of the feature ``shape``
+    (or broadcastable to it): in the statistics' type (``x_wide``, x in
+    it, where the caller has it), or ``x * a + b`` in x.dtype when ``lp``
+    and x is not fp32."""
+    if lp and x.dtype != torch.float32:
+        a = inv * weight.reshape(shape)
+        b = bias.reshape(shape) - mean * a
+        return x * a.to(x.dtype) + b.to(x.dtype)
+    if x_wide is None:
+        x_wide = x.to(stat_dtype(x.dtype))
+    return ((x_wide - mean) * inv * weight.reshape(shape)
+            + bias.reshape(shape)).to(x.dtype)
+
+
 def batch_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                running_mean: torch.Tensor, running_var: torch.Tensor, *,
-               feature_dims: int = 1, eps: float = 1e-5) -> torch.Tensor:
-    """Normalize x whose trailing ``feature_dims`` axes are the features;
-    the flat (num_features,) statistics are reshaped to them."""
+               feature_dims: int = 1, eps: float = 1e-5,
+               lp: bool = True) -> torch.Tensor:
+    """Normalize x whose trailing ``feature_dims`` axes are the features
+    by the running statistics; the flat (num_features,) statistics are
+    reshaped to them."""
     shape = x.shape[x.dim() - feature_dims:]
-    inv = torch.rsqrt(running_var + eps)
-    if x.dtype != torch.float32:
-        a = inv * weight
-        b = bias - running_mean * a
-        return x * a.reshape(shape).to(x.dtype) + b.reshape(shape).to(x.dtype)
-    return ((x - running_mean.reshape(shape)) * inv.reshape(shape)
-            * weight.reshape(shape) + bias.reshape(shape))
+    inv = torch.rsqrt(running_var + eps).reshape(shape)
+    return _normalize(x, running_mean.reshape(shape), inv, weight, bias,
+                      shape, lp)
 
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
@@ -50,13 +73,13 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
                      running_var: torch.Tensor,
                      num_batches_tracked: torch.Tensor, *,
                      feature_dims: int = 1, momentum: float = 0.1,
-                     eps: float = 1e-5) -> torch.Tensor:
+                     eps: float = 1e-5, lp: bool = False) -> torch.Tensor:
     """Normalize x by its batch statistics over every axis but the
     trailing ``feature_dims``, and update the running statistics in
     place."""
     dims = tuple(range(x.dim() - feature_dims))
     shape = x.shape[x.dim() - feature_dims:]
-    x32 = x.float()
+    x32 = x.to(stat_dtype(x.dtype))
     mean = x32.mean(dims)
     var = (x32 * x32).mean(dims) - mean * mean  # biased
     n = x.numel() // mean.numel()
@@ -67,20 +90,22 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
         running_var.copy_((1 - momentum) * running_var
                           + momentum * unbiased.reshape(-1))
         num_batches_tracked.add_(1)
-    inv = torch.rsqrt(var + eps)
-    out = ((x32 - mean) * inv * weight.reshape(shape)
-           + bias.reshape(shape))
-    return out.to(x.dtype)
+    return _normalize(x, mean, torch.rsqrt(var + eps), weight, bias, shape,
+                      lp, x32)
 
 
 class BatchNorm(nn.Module):
     """Holds BN parameters and running statistics under the torch
     BatchNorm names; its forward normalizes by batch statistics in
-    training mode and by the running statistics otherwise."""
+    training mode and by the running statistics otherwise.  ``lp_train``
+    and ``lp_eval`` choose the low-precision normalize pass in each mode
+    (the lowering's ``bn_lp`` and ``bn_lp_eval``; a model sets them)."""
 
     def __init__(self, num_features: int, feature_dims: int = 1):
         super().__init__()
         self.feature_dims = feature_dims
+        self.lp_train = False
+        self.lp_eval = True
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -93,6 +118,7 @@ class BatchNorm(nn.Module):
             return batch_norm_train(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, self.num_batches_tracked,
-                feature_dims=self.feature_dims)
+                feature_dims=self.feature_dims, lp=self.lp_train)
         return batch_norm(x, self.weight, self.bias, self.running_mean,
-                          self.running_var, feature_dims=self.feature_dims)
+                          self.running_var, feature_dims=self.feature_dims,
+                          lp=self.lp_eval)

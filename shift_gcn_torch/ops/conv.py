@@ -2,8 +2,10 @@
 
 Weights keep the torch state_dict shapes — conv weight (C_out, C_in, kT,
 kV), bias (C_out,) — so reference checkpoints load as they are.  Both ops
-compute in the input's activation dtype and add the bias after the
-product, as the reference package does.
+return the input's activation dtype and add the bias after the product,
+as the reference package does.  ``pointwise_conv`` takes the model's
+``compute_dtype``, the type its matmul inputs are rounded to;
+``temporal_conv`` has none, as the reference's ignores it.
 """
 
 from __future__ import annotations
@@ -16,11 +18,22 @@ from torch import nn
 
 
 def pointwise_conv(x: torch.Tensor, weight: torch.Tensor,
-                   bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   bias: Optional[torch.Tensor] = None,
+                   compute_dtype: Optional[torch.dtype] = None
+                   ) -> torch.Tensor:
     """1x1 conv as a matmul. x: (..., C_in); weight: (C_out, C_in, 1, 1)
-    or (C_out, C_in).  Returns (..., C_out) in x.dtype."""
+    or (C_out, C_in).  Returns (..., C_out) in x.dtype.
+
+    With ``compute_dtype`` both inputs are rounded to it and multiplied
+    with fp32 accumulation, the result cast to x.dtype (the reference's
+    ``preferred_element_type=float32``): the products of bf16 values are
+    exact in fp32, so the rounded inputs go through an fp32 matmul."""
     w = weight.reshape(weight.shape[0], weight.shape[1])
-    out = torch.matmul(x, w.t().to(x.dtype))
+    if compute_dtype is not None:
+        out = torch.matmul(x.to(compute_dtype).float(),
+                           w.t().to(compute_dtype).float()).to(x.dtype)
+    else:
+        out = torch.matmul(x, w.t().to(x.dtype))
     if bias is not None:
         out = out + bias.to(x.dtype)
     return out

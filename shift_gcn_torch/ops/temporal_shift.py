@@ -29,14 +29,24 @@ and g gives both (``temporal_shift_backward``).  The kernels take stride
 1 or 2.
 
 The joint-axis position ``xpos`` is treated as exactly zero in the
-forward: its init is U(-1e-8, 1e-8), its gradient is zero and weight
-decay only shrinks it, so its bilinear contribution stays below fp32
-rounding for the life of any run.
+forward by default: its init is U(-1e-8, 1e-8), its gradient is zero and
+weight decay only shrinks it, so its bilinear contribution stays below
+fp32 rounding for the life of any run.  With ``exact_xpos`` (the
+lowering knob) the forward first runs ``joint_pass``, the reference's
+3-tap hat interpolation along the joint axis at x + xpos (zero outside
+[0, V)), in plain PyTorch, then the kernels on its output.  The hat
+interpolation is separable in (t, v), so K1 on the joint-passed input is
+the reference's 2-D tap conv, and K3's gy_raw on it is the reference's
+position gradient of the 2-D taps; autograd carries grad_input back
+through the joint pass.  The pass reads xpos detached, so xpos keeps its
+zero gradient.  (The reference's Pallas path refuses ``exact_xpos`` and
+falls back to its conv lowering; the port keeps its kernels.)
 
 The reference package sums taps only inside the static radius
 [-max_shift, max_shift + 1], while the kernels here read the two frames
 directly at any offset.  ``assert_in_range`` keeps every ``ypos`` inside
-that radius, so the two agree by construction.
+the model's radius (its lowering's ``max_shift``), so the two agree by
+construction.
 
 ``temporal_shift`` is the entry point.  When autograd records it (grad
 mode on and an input requires grad) it runs ``TemporalShiftFunction``;
@@ -303,11 +313,33 @@ class TemporalShiftFunction(torch.autograd.Function):
         return grad_x, grad_xpos, grad_ypos, None
 
 
+def joint_pass(x: torch.Tensor, xpos: torch.Tensor) -> torch.Tensor:
+    """The 3-tap joint-axis interpolation of (N, T, V, C) x at v + xpos[c]
+    (reference ``_joint_pass`` with ``_hat_taps(xpos, -1, 1)``): taps
+    max(0, 1 - |xpos - d|) at offsets d = -1, 0, 1, zero outside [0, V);
+    fp32 math, output in x.dtype."""
+    offsets = torch.arange(-1, 2, dtype=torch.float32, device=x.device)
+    taps = torch.clamp(
+        1.0 - (xpos.float().to(x.device)[None, :] - offsets[:, None]).abs(),
+        min=0.0)
+    v = x.shape[2]
+    padded = torch.nn.functional.pad(x.float(), (0, 0, 1, 1))
+    out = (padded[:, :, 0:v] * taps[0] + padded[:, :, 1:v + 1] * taps[1]
+           + padded[:, :, 2:v + 2] * taps[2])
+    return out.to(x.dtype)
+
+
 def temporal_shift(x: torch.Tensor, ypos: torch.Tensor, stride: int = 1,
-                   xpos: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   xpos: Optional[torch.Tensor] = None,
+                   exact_xpos: bool = False) -> torch.Tensor:
     """(N, T, V, C) -> (N, T // stride, V, C); see the module docstring.
-    ``xpos`` is read by no arithmetic; passed, it receives the zero
+    Without ``exact_xpos``, ``xpos`` is read by no arithmetic; with it,
+    ``joint_pass`` reads it detached.  Passed, it receives the zero
     gradient."""
+    if exact_xpos:
+        if xpos is None:
+            raise ValueError("exact_xpos needs xpos")
+        x = joint_pass(x, xpos.detach())
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, xpos, ypos)):
         return TemporalShiftFunction.apply(x, xpos, ypos, stride)

@@ -4,12 +4,16 @@ Priority: CLI > YAML > defaults, with unknown-key validation (``WRONG
 ARG``) — the reference argparse/YAML merge (main.py:34-169, 566-579).
 The key set is the reference package's, so every YAML it reads parses
 here to the same values; only the default ``feeder`` and ``model``
-strings name this package's modules.
+strings name this package's modules.  ``model`` names a family of
+``models/registry.py`` (the reference's names and aliases resolve).
 
 Keys this port cannot honor yet raise in ``check_supported`` (called by
 ``load_config`` and the ``Trainer``), naming the key and its ROADMAP
-item.  ``fourstream``, ``native_loader`` and ``device_guard`` are read by
-the Trainer.  Keys that only tune the reference package's compiler or
+item: the parallel modes ``mesh_shape``, ``shard_time`` and
+``edge_partition`` (A13).  ``fourstream``, ``native_loader``,
+``device_guard``, ``lowering`` (merged over ``model_args.lowering``,
+``ops/lowering.py``), ``compute_dtype`` and ``activation_dtype`` are read
+by the Trainer.  Keys that only tune the reference package's compiler or
 device (``sync_bn``, ``donate_state``, ``remat``, ``use_pallas``,
 ``profile_dir``, ``profile_steps``, ``debug_nans``, ``num_worker``,
 ``edge_strategy``) and the reference's ``device`` GPU ids change no
@@ -27,11 +31,6 @@ import os
 from typing import Any, Dict, List, Optional
 
 import yaml
-
-# model strings that name the Shift-GCN family (the reference's dotted path
-# and the short family name)
-SHIFT_GCN_MODELS = ("shift_gcn_torch.models.shift_gcn", "shift_gcn",
-                    "model.shift_gcn.Model")
 
 
 @dataclasses.dataclass
@@ -80,7 +79,7 @@ class ExperimentConfig:
     overwrite: bool = False
 
     # additions of the reference package
-    compute_dtype: Optional[str] = None     # matmul-input dtype (refused)
+    compute_dtype: Optional[str] = None     # 1x1-conv matmul-input dtype
     activation_dtype: Optional[str] = None  # e.g. bfloat16 backbone
                                             # activations (BN stats fp32)
     transfer_dtype: str = "auto"            # batch dtype on its way to the
@@ -106,7 +105,8 @@ class ExperimentConfig:
     fourstream: bool = False                # train the four modality
                                             # streams in one run
     lowering: Dict[str, Any] = dataclasses.field(
-        default_factory=dict)               # (refused when non-empty)
+        default_factory=dict)               # lowering knobs; the Trainer
+                                            # writes the resolved dict
     device_guard: bool = True
 
     def resolved_work_dir(self) -> str:
@@ -123,11 +123,6 @@ def check_supported(cfg: ExperimentConfig) -> None:
         ("mesh_shape", cfg.mesh_shape, "A13 (parallel modes)"),
         ("shard_time", cfg.shard_time, "A13 (parallel modes)"),
         ("edge_partition", cfg.edge_partition, "A13 (parallel modes)"),
-        ("lowering", cfg.lowering or cfg.model_args.get("lowering"),
-         "A11 (lowering knobs)"),
-        ("compute_dtype", cfg.compute_dtype, "A11 (lowering knobs)"),
-        ("model", cfg.model not in SHIFT_GCN_MODELS,
-         "A12 (other families)"),
     )
     for key, value, item in refused:
         if value:

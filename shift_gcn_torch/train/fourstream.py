@@ -60,12 +60,13 @@ def derive_modalities_device(joint: torch.Tensor,
     return torch.stack([joint, bone, motion(joint), motion(bone)])
 
 
-def create_models(config: ModelConfig, seed: int,
-                  device="cuda") -> Dict[str, Model]:
-    """The four stream models, initialized in STREAMS order from one
-    generator seeded with ``seed``."""
+def create_models(config: ModelConfig, seed: int, device="cuda",
+                  build=Model) -> Dict[str, torch.nn.Module]:
+    """The four stream models of ``build(config, device=...)`` (a model
+    family's constructor, Shift-GCN's by default), initialized in STREAMS
+    order from one generator seeded with ``seed``."""
     gen = torch.Generator().manual_seed(seed)
-    return {stream: Model(config, device=device).init_weights(gen)
+    return {stream: build(config, device=device).init_weights(gen)
             for stream in STREAMS}
 
 

@@ -1,6 +1,16 @@
 """Single-process Trainer: the reference Processor (main.py:172-546) on
 one device.
 
+The config's ``model`` names a family of ``models/registry.py``
+(Shift-GCN, ST-GCN, ring-GNN), which builds the model config from
+``model_args`` and the model itself.  ``compute_dtype`` and
+``activation_dtype`` reach the model config only where the family's
+config has that field (Shift-GCN's).  The lowering is the config's
+``lowering`` merged over ``model_args.lowering`` (the top level wins),
+with the ``SGT_*`` environment overrides applied; the resolved dict is
+written into the run's config snapshot.  A family with no lowering field
+refuses a configured lowering, as the reference's trainer does.
+
 Behavior follows the reference package's trainer: per-epoch step-decay
 LR with warmup (main.py:342-353), the per-parameter weight-decay table
 (main.py:307-317), the save / eval cadence, the best-accuracy and
@@ -43,8 +53,9 @@ import torch
 
 from shift_gcn_torch.data.feeder import BatchIterator, Feeder
 from shift_gcn_torch.graphs import get_graph
-from shift_gcn_torch.models import shift_gcn
-from shift_gcn_torch.ops.temporal_shift import assert_in_range
+from shift_gcn_torch.models.registry import get_model
+from shift_gcn_torch.models.shift_gcn import check_shift_range
+from shift_gcn_torch.ops import lowering as lowering_lib
 from shift_gcn_torch.train import config as config_lib
 from shift_gcn_torch.train import fourstream
 from shift_gcn_torch.train import state as state_lib
@@ -143,8 +154,9 @@ class Trainer:
         self.logger = RunLogger(self.work_dir, to_file=cfg.print_log)
         os.makedirs(os.path.join(self.work_dir, "eval_results"),
                     exist_ok=True)
+        self.family = get_model(cfg.model)
         # the model source beside the run (reference: main.py:257)
-        shutil.copy2(inspect.getfile(shift_gcn), self.work_dir)
+        shutil.copy2(inspect.getfile(self.family.build), self.work_dir)
 
         # resolve `resume: auto` before any overwrite cleanup, so a rerun
         # never deletes the checkpoint it is about to continue from
@@ -157,29 +169,31 @@ class Trainer:
         if cfg.phase == "train" and cfg.overwrite:
             self._cleanup_previous_run()
 
-        self.model_config = shift_gcn.config_from_reference_args(
-            cfg.model_args)
-        if cfg.activation_dtype:
-            self.model_config = dataclasses.replace(
-                self.model_config, activation_dtype=cfg.activation_dtype)
+        self.lowering, self.model_config = self._build_model_config()
         config_lib.save_config(cfg, os.path.join(self.work_dir,
                                                  "config.yaml"))
         self.transfer_dtype = resolve_transfer_dtype(
-            cfg.transfer_dtype, self.model_config.activation_dtype)
+            cfg.transfer_dtype,
+            getattr(self.model_config, "activation_dtype", None))
         self.transfer = BatchTransfer(self.device, self.transfer_dtype)
 
         self.fourstream = bool(cfg.fourstream)
+        if self.fourstream and not self.family.skeleton:
+            raise ValueError(
+                f"fourstream is not supported by model family {cfg.model!r}:"
+                " the bone streams need a skeleton graph in its config")
         if self.fourstream:
             self.models = fourstream.create_models(
-                self.model_config, cfg.seed, self.device)
+                self.model_config, cfg.seed, self.device,
+                build=self.family.build)
             self.optimizers = {stream: build_optimizer(model, cfg.base_lr)
                                for stream, model in self.models.items()}
             self.parents = torch.as_tensor(
                 get_graph(self.model_config.graph).bone_parents(),
                 device=self.device)
         else:
-            self.model = shift_gcn.Model(self.model_config,
-                                         device=self.device)
+            self.model = self.family.build(self.model_config,
+                                           device=self.device)
             self.model.init_weights(torch.Generator().manual_seed(cfg.seed))
             self.optimizer = build_optimizer(self.model, cfg.base_lr)
         self.global_step = 0
@@ -195,6 +209,36 @@ class Trainer:
     # ------------------------------------------------------------------
     # setup
     # ------------------------------------------------------------------
+
+    def _build_model_config(self):
+        """(the resolved lowering, the family's model config from
+        ``model_args`` with the run's dtypes and that lowering where its
+        config has those fields); records the resolved lowering in
+        ``cfg.lowering`` (reference package trainer.py:55-111)."""
+        cfg = self.cfg
+        explicit = {**(cfg.model_args.get("lowering") or {}),
+                    **(cfg.lowering or {})}
+        low = lowering_lib.resolve(lowering_lib.from_dict(explicit))
+        model_config = self.family.build_config(cfg.model_args)
+        fields = {f.name for f in dataclasses.fields(model_config)}
+        overrides = {}
+        if cfg.compute_dtype and "compute_dtype" in fields:
+            overrides["compute_dtype"] = cfg.compute_dtype
+        if cfg.activation_dtype and "activation_dtype" in fields:
+            overrides["activation_dtype"] = cfg.activation_dtype
+        if "lowering" in fields:
+            overrides["lowering"] = low
+            cfg.lowering = lowering_lib.as_dict(low)
+        elif explicit:
+            raise ValueError(
+                f"model family {cfg.model!r} has no lowering surface "
+                f"(its config has no 'lowering' field); configured "
+                f"lowering keys {sorted(explicit)} would be ignored.  "
+                "Remove the 'lowering' config key, or use the shift_gcn "
+                "family.")
+        else:
+            cfg.lowering = {}
+        return low, dataclasses.replace(model_config, **overrides)
 
     def _cleanup_previous_run(self) -> None:
         # reference: main.py:183-206; the resolved resume path is kept
@@ -522,14 +566,16 @@ class Trainer:
         return accuracy
 
     def check_shift_range(self) -> None:
-        """Every ypos must stay inside the reference lowering's tap
-        radius, which the kernels agree with by construction."""
+        """Every ypos must stay inside the tap radius of the run's
+        lowering (``max_shift``), which the kernels agree with by
+        construction (reference package trainer.py:886-901).  A family
+        without shifts has no ypos to check."""
         models = self.models if self.fourstream else {"": self.model}
         for stream, model in models.items():
-            for name, param in model.named_parameters():
-                if name.endswith("ypos"):
-                    assert_in_range(param,
-                                    f"{stream}.{name}" if stream else name)
+            check_shift_range(
+                ((f"{stream}.{name}" if stream else name, param)
+                 for name, param in model.named_parameters()),
+                self.lowering.max_shift)
 
     def save(self, epoch: int) -> str:
         self.check_shift_range()

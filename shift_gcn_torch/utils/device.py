@@ -1,4 +1,5 @@
-"""Device selection for the port's entry points."""
+"""Device selection for the port's entry points, and the fp32 math
+setting of its models."""
 
 from __future__ import annotations
 
@@ -18,3 +19,14 @@ def resolve_device(device="cuda") -> torch.device:
             "CUDA is not available; pass device='cpu' to run the plain "
             "PyTorch path on the CPU")
     return device
+
+
+def pin_fp32_math() -> None:
+    """Turn TF32 off for CUDA matmuls and cuDNN convolutions.
+
+    cuDNN convolutions default to TF32, which keeps ~3 decimal digits and
+    would break the fp32 parity of the models' convs with the reference;
+    matmuls and einsums are pinned to full fp32 for the same reason.  Every
+    model calls this when it is built."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

@@ -1,8 +1,9 @@
-"""Control flow of chip_smoke.py's live-serving phases (11-13) and its
-four-stream training phase (14), rehearsed on the CPU at a small size:
-the kernels' plain versions run in place of the kernels, so every check
-but the launch counts must pass, and the launch counts must fail (the
-plain versions launch nothing)."""
+"""Control flow of chip_smoke.py's live-serving phases (11-13), its
+four-stream training phase (14), and its lowering-knob, NTU-60 and
+other-family phases (15-17), rehearsed on the CPU at a small size: the
+kernels' plain versions run in place of the kernels, so every check but
+the launch counts must pass, and the launch counts must fail (the plain
+versions launch nothing)."""
 
 import subprocess
 import sys
@@ -22,6 +23,8 @@ from shift_gcn_torch.utils.checkpoint import state_dict_from_arrays
 ARGS = {"num_class": 2, "num_point": 33, "num_person": 1,
         "graph": "mediapipe_pose",
         "blocks": [[3, 8, 1, False], [8, 16, 2], [16, 16]]}
+FULL_ARGS = {"num_class": 2, "num_point": 33, "num_person": 1,
+             "graph": "mediapipe_pose"}
 
 
 @pytest.fixture
@@ -135,3 +138,84 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert "CUDA is not available" in proc.stderr
+
+
+@pytest.fixture
+def training_rehearsal(rehearsal, monkeypatch):
+    """``rehearsal`` with the Trainer and every family on the CPU, the
+    peak-memory reads stubbed and oneDNN off (its convolution backward
+    corrupts the heap once the reference package's XLA code has run in
+    the process, as other test files of a worker may have done)."""
+    cpu = mock.Mock(return_value=torch.device("cpu"))
+    for module in ("train.trainer", "models.stgcn", "models.ring_gnn"):
+        monkeypatch.setattr(f"shift_gcn_torch.{module}.resolve_device", cpu)
+    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
+                        lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
+    monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
+    return rehearsal
+
+
+def test_lowering_knob_phase_rehearses_on_cpu(training_rehearsal, capsys,
+                                              tmp_path):
+    """Phase 15 on the full-width MediaPipe model at T=40 and 4 clips."""
+    config = config_from_reference_args(FULL_ARGS)
+    out = chip_smoke.run_lowering_knobs(
+        config, np.random.default_rng(0), torch.device("cpu"),
+        str(tmp_path), 0, "card")
+    # six eval forwards and four steps: only their launch counts fail
+    assert len(training_rehearsal) == 10, training_rehearsal
+    assert all("launch counts" in msg for msg in training_rehearsal)
+    # the plain path against itself: no gap at all
+    assert out["xpos_fwd"] == out["far_fwd"] == out["far_fwd16"] == 0.0
+    assert out["xpos_step"] == out["far_step"] == 0.0
+    for label in ("bn_lp", "bn_lp_eval off", "fp32 + compute_dtype bf16"):
+        loss_gap, cos, rel, agree, fwd = out[label]
+        assert loss_gap == rel == fwd == 0.0 and agree == 1.0
+    printed = capsys.readouterr().out
+    assert printed.count("[knobs]") == 4
+    assert printed.count("[step] exact_xpos fp32") == 1
+    assert "|ypos| 12 loads under 16, refused under 8" in printed
+
+
+def test_ntu_phase_rehearses_on_cpu(training_rehearsal, monkeypatch, capsys,
+                                    tmp_path):
+    """Phase 16 on configs/nturgbd-cross-subject/train_joint.yaml at T=40,
+    its batch of 64 made not to fit, so that the run falls back to 4."""
+    cost = chip_smoke.step_cost
+
+    def small_card(model, batch, *args):
+        if batch["data"].shape[0] > 4:
+            raise torch.cuda.OutOfMemoryError("rehearsal")
+        return cost(model, batch, *args)
+
+    monkeypatch.setattr(chip_smoke, "step_cost", small_card)
+    launches, step_ms, fwd_ms, peak, batch = chip_smoke.run_ntu(
+        np.random.default_rng(0), torch.Generator().manual_seed(0),
+        torch.device("cpu"), str(tmp_path), "card")
+    assert batch == 4 and (step_ms, fwd_ms, peak) == (1.0, 1.0, 0.0)
+    # only the launch counts fail: the plain versions launch nothing
+    assert len(training_rehearsal) == 1, training_rehearsal
+    assert "NTU-60 launch counts" in training_rehearsal[0]
+    assert set(launches.values()) == {0}
+    printed = capsys.readouterr().out
+    assert [f"batch {b} does not fit" in printed for b in (64, 32, 16, 8)
+            ] == [True] * 4
+    assert "V=25, M=2, fp32, batch 4 (64 does not fit)" in printed
+
+
+def test_family_phase_rehearses_on_cpu(training_rehearsal, capsys,
+                                       tmp_path):
+    """Phase 17 at T=40 and 4 ST-GCN clips a batch: the families launch no
+    kernel, so nothing fails."""
+    times = chip_smoke.run_families(np.random.default_rng(0),
+                                    torch.device("cpu"), str(tmp_path),
+                                    "card")
+    assert training_rehearsal == []
+    assert set(times) == {"stgcn", "stgcn_embed16", "ring_gnn"}
+    printed = capsys.readouterr().out
+    assert printed.count("[families]") == 3
+    # the "card" is the CPU here: no gap to its own fp32 run
+    assert ("card vs CPU (seeded init) on 8 clips: eval: logits 0 of scale "
+            "off the CPU's (tol 1e-4), gradients' relative L2 off float64") \
+        in printed

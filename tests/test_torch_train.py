@@ -314,10 +314,13 @@ def test_load_config_matches_reference(path):
 
 
 def test_load_config_refuses_other_family_and_unknown_keys():
-    with pytest.raises(ValueError, match="'model'.*A12"):
-        config.load_config(["--model", "stgcn"])
-    with pytest.raises(ValueError, match="'lowering'.*A11"):
-        config.load_config(["--lowering", "{tshift_impl: conv}"])
+    # the other families and the lowering knobs are ported (A11, A12):
+    # only the parallel modes are refused now, and unknown keys
+    assert config.load_config(["--model", "stgcn"]).model == "stgcn"
+    assert config.load_config(["--lowering", "{tshift_impl: conv}"]
+                              ).lowering == {"tshift_impl": "conv"}
+    with pytest.raises(ValueError, match="'edge_partition'.*A13"):
+        config.load_config(["--model", "stgcn", "--edge_partition", "true"])
     with pytest.raises(KeyError, match="WRONG ARG"):
         config.load_config(["--no_such_key", "1"])
 
