@@ -129,7 +129,32 @@ Phases, in order; any failure exits non-zero:
    ``configs/synthetic_ring.yaml``'s (V=256, C=8, hidden 32/32) at its
    batch of 16 node-feature clips made in-process.  Both configs lose
    their parallel-mode keys (``mesh_shape``, ``edge_partition``,
-   ``edge_strategy``: ROADMAP A13).  Prints the step times.
+   ``edge_strategy``: ROADMAP A13c).  Prints the step times;
+18. data and sequence parallelism on this card: (a) ``Trainer.start()``
+   on ``configs/mediapipe/train_joint.yaml`` unchanged for 2 steps with
+   eval, in an NCCL group of one rank, bit-equal in losses and every
+   parameter to the run without a group; each kernel against its plain
+   version, fp32 and bf16, at the launch shapes of a rank: 32 rows at
+   T=300 for (b), and 32 rows of (c)'s time ranks, K1 and the fused
+   K2+K3 on each shift's halo-extended block (odd at stride 2); (b) one
+   fp32 step of the full-width model at 64 clips x T=300 in 2 gloo data
+   ranks sharing the card (the group made by the ranks, ``run_ranks``
+   starting this script once per rank) against the one-process step:
+   the loss within 1e-5 relative, every true gradient, the input's
+   gradient and every raw position gradient within PARALLEL_GRAD_TOL of
+   its scale (stated before the first run: fp32-order changes flip
+   ReLUs), ypos steps flipped only where the reference's raw gradient is
+   within that share of 0, each rank's launches one step's; (c)
+   ``configs/mediapipe/train_seqpar.yaml`` unchanged in model, batch 64,
+   padding to 304 and bf16, at mesh [2, 2] (the one cut: 4 gloo ranks on
+   this card), ``Trainer.start()`` for 2 steps with eval and save: every
+   rank's launches the stated per-step counts x 2 plus an eval forward,
+   losses and parameters equal across ranks, one checkpoint; then one
+   fp32 step on each rank's rows and frames against the unsharded T=304
+   step, as (b), and the same step with each of PLANTED_FAULTS (the
+   reverse halo exchange dropped; sync BN's backward unaveraged), which
+   the gates must catch.  Prints step times (ranks sharing one card, not
+   a scaling figure), peak memory per rank and each fault's readings.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -182,7 +207,7 @@ FOURSTREAM_CONFIG = "configs/mediapipe/train_fourstream.yaml"
 NTU60_CONFIG = "configs/nturgbd-cross-subject/train_joint.yaml"
 STGCN_CONFIG = "configs/stgcn_edges.yaml"
 RING_CONFIG = "configs/synthetic_ring.yaml"
-# the parallel-mode keys phase 17 drops from its configs (ROADMAP A13)
+# the edge-partition keys phase 17 drops from its configs (ROADMAP A13c)
 MESH_KEYS = ("mesh_shape", "edge_partition", "edge_strategy")
 NTU_STEPS = FAMILY_STEPS = 4   # train steps of phases 16 and 17
 RING_BATCH = 16                # RING_CONFIG's batch_size
@@ -2083,49 +2108,59 @@ def ntu_clips(rng, n: int, t: int, v: int, m: int, classes: int):
     return data, labels
 
 
-def check_kernels_at(config, n: int, gen, rng, dev, label: str):
-    """K1 bit-equal, K4 and K5 within 2e-5 of scale, the fused K2+K3 and
-    K6 within phase 7's gates, fp32, at every launch shape of one train
-    step of ``config`` with ``n`` skeleton rows a batch.  Returns the
-    number of shapes checked."""
+def check_kernels_at(config, n: int, gen, rng, dev, label: str,
+                     shapes=None, dtypes=(torch.float32,)):
+    """K1 bit-equal, K4 and K5 within 2e-5 of scale (2^-7 in bf16), the
+    fused K2+K3 and K6 within phase 7's gates, in each of ``dtypes``, at
+    every launch shape of one train step of ``config`` with ``n``
+    skeleton rows a batch, or at ``shapes`` (K1's (T, C, stride), K4's
+    (T, C, D)).  Returns the number of shapes checked."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
     from shift_gcn_torch.ops import temporal_shift as ts
 
     v = config.num_point
-    k1_shapes, k4_shapes = forward_shapes(config, T_WINDOW)
-    for t, c, stride in sorted(set(k1_shapes)):
-        x = torch.randn(n, t, v, c, generator=gen, device=dev)
-        g = torch.randn(n, t // stride, v, c, generator=gen, device=dev)
-        ypos = torch.from_numpy(shift_positions(rng, c, "U(-1, 1)")).to(dev)
-        got = ts.temporal_shift(x, ypos, stride)
-        want = ts.temporal_shift_reference(x, ypos, stride)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            fail(f"{label} K1 T={t} C={c} s={stride}: not bit-equal "
-                 f"(max|err| {max_err(got, want)[0]:.3g})")
-        check_fused_backward(x, g, ypos, stride,
-                             f"{label} T={t} C={c} s={stride}")
-        del x, g, got, want
-    for t, c, d in sorted(set(k4_shapes)):
-        r = n * t
-        x = torch.randn(r, v, c, generator=gen, device=dev)
-        g = torch.randn(r, v, d, generator=gen, device=dev)
-        gate = torch.tanh(torch.randn(v, c, generator=gen, device=dev)) + 1.0
-        w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
-        b = torch.randn(d, generator=gen, device=dev) * 0.1
-        for name, got, want in (
-                ("K4", sk.fused_shift_gcn(x, gate, w, b),
-                 ss.shift_gcn_transform(x, gate, w, b)),
-                ("K5", sk.shift_gcn_dx(g, gate, w),
-                 ss.shift_gcn_dx_reference(g, gate, w))):
-            err, scale = max_err(got, want)
-            if not err <= 2e-5 * scale:
-                fail(f"{label} {name} T={t} C={c} D={d}: max|err| "
-                     f"{err:.3g} > {2e-5 * scale:.3g}")
-        check_wgrad(x, g, gate, w, f"{label} T={t} C={c} D={d}")
-        del x, g
-    torch.cuda.empty_cache()
+    k1_shapes, k4_shapes = shapes or forward_shapes(config, T_WINDOW)
+    for dtype in dtypes:
+        name = f"{label} {str(dtype)[6:]}"
+        for t, c, stride in sorted(set(k1_shapes)):
+            x = torch.randn(n, t, v, c, generator=gen, device=dev).to(dtype)
+            g = torch.randn(n, t // stride, v, c, generator=gen,
+                            device=dev).to(dtype)
+            ypos = torch.from_numpy(shift_positions(rng, c, "U(-1, 1)")).to(
+                dev)
+            got = ts.temporal_shift(x, ypos, stride)
+            want = ts.temporal_shift_reference(x, ypos, stride)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                fail(f"{name} K1 T={t} C={c} s={stride}: not bit-equal "
+                     f"(max|err| {max_err(got, want)[0]:.3g})")
+            check_fused_backward(x, g, ypos, stride,
+                                 f"{name} T={t} C={c} s={stride}")
+            del x, g, got, want
+        # as phases 4 and 7: another summation order; bf16 may round to a
+        # neighbour
+        tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+        for t, c, d in sorted(set(k4_shapes)):
+            r = n * t
+            x = torch.randn(r, v, c, generator=gen, device=dev).to(dtype)
+            g = torch.randn(r, v, d, generator=gen, device=dev).to(dtype)
+            gate = torch.tanh(torch.randn(v, c, generator=gen,
+                                          device=dev)) + 1.0
+            w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+            b = torch.randn(d, generator=gen, device=dev) * 0.1
+            for kernel, got, want in (
+                    ("K4", sk.fused_shift_gcn(x, gate, w, b),
+                     ss.shift_gcn_transform(x, gate, w, b)),
+                    ("K5", sk.shift_gcn_dx(g, gate, w),
+                     ss.shift_gcn_dx_reference(g, gate, w))):
+                err, scale = max_err(got, want)
+                if not err <= tol * scale:
+                    fail(f"{name} {kernel} T={t} C={c} D={d}: max|err| "
+                         f"{err:.3g} > {tol * scale:.3g}")
+            check_wgrad(x, g, gate, w, f"{name} T={t} C={c} D={d}")
+            del x, g
+        torch.cuda.empty_cache()
     return len(set(k1_shapes)) + len(set(k4_shapes))
 
 
@@ -2538,10 +2573,710 @@ def run_families(rng, dev, workdir: str, card: str):
     return times
 
 
+# ---------------------------------------------------------------------------
+# Data and sequence parallelism (phase 18)
+# ---------------------------------------------------------------------------
+
+SEQPAR_CONFIG = "configs/mediapipe/train_seqpar.yaml"
+# phase 18c's one cut: the config's mesh [4, 2] needs 8 ranks; [2, 2] keeps
+# both axes with 4 gloo ranks sharing this card
+SEQPAR_MESH = (2, 2)
+T_PAD = 304          # SEQPAR_CONFIG's pad_to_frames
+PARALLEL_STEPS = 2   # Trainer steps of phases 18a and 18c
+PARALLEL_LR = 0.1
+# A true gradient of a rank's fp32 step (every parameter's, the input's
+# frame by frame, each shift's raw position gradient) may differ from the
+# one-process step by this share of its scale; stated for the parameters
+# before the first run on the card, and kept for the other two.  The
+# ranks sum BN's statistics and the gradients in another fp32 order,
+# which flips ReLUs whose inputs lie within roundoff of 0; phase 8 prints
+# the gap such an order change makes (up to ~6e-3 of scale).  On the card
+# the sound steps read up to 1.04e-2 and the faults planted in 18c
+# (PLANTED_FAULTS), which must read above it, 7.6e-2 at the least.
+PARALLEL_GRAD_TOL = 3e-2
+# 18c reruns its fp32 step with one cross-rank backward rule broken on
+# every rank (``planted``): the gates above must catch each
+PLANTED_FAULTS = ("reverse_halo", "bn_backward")
+RANK_LINE = "[rank]"
+
+
+def parallel_settings(dev, seed: int) -> dict:
+    """What a rank process of phase 18 is told: this module's sizes."""
+    return {"device": str(dev), "seed": seed, "batch": N_WINDOWS,
+            "t": T_WINDOW, "t_pad": T_PAD, "steps": PARALLEL_STEPS,
+            "mesh": list(SEQPAR_MESH), "faults": list(PLANTED_FAULTS)}
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def parse_rank_lines(text: str, world: int):
+    """The ranks' one-line JSON summaries (``[rank] {...}``) in rank
+    order; fails unless every rank printed one."""
+    found = {}
+    for line in text.splitlines():
+        if line.startswith(RANK_LINE + " "):
+            item = json.loads(line[len(RANK_LINE) + 1:])
+            found[int(item["rank"])] = item
+    if sorted(found) != list(range(world)):
+        fail(f"rank lines from ranks {sorted(found)}, expected {world}")
+    return [found[r] for r in sorted(found)]
+
+
+def run_ranks(job: str, world: int, workdir: str, settings: dict,
+              timeout: float = 900):
+    """Run ``job`` in ``world`` rank processes of this script (gloo, the
+    group made by each rank; the card shared).  A rank that fails or
+    outlives ``timeout`` fails the phase after every rank is stopped.
+    Returns the ranks' summary lines and pickled results, in rank order."""
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        log = open(os.path.join(workdir, f"{job}_rank{rank}.log"), "w")
+        procs.append((subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--rank-job", job,
+             "--rank", str(rank), "--world", str(world), "--port",
+             str(port), "--workdir", workdir, "--settings",
+             json.dumps(settings)], stdout=log, stderr=subprocess.STDOUT),
+            log))
+    deadline = time.time() + timeout
+    failed = None
+    try:
+        while failed is None and any(p.poll() is None for p, _ in procs):
+            for rank, (proc, _) in enumerate(procs):
+                if proc.poll() not in (None, 0):
+                    failed = f"rank {rank} exited with {proc.returncode}"
+            if time.time() > deadline:
+                failed = f"the ranks outlived {timeout:.0f} s"
+            time.sleep(0.2)
+        if failed is None:
+            bad = [r for r, (p, _) in enumerate(procs) if p.returncode]
+            failed = f"ranks {bad} failed" if bad else None
+    finally:
+        for proc, log in procs:
+            if proc.poll() is None:
+                proc.kill()
+            proc.wait()
+            log.close()
+    logs = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"{job}_rank{rank}.log")) as f:
+            logs.append(f.read())
+    if failed:
+        fail(f"phase 18 {job}: {failed}\n" + "\n".join(
+            f"--- rank {r}:\n" + "\n".join(text.splitlines()[-15:])
+            for r, text in enumerate(logs)))
+    results = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"{job}_{rank}.pkl"), "rb") as f:
+            results.append(pickle.load(f))
+    return parse_rank_lines("\n".join(logs), world), results
+
+
+def elapsed_ms(fn, dev, reps: int = 2) -> float:
+    """Mean ms of ``reps`` calls after one warm-up: CUDA events on a card,
+    the host clock on the CPU."""
+    fn()
+    if dev.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
+    torch.cuda.synchronize(dev)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+@contextmanager
+def planted(fault: str):
+    """One cross-rank backward rule broken in this rank process, every
+    rank planting the same so that the collectives still pair:
+    "reverse_halo" drops the reverse halo exchange (each rank keeps its
+    own rows of the extended block's grad_input), "bn_backward" leaves
+    sync BN's statistics cotangents unaveraged over the ranks."""
+    import types
+
+    import torch.distributed as dist
+
+    from shift_gcn_torch.ops import batchnorm
+    from shift_gcn_torch.parallel import comm, halo
+
+    class Unaveraged(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            return (comm.all_reduce_sum_(x.clone(), group)
+                    / dist.get_world_size(group))
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    patch = {
+        "reverse_halo": lambda: mock.patch.object(
+            halo, "halo_return",
+            lambda dx, lo, hi, mesh: dx[:, lo:dx.shape[1] - hi].clone()),
+        "bn_backward": lambda: mock.patch.object(
+            batchnorm, "comm",
+            types.SimpleNamespace(all_reduce_mean=Unaveraged.apply)),
+    }[fault]()
+    with patch:
+        yield
+
+
+def parallel_step(settings: dict, t: int, mesh=None, shard_time=False,
+                  timed: bool = True):
+    """One fp32 step of the full-width MediaPipe model from the seeded init
+    on the seeded batch of ``settings["batch"]`` clips, padded with empty
+    frames to ``t``: on this rank's part under ``mesh``, else whole.
+    Returns the loss; the gradients: the parameters', the input's
+    ("input", this rank's rows and frames) and each shift's raw position
+    gradient as its constraint step took it ("gy_raw:<ypos name>", reduced
+    over the ranks); the step's launches; its ms (two more steps, None
+    unless ``timed``) and the peak memory in GiB."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
+    from shift_gcn_torch.ops import temporal_shift as ts
+    from shift_gcn_torch.parallel import seqpar
+    from shift_gcn_torch.train import state
+    from shift_gcn_torch.train.optim import build_optimizer
+
+    dev = torch.device(settings["device"])
+    data, labels = synthetic_batch(np.random.default_rng(
+        settings["seed"] + 18), settings["batch"], settings["t"])
+    data = np.concatenate([data, np.zeros(
+        data.shape[:2] + (t - data.shape[2],) + data.shape[3:],
+        np.float32)], axis=2)
+    config = ModelConfig(num_class=2, num_point=V, num_person=1,
+                         graph="mediapipe_pose")
+    model = Model(config, device=dev).init_weights(
+        torch.Generator().manual_seed(settings["seed"]))
+    if mesh is not None:
+        seqpar.attach(model, mesh, shard_time)
+    opt = build_optimizer(model, PARALLEL_LR)
+    batch = {"data": torch.from_numpy(data).to(dev).requires_grad_(),
+             "label": torch.from_numpy(labels).long().to(dev)}
+
+    def step():
+        if mesh is None:
+            return state.train_step(model, opt, batch, PARALLEL_LR)
+        return seqpar.train_step(model, opt, batch, PARALLEL_LR, mesh,
+                                 shard_time)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    raws = []
+    constraint = ts.constraint_step
+
+    def recorded(gy_raw):
+        raws.append(gy_raw.detach().cpu().numpy())
+        return constraint(gy_raw)
+
+    with mock.patch.object(ts, "constraint_step", recorded):
+        loss = float(step()[0])
+    launches = dict(kernels.LAUNCHES)
+    # copies: on the CPU .numpy() shares the storage the timed steps
+    # below accumulate into
+    grads = {n: p.grad.cpu().numpy().copy()
+             for n, p in model.named_parameters()}
+    grad_in = batch["data"].grad
+    grads["input"] = (grad_in if mesh is None else mesh.local(
+        grad_in, shard_time)).cpu().numpy().copy()
+    # the backward takes the shifts in the reverse of the forward's order
+    ypos = [n for n in grads if n.endswith("ypos")]
+    for name, raw in zip(ypos, reversed(raws)):
+        if not np.array_equal(constraint(torch.from_numpy(raw)).numpy(),
+                              grads[name]):
+            fail(f"gy_raw of {name}: not the raw gradient of its step")
+        grads[f"gy_raw:{name}"] = raw
+    if len(raws) != len(ypos):
+        fail(f"{len(raws)} constraint steps for {len(ypos)} shifts")
+    ms = elapsed_ms(step, dev) if timed else None
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    del model, opt, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return loss, grads, launches, ms, peak
+
+
+def step_readings(loss: float, grads, ref_loss: float, ref_grads,
+                  mesh, shard_time: bool) -> dict:
+    """A rank's fp32 step (``mesh`` its place) against the one-process
+    step: the loss's relative gap; the largest max|diff| / scale of a
+    true gradient (ZERO_GRAD_BIASES against their weight gradient's
+    scale), of the input's gradient on this rank's rows and frames (the
+    largest L2 norm of a frame's gap over the mean frame norm, and its
+    frame; and the largest element gap over the largest element; the
+    rank's gradient is D times the global batch mean's: every rank
+    back-propagates its shard's mean) and of a raw position gradient (D
+    times the reference's as well: each rank's is a mean over its rows
+    of a gradient that carries 1 / its rows); whether an xpos gradient
+    is nonzero; and the ypos steps that differ, with those of them where
+    the reference's raw gradient is not within PARALLEL_GRAD_TOL of its
+    scale of 0 (no tie)."""
+    out = {"loss": abs(loss - ref_loss) / abs(ref_loss), "grad": 0.0,
+           "grad_at": None, "gy_raw": 0.0, "xpos": False, "flips": 0,
+           "untied": 0, "steps": 0}
+
+    def rel(got, want, scale_of=None):
+        scale = float(np.abs(want if scale_of is None else scale_of).max())
+        return float(np.abs(got - want).max()) / max(scale, 1e-30)
+
+    # the input's gradient frame by frame: a ReLU flip moves single
+    # elements of it (the largest element gap of a sound step read up to
+    # 5.5e-2 of the largest element on the card), a fault of the halos a
+    # whole frame
+    want_in = mesh.local(ref_grads["input"], shard_time)
+    diff = grads["input"] / mesh.data - want_in
+    frames = np.sqrt((diff ** 2).sum((0, 1, 3, 4)))
+    out["input"] = float(frames.max() / np.sqrt(
+        (want_in ** 2).sum((0, 1, 3, 4))).mean())
+    out["input_frame"] = int(frames.argmax())
+    out["input_element"] = rel(diff + want_in, want_in)
+    for name, want in ref_grads.items():
+        got = grads[name]
+        bias = next((b for b in ZERO_GRAD_BIASES if name.endswith(b)), None)
+        if name == "input":
+            continue
+        if name.startswith("gy_raw:"):
+            # D times the reference's too: the constraint reads its sign
+            out["gy_raw"] = max(out["gy_raw"], rel(got / mesh.data, want))
+        elif name.endswith("xpos"):
+            out["xpos"] |= bool(got.any())
+        elif name.endswith("ypos"):
+            raw = ref_grads[f"gy_raw:{name}"]
+            flipped = got != want
+            out["flips"] += int(flipped.sum())
+            out["untied"] += int((flipped & (np.abs(raw) > PARALLEL_GRAD_TOL
+                                             * np.abs(raw).max())).sum())
+            out["steps"] += got.size
+        else:
+            r = rel(got, want, ref_grads[name[:-len(bias)]
+                                         + ZERO_GRAD_BIASES[bias]]
+                    if bias else None)
+            if r > out["grad"]:
+                out["grad"], out["grad_at"] = r, name
+    return out
+
+
+def broken_gates(r: dict) -> list:
+    """The gates a step's readings break."""
+    broken = []
+    if not r["loss"] <= 1e-5:
+        broken.append(f"loss off by {r['loss']:.3g} relative (gate 1e-5)")
+    for key, what in (("grad", f"gradient of {r['grad_at']}"),
+                      ("input", "input's gradient (by frame)"),
+                      ("gy_raw", "raw position gradient")):
+        if not r[key] <= PARALLEL_GRAD_TOL:
+            broken.append(f"{what} off by {r[key]:.3g} of its scale "
+                          f"(gate {PARALLEL_GRAD_TOL:g})")
+    if r["xpos"]:
+        broken.append("a nonzero xpos gradient")
+    if r["untied"]:
+        broken.append(f"{r['untied']} ypos steps flipped off a tie")
+    return broken
+
+
+def readings_text(r: dict) -> str:
+    return (f"loss gap {r['loss']:.3g} relative, max |diff|/scale: true "
+            f"gradients {r['grad']:.3g} (at {r['grad_at']}), input by "
+            f"frame {r['input']:.3g} (local frame {r['input_frame']}; by "
+            f"element {r['input_element']:.3g}, not gated), raw position "
+            f"gradients {r['gy_raw']:.3g} (gate {PARALLEL_GRAD_TOL:g}); "
+            "ypos steps equal on "
+            f"{r['steps'] - r['flips']} of {r['steps']}, "
+            f"{r['flips'] - r['untied']} flips at a tie, {r['untied']} "
+            "off one")
+
+
+def compare_step(label: str, loss: float, grads, ref_loss: float,
+                 ref_grads, mesh, shard_time: bool) -> str:
+    """Fails unless a rank's fp32 step passes every gate against the
+    one-process step; returns its readings as text."""
+    r = step_readings(loss, grads, ref_loss, ref_grads, mesh, shard_time)
+    broken = broken_gates(r)
+    if broken:
+        fail(f"{label}: " + "; ".join(broken))
+    return readings_text(r)
+
+
+def seqpar_trainer_config(settings: dict, workdir: str):
+    """SEQPAR_CONFIG unchanged in model, batch and bf16, its feeders on
+    the splits under ``workdir`` (padded to ``t_pad``), at the phase's
+    mesh, for one epoch of PARALLEL_STEPS steps with eval and save."""
+    import yaml
+
+    from shift_gcn_torch.train.config import load_config
+
+    with open(SEQPAR_CONFIG) as f:
+        raw = yaml.safe_load(f)
+    feeders = {}
+    for split, key in (("train", "train_feeder_args"),
+                       ("val", "test_feeder_args")):
+        feeders[key] = dict(raw[key], pad_to_frames=settings["t_pad"],
+                            data_path=os.path.join(workdir,
+                                                   f"{split}_data.npy"),
+                            label_path=os.path.join(workdir,
+                                                    f"{split}_label.pkl"))
+    return load_config([
+        "--config", SEQPAR_CONFIG, "--num_epoch", "1", "--eval_interval",
+        "1", "--save_interval", "1", "--log_interval", "1",
+        "--batch_size", str(settings["batch"]), "--test_batch_size",
+        str(settings["batch"]), "--mesh_shape", *map(str, settings["mesh"]),
+        "--work_dir", os.path.join(workdir, "work"),
+        "--model_saved_name", os.path.join(workdir, "save"),
+        "--train_feeder_args", json.dumps(feeders["train_feeder_args"]),
+        "--test_feeder_args", json.dumps(feeders["test_feeder_args"])])
+
+
+def rank_dp(settings: dict, workdir: str):
+    """Phase 18b on one rank: the fp32 step on this rank's rows."""
+    import torch.distributed as dist
+
+    from shift_gcn_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([dist.get_world_size(), 1])
+    loss, grads, launches, ms, peak = parallel_step(settings,
+                                                    settings["t"], mesh)
+    return ({"loss": loss, "launches": launches, "step_ms": ms,
+             "peak_gib": peak}, {"grads": grads})
+
+
+def rank_seqpar(settings: dict, workdir: str):
+    """Phase 18c on one rank: ``Trainer.start()`` on SEQPAR_CONFIG, then
+    the fp32 step on this rank's rows and frames."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.train.trainer import Trainer
+
+    dev = torch.device(settings["device"])
+    trainer = Trainer(seqpar_trainer_config(settings, workdir), device=dev)
+    epochs = record_epochs(trainer)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    trainer_peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                    if dev.type == "cuda" else 0.0)
+    mesh = trainer.mesh
+    model_state = {k: v.cpu().numpy()
+                   for k, v in trainer.model.state_dict().items()}
+    summary = {"losses": epochs[0]["losses"], "launches": launches,
+               "best_acc": best, "wall_s": wall,
+               "trainer_peak_gib": trainer_peak,
+               "mesh": [mesh.data, mesh.model, mesh.hosts],
+               "activation_dtype": trainer.cfg.activation_dtype}
+    del trainer
+    loss, grads, step_launches, ms, peak = parallel_step(
+        settings, settings["t_pad"], mesh, shard_time=True)
+    summary.update(loss=loss, step_launches=step_launches, step_ms=ms,
+                   peak_gib=peak)
+    arrays = {"state": model_state, "grads": grads}
+    for fault in settings.get("faults", ()):
+        with planted(fault):
+            summary[f"loss:{fault}"], arrays[f"grads:{fault}"] = \
+                parallel_step(settings, settings["t_pad"], mesh,
+                              shard_time=True, timed=False)[:2]
+    return summary, arrays
+
+
+RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar}
+
+
+def rank_main(args) -> None:
+    """A rank process of phase 18: joins the gloo group on its card (or
+    the CPU), runs its job, pickles its arrays and prints its summary."""
+    import torch.distributed as dist
+
+    from shift_gcn_torch import kernels
+
+    settings = json.loads(args.settings)
+    dev = torch.device(settings["device"])
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        kernels.build_all()
+    else:
+        # the CPU rehearsal: as the CPU tests, without oneDNN's convolution
+        # backward, and one thread a rank (a rank spinning in its thread
+        # pool starves the others it waits for)
+        torch.backends.mkldnn.enabled = False
+        torch.set_num_threads(1)
+    dist.init_process_group("gloo",
+                            init_method=f"tcp://127.0.0.1:{args.port}",
+                            rank=args.rank, world_size=args.world)
+    try:
+        summary, arrays = RANK_JOBS[args.rank_job](settings, args.workdir)
+        with open(os.path.join(args.workdir,
+                               f"{args.rank_job}_{args.rank}.pkl"),
+                  "wb") as f:
+            pickle.dump(arrays, f)
+        print(RANK_LINE + " " + json.dumps(dict(summary, rank=args.rank)),
+              flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_world_of_one(rng, dev, workdir: str):
+    """Phase 18a: ``Trainer.start()`` on TRAIN_CONFIG for PARALLEL_STEPS
+    steps, once without a process group and once in a group of one rank
+    (NCCL on the card), from the same seed: losses and parameters
+    bit-equal.  Returns the group's backend and launch counts."""
+    import torch.distributed as dist
+
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.parallel import launch
+    from shift_gcn_torch.train.trainer import Trainer
+
+    clips = PARALLEL_STEPS * N_WINDOWS
+    os.makedirs(workdir)
+    feeder_args = {split: write_split(workdir, split,
+                                      *synthetic_batch(rng, n, T_WINDOW))
+                   for split, n in (("train", clips), ("val", N_WINDOWS))}
+    runs = []
+    for grouped in (False, True):
+        cfg = one_epoch_config(TRAIN_CONFIG, os.path.join(
+            workdir, str(grouped)), feeder_args, "--batch_size",
+            str(N_WINDOWS), "--test_batch_size", str(N_WINDOWS))
+        backend = None
+        if grouped:
+            launch.init_distributed(dev.type, {
+                "WORLD_SIZE": "1", "RANK": "0", "LOCAL_RANK": "0",
+                "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())})
+            backend = dist.get_backend()
+        try:
+            trainer = Trainer(cfg, device=dev)
+            if grouped and trainer.mesh is None:
+                fail("the Trainer in a group of one rank made no mesh")
+            epochs = record_epochs(trainer)
+            kernels.reset_launches()
+            trainer.start()
+            launches = dict(kernels.LAUNCHES)
+            runs.append((epochs[0]["losses"], {
+                k: v.cpu().clone() for k, v in
+                trainer.model.state_dict().items()}))
+            del trainer
+        finally:
+            if grouped:
+                dist.destroy_process_group()
+    (loss1, state1), (loss2, state2) = runs
+    differ = [k for k in state1 if not torch.equal(state1[k], state2[k])]
+    if loss1 != loss2 or differ:
+        fail(f"a group of one rank is not bit-equal to no group: losses "
+             f"{loss1} vs {loss2}, parameters differ at {differ[:5]}")
+    expect = {k: PER_STEP[k] * PARALLEL_STEPS + PER_EVAL_FORWARD.get(k, 0)
+              for k in PER_STEP}
+    if launches != expect:
+        fail(f"phase 18a launch counts {launches} != expected {expect}")
+    return backend, launches, loss1
+
+
+def seqpar_shapes(config, t: int, m: int, max_shift: int):
+    """Per launch of one forward of a rank among ``m`` time ranks of
+    T=``t`` clips: K1 (T, C, stride) on each shift's halo-extended block
+    (its stride's low halo, the local frames, max_shift + 1 above: odd
+    at stride 2), K4 (T, C, D) on the local frames."""
+    from shift_gcn_torch.parallel import halo
+
+    k1, k4 = [], []
+    t_l = t // m
+    for spec in config.blocks:
+        k4.append((t_l, spec.in_channels, spec.out_channels))
+        for stride in (1, spec.stride):
+            lo, hi = halo.halo_sizes(max_shift, stride)
+            k1.append((lo + t_l + hi, spec.out_channels, stride))
+        t_l //= spec.stride
+    return k1, k4
+
+
+def check_rank_kernels(rng, dev) -> str:
+    """Each kernel against its plain version, fp32 and bf16, at the
+    launch shapes of a rank of 18b (N / 2 rows, T=T_WINDOW) and of
+    SEQPAR_CONFIG at SEQPAR_MESH (N / D rows, T_PAD over M time ranks,
+    the shifts on their halo-extended blocks).  Returns the text."""
+    from shift_gcn_torch.models.shift_gcn import ModelConfig
+    from shift_gcn_torch.ops import lowering as lowering_lib
+    from shift_gcn_torch.train.config import load_config
+
+    cfg = load_config(["--config", SEQPAR_CONFIG])
+    max_shift = lowering_lib.resolve(lowering_lib.from_dict({
+        **(cfg.model_args.get("lowering") or {}),
+        **(cfg.lowering or {})})).max_shift
+    config = ModelConfig(num_class=2, num_point=V, num_person=1,
+                         graph="mediapipe_pose")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    dtypes = (torch.float32, torch.bfloat16)
+    dp = check_kernels_at(config, N_WINDOWS // 2, gen, rng, dev,
+                          "18 [2, 1] rank", dtypes=dtypes)
+    shapes = seqpar_shapes(config, T_PAD, SEQPAR_MESH[1], max_shift)
+    sp = check_kernels_at(config, N_WINDOWS // SEQPAR_MESH[0], gen, rng,
+                          dev, f"18 {list(SEQPAR_MESH)} rank", shapes,
+                          dtypes)
+    return (f"K1 bit-equal, K4/K5 within 2e-5 (bf16 2^-7) of scale, the "
+            f"fused K2+K3 and K6 within phase 7's gates, fp32 and bf16, at "
+            f"{dp} launch shapes of a [2, 1] rank ({N_WINDOWS // 2} rows, "
+            f"T={T_WINDOW}) and {sp} of a {list(SEQPAR_MESH)} rank "
+            f"({N_WINDOWS // SEQPAR_MESH[0]} rows, T={T_PAD} over "
+            f"{SEQPAR_MESH[1]} time ranks, max_shift {max_shift}): K1 on "
+            f"the halo-extended blocks (T, C, s) {sorted(set(shapes[0]))}, "
+            f"K4 at (T, C, D) {sorted(set(shapes[1]))}")
+
+
+def run_parallel(rng, dev, workdir: str, card: str, seed: int) -> dict:
+    """Phase 18: data and sequence parallelism on this card (18a a group
+    of one NCCL rank, the kernels at the ranks' launch shapes, 18b [2, 1]
+    and 18c SEQPAR_MESH in gloo ranks that share it, with PLANTED_FAULTS
+    read against 18c's gates).  Returns the figures for the summary."""
+    import yaml
+
+    from shift_gcn_torch.parallel.mesh import Mesh
+
+    # the configs as phase 18 drives them: batch 64, bf16, T padded to 304
+    # for sequence parallelism
+    for path, pad in ((TRAIN_CONFIG, None), (SEQPAR_CONFIG, 304)):
+        with open(path) as f:
+            raw = yaml.safe_load(f)
+        if (raw["batch_size"], raw["activation_dtype"],
+                raw["train_feeder_args"].get("pad_to_frames")) != (
+                    64, "bfloat16", pad):
+            fail(f"{path} no longer trains batch 64 in bf16 with "
+                 f"pad_to_frames {pad}")
+    settings = parallel_settings(dev, seed)
+    backend, launches_a, losses_a = run_world_of_one(
+        rng, dev, os.path.join(workdir, "a"))
+    print(f"[parallel] 18a: Trainer.start() on {TRAIN_CONFIG} (bf16, batch "
+          f"{N_WINDOWS}, T={T_WINDOW}), {PARALLEL_STEPS} steps + eval, in a "
+          f"{backend} group of one rank: losses {losses_a} and every "
+          f"parameter bit-equal to the run without a group; launches "
+          f"{launches_a} | {card}")
+    print(f"[parallel] kernels: {check_rank_kernels(rng, dev)} | {card}")
+
+    # 18b: the fp32 step, one process, then 2 data ranks on this card
+    ref_loss, ref_grads, _, ref_ms_dp, ref_peak = parallel_step(
+        settings, T_WINDOW)
+    os.makedirs(os.path.join(workdir, "b"))
+    dp_lines, results = run_ranks("dp", 2, os.path.join(workdir, "b"),
+                                  settings)
+    texts = []
+    for line, res in zip(dp_lines, results):
+        if line["launches"] != PER_STEP:
+            fail(f"18b rank {line['rank']} launches {line['launches']} != "
+                 f"{PER_STEP}")
+        texts.append(compare_step(
+            f"18b rank {line['rank']}", line["loss"], res["grads"],
+            ref_loss, ref_grads, Mesh(2, 1, line["rank"]), False))
+    print(f"[parallel] 18b: one fp32 step, {N_WINDOWS} clips x T={T_WINDOW},"
+          f" [2, 1] data ranks (gloo, sharing this card) vs one process: "
+          f"rank 0 {texts[0]}; rank 1 {texts[1]}; ranks' launches "
+          f"{[l['launches'] for l in dp_lines]}; step ms per rank "
+          f"{[round(l['step_ms'], 3) for l in dp_lines]} (ranks sharing one "
+          f"card, not a scaling figure) vs {ref_ms_dp:.3f} one process; "
+          f"peak GiB per rank "
+          f"{[round(l['peak_gib'], 3) for l in dp_lines]} vs "
+          f"{ref_peak:.3f} | {card}")
+
+    # 18c: SEQPAR_CONFIG through the Trainer, then the fp32 step, sound
+    # and with each planted fault
+    ref_loss, ref_grads, _, ref_ms, ref_peak = parallel_step(settings, T_PAD)
+    world = SEQPAR_MESH[0] * SEQPAR_MESH[1]
+    cdir = os.path.join(workdir, "c")
+    os.makedirs(cdir)
+    clips = PARALLEL_STEPS * N_WINDOWS
+    for split, n in (("train", clips), ("val", N_WINDOWS)):
+        write_split(cdir, split, *synthetic_batch(rng, n, T_WINDOW))
+    lines, results = run_ranks("seqpar", world, cdir, settings)
+    expect = {k: PER_STEP[k] * PARALLEL_STEPS + PER_EVAL_FORWARD.get(k, 0)
+              for k in PER_STEP}
+    texts = []
+    caught = {fault: [] for fault in PLANTED_FAULTS}
+    for line, res in zip(lines, results):
+        rank = line["rank"]
+        if (line["activation_dtype"] != "bfloat16"
+                or line["mesh"] != [*SEQPAR_MESH, 1]):
+            fail(f"18c rank {rank}: not bf16 on {SEQPAR_MESH}: {line}")
+        if line["launches"] != expect or line["step_launches"] != PER_STEP:
+            fail(f"18c rank {rank} launches {line['launches']} / step "
+                 f"{line['step_launches']} != {expect} / {PER_STEP}")
+        if (line["losses"] != lines[0]["losses"]
+                or len(line["losses"]) != PARALLEL_STEPS
+                or not np.isfinite(line["losses"]).all()):
+            fail(f"18c rank {rank} losses {line['losses']}")
+        for key, value in res["state"].items():
+            if not np.array_equal(value, results[0]["state"][key]):
+                fail(f"18c rank {rank}: {key} differs from rank 0's")
+        mesh = Mesh(*SEQPAR_MESH, rank)
+        texts.append(compare_step(f"18c rank {rank}", line["loss"],
+                                  res["grads"], ref_loss, ref_grads, mesh,
+                                  True))
+        for fault in PLANTED_FAULTS:
+            r = step_readings(line[f"loss:{fault}"], res[f"grads:{fault}"],
+                              ref_loss, ref_grads, mesh, True)
+            caught[fault].append((r, broken_gates(r)))
+    saved = os.listdir(os.path.join(cdir, "save",
+                                    "mediapipe_ShiftGCN_joint_seqpar"))
+    with open(os.path.join(cdir, "work", "mediapipe_ShiftGCN_joint_seqpar",
+                           "eval_results", "best_acc.pkl"), "rb") as f:
+        scored = len(pickle.load(f))
+    if len(saved) != 1 or scored != N_WINDOWS:
+        fail(f"18c: checkpoints {saved}, {scored} clips scored")
+    print(f"[parallel] 18c: Trainer.start() on {SEQPAR_CONFIG} (bf16, batch "
+          f"{N_WINDOWS}, T={T_WINDOW} padded to {T_PAD}) at mesh "
+          f"{list(SEQPAR_MESH)} (the one cut: [4, 2] needs 8 ranks), "
+          f"{world} gloo ranks sharing this card, {PARALLEL_STEPS} steps + "
+          f"eval + save: losses {lines[0]['losses']} and parameters equal "
+          f"on every rank, checkpoint {saved[0]}, {scored} clips scored; "
+          f"launches per rank {[l['launches'] for l in lines]}; wall s "
+          f"{[round(l['wall_s'], 1) for l in lines]}, peak GiB per rank "
+          f"{[round(l['trainer_peak_gib'], 3) for l in lines]} | {card}")
+    print(f"[parallel] 18c: one fp32 step, {N_WINDOWS} clips x T={T_PAD}, "
+          f"each rank on its rows and frames vs the unsharded step: "
+          + "; ".join(f"rank {r} {text}" for r, text in enumerate(texts))
+          + f"; step ms per rank {[round(l['step_ms'], 3) for l in lines]} "
+          f"(ranks sharing one card, not a scaling figure) vs {ref_ms:.3f} "
+          f"one process; peak GiB per rank "
+          f"{[round(l['peak_gib'], 3) for l in lines]} vs {ref_peak:.3f} | "
+          f"{card}")
+    for fault, per_rank in caught.items():
+        if not any(broken for _, broken in per_rank):
+            fail(f"18c: the planted fault {fault} passed every gate: "
+                 + "; ".join(readings_text(r) for r, _ in per_rank))
+        worst = max(per_rank, key=lambda item: len(item[1]))
+        print(f"[parallel] 18c planted fault {fault}: caught on ranks "
+              f"{[r for r, (_, b) in enumerate(per_rank) if b]} of {world};"
+              f" {readings_text(worst[0])}; broken: "
+              f"{'; '.join(worst[1])} | {card}")
+    return {"dp_ms": [line["step_ms"] for line in dp_lines],
+            "seqpar_ms": [line["step_ms"] for line in lines],
+            "one_ms": (ref_ms, ref_ms_dp)}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    # a rank process of phase 18, started by run_ranks
+    for flag in ("--rank-job", "--workdir", "--settings"):
+        ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
+    for flag in ("--rank", "--world", "--port"):
+        ap.add_argument(flag, type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.rank_job:
+        rank_main(args)
+        return
 
     if not torch.cuda.is_available():
         fail("CUDA is not available: this script runs only on a GPU")
@@ -2812,6 +3547,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         family_ms = run_families(rng, dev, workdir, card)
 
+    # 18. data and sequence parallelism ------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        par = run_parallel(rng, dev, workdir, card, args.seed)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -2833,7 +3572,7 @@ def main() -> None:
           f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
           "the Trainer run, the fused kernel's library_ms the sum of two "
           "calls, K6's that of index_select x2 + bmm + three reductions; "
-          "summary: phases 6, 8, 9, 10, 12, 13 and 14")
+          "summary: phases 6, 8, 9, 10, 12, 13, 14, 16, 17 and 18")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -2856,7 +3595,11 @@ def main() -> None:
           f"{ntu_batch} step/fwd {ntu_step:.4g}/{ntu_fwd:.4g}, peak "
           f"{ntu_peak:.3g} GiB; step ST-GCN {family_ms['stgcn']:.4g}, "
           f"embed16 {family_ms['stgcn_embed16']:.4g}, ring-GNN "
-          f"{family_ms['ring_gnn']:.4g}")
+          f"{family_ms['ring_gnn']:.4g}; fp32 step ms on ranks sharing "
+          f"the card, [2,1] " + "/".join(f"{v:.4g}" for v in par["dp_ms"])
+          + f" vs {par['one_ms'][1]:.4g}, [2,2] T={T_PAD} "
+          + "/".join(f"{v:.4g}" for v in par["seqpar_ms"])
+          + f" vs {par['one_ms'][0]:.4g}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -10,6 +10,21 @@ thread.  With ``native=True`` the feeder gathers unaugmented full clips
 through the native loader (``data/native_loader.py``), which raises
 when it cannot be built or cannot open the data: there is no numpy
 fallback, unlike the reference package's feeder.
+
+``pad_to_frames`` pads every clip's time axis with empty frames (zeros,
+or (0 - mean) / std under ``normalization``), e.g. T=300 to 304 for
+sequence parallelism (``parallel/seqpar.py``).
+
+Host sharding (``BatchIterator(host_id=, num_hosts=)``), as the
+reference package's: each host takes a contiguous shard of the epoch's
+permutation, floor(n / hosts) samples in training (every host runs the
+same step count) and ceil(n / hosts) in eval (every sample on exactly
+one host; a short last shard pads with mask-0 entries, fully padded
+batches included), and draws its augmentations from its own stream.
+A host of the reference package is a node of a multi-process run here
+(``LOCAL_WORLD_SIZE`` ranks), and ``batch_size`` is that node's batch,
+split over its data ranks (``parallel/mesh.py``); with one node,
+``batch_size`` is the global batch.
 """
 
 from __future__ import annotations
@@ -44,6 +59,7 @@ class Feeder:
         debug: bool = False,
         native: bool = False,
         native_threads: int = 4,
+        pad_to_frames: int = 0,
     ):
         self.data_path = data_path
         self.label_path = label_path
@@ -52,6 +68,7 @@ class Feeder:
         self.random_move = random_move
         self.window_size = window_size
         self.normalization = normalization
+        self.pad_to_frames = pad_to_frames
 
         with open(label_path, "rb") as f:
             try:
@@ -83,7 +100,8 @@ class Feeder:
         return (self.native_loader is not None
                 and not (self.normalization or self.random_shift
                          or self.random_choose or self.random_move
-                         or self.window_size > 0))
+                         or self.window_size > 0
+                         or self.pad_to_frames > 0))
 
     def _compute_mean_map(self) -> None:
         # reference: feeders/feeder.py:62-66
@@ -111,6 +129,17 @@ class Feeder:
             sample = aug.auto_pad(sample, self.window_size)
         if self.random_move and rng is not None:
             sample = aug.random_move(sample, rng)
+        if self.pad_to_frames > sample.shape[1]:
+            c, t, v, m = sample.shape
+            shape = (c, self.pad_to_frames - t, v, m)
+            if self.normalization:
+                # an empty frame after normalization is (0 - mean) / std
+                fill = np.broadcast_to(
+                    (-self.mean_map / self.std_map).astype(sample.dtype),
+                    shape)
+            else:
+                fill = np.zeros(shape, sample.dtype)
+            sample = np.concatenate([sample, fill], axis=1)
         return sample.astype(np.float32)
 
     def top_k(self, score: np.ndarray, k: int) -> float:
@@ -122,39 +151,63 @@ class Feeder:
 
 
 class BatchIterator:
-    """Deterministic batch iterator.
+    """Deterministic, host-sharded batch iterator.
 
-    Each epoch draws a permutation from seed + 1000003 * epoch and the
-    augmentations from seed + 7919 * epoch (the reference package's
-    single-host streams).  With drop_last=False the final short batch is
-    zero-padded to the batch size and a validity mask is emitted.
+    Each epoch draws a permutation from seed + 1000003 * epoch, takes this
+    host's shard of it (see the module docstring), and draws the
+    augmentations from seed + 7919 * epoch + 104729 * host_id (the
+    reference package's streams).  With drop_last=False the final short
+    batch is zero-padded to the batch size and a validity mask is
+    emitted.
     """
 
     def __init__(self, feeder: Feeder, batch_size: int, *,
                  shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 1):
+                 seed: int = 1, host_id: int = 0, num_hosts: int = 1):
         self.feeder = feeder
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.drop_last = drop_last
         self.seed = seed
+        self.host_id = host_id
+        self.num_hosts = num_hosts
+
+    def _host_quota(self) -> int:
+        """Samples per host: floor in training, ceil in eval."""
+        n = len(self.feeder)
+        if self.num_hosts <= 1:
+            return n
+        if self.drop_last:
+            return n // self.num_hosts
+        return -(-n // self.num_hosts)
 
     def _epoch_indices(self, epoch: int) -> np.ndarray:
         n = len(self.feeder)
         if self.shuffle:
-            return np.random.default_rng(
+            order = np.random.default_rng(
                 self.seed + 1000003 * epoch).permutation(n)
-        return np.arange(n)
+        else:
+            order = np.arange(n)
+        quota = self._host_quota()
+        return order[self.host_id * quota:(self.host_id + 1) * quota]
 
     def batches_per_epoch(self) -> int:
-        n = len(self.feeder)
+        # from the quota, so that a short last shard steps in lockstep
+        quota = self._host_quota()
         if self.drop_last:
-            return n // self.batch_size
-        return -(-n // self.batch_size)
+            return quota // self.batch_size
+        return -(-quota // self.batch_size)
 
     def _make_batch(
         self, idx: np.ndarray, rng: np.random.Generator
     ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        if len(idx) == 0:
+            # a fully padded batch: this host's eval shard ran out
+            probe = self.feeder.get(0, rng)
+            return (np.zeros((self.batch_size,) + probe.shape, np.float32),
+                    np.zeros(self.batch_size, np.int32),
+                    np.full(self.batch_size, -1, np.int32),
+                    np.zeros(self.batch_size, np.float32))
         if self.feeder.supports_native_batch():
             data = self.feeder.native_loader.gather(idx)
         else:
@@ -175,7 +228,8 @@ class BatchIterator:
             Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
         """Yield (data, label, index, mask) batches."""
         order = self._epoch_indices(epoch)
-        rng = np.random.default_rng(self.seed + 7919 * epoch)
+        rng = np.random.default_rng(
+            self.seed + 7919 * epoch + 104729 * self.host_id)
         for b in range(self.batches_per_epoch()):
             idx = order[b * self.batch_size:(b + 1) * self.batch_size]
             yield self._make_batch(idx, rng)

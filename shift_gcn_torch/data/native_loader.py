@@ -121,7 +121,11 @@ class NativeClipLoader:
         return out
 
     def prefetch(self, indices: np.ndarray) -> None:
-        """Start an asynchronous gather; retrieve it with wait()."""
+        """Start an asynchronous gather; retrieve it with wait().  Raises
+        while an earlier prefetch has not been waited for, finished or
+        not: its buffer is still the caller's to take."""
+        if self._pending is not None:
+            raise RuntimeError("a prefetch is already outstanding")
         rc, idx, out = self._call(self._lib.sgt_prefetch, indices)
         if rc == -1:
             raise RuntimeError("a prefetch is already outstanding")

@@ -170,6 +170,17 @@ def stream(x: torch.Tensor) -> int:
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def launch(source: str, symbol: str, x: torch.Tensor, *args) -> int:
+    """Call ``symbol`` of ``csrc/<source>.cu`` with ``args`` and x's
+    current stream, with x's card as the current device: the launchers
+    size their grids from the current device's properties
+    (``cudaGetDevice``), which must be the card the tensors are on
+    whatever the calling thread's current device is.  Returns the CUDA
+    status."""
+    with torch.cuda.device(x.device):
+        return getattr(library(source), symbol)(*args, stream(x))
+
+
 def check(status: int, kernel: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if status != 0:

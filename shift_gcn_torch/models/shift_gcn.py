@@ -28,6 +28,12 @@ among the reference's XLA formulations, which the kernels replace.
 (``temporal_linear`` and the down convs) to that type; the residual
 temporal conv and the fused spatial kernel ignore it, as the reference's
 conv and Pallas paths do.
+
+Data and sequence parallelism (``parallel/seqpar.py``): ``attach`` sets
+each BN's ``group`` (sync BN), each ``ShiftTCN``'s ``mesh`` (the
+constraint's reduction) and ``shard_time`` (the shifts on halo-extended
+T shards, ``parallel/halo.py``), and ``Model.mesh`` under
+``shard_time``, whose time ranks the final pooling is averaged over.
 """
 
 from __future__ import annotations
@@ -47,6 +53,7 @@ from shift_gcn_torch.ops.lowering import Lowering
 from shift_gcn_torch.ops.lowering import from_dict as lowering_from_dict
 from shift_gcn_torch.ops.lowering import resolve as resolve_lowering
 from shift_gcn_torch.ops.spatial_shift import flat_shift_index
+from shift_gcn_torch.parallel import comm, halo
 from shift_gcn_torch.utils.device import pin_fp32_math, resolve_device
 
 
@@ -160,27 +167,37 @@ class ShiftTCN(nn.Module):
 
     def __init__(self, channels: int, stride: int,
                  compute_dtype: Optional[torch.dtype] = None,
-                 exact_xpos: bool = False):
+                 exact_xpos: bool = False,
+                 max_shift: int = temporal_shift.DEFAULT_MAX_SHIFT):
         super().__init__()
         self.stride = stride
         self.compute_dtype = compute_dtype
         self.exact_xpos = exact_xpos
+        self.max_shift = max_shift
+        self.mesh = None          # set by parallel.seqpar.attach
+        self.shard_time = False
         self.bn = BatchNorm(channels)
         self.bn2 = BatchNorm(channels)
         self.shift_in = Shift(channels)
         self.shift_out = Shift(channels)
         self.temporal_linear = Conv(channels, channels)
 
+    def _shift(self, h: torch.Tensor, shift: Shift,
+               stride: int) -> torch.Tensor:
+        if self.shard_time:
+            return halo.sharded_temporal_shift(
+                h, shift.ypos, stride, self.mesh, self.max_shift,
+                xpos=shift.xpos, exact_xpos=self.exact_xpos)
+        return temporal_shift.temporal_shift(
+            h, shift.ypos, stride, xpos=shift.xpos,
+            exact_xpos=self.exact_xpos, mesh=self.mesh)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = temporal_shift.temporal_shift(self.bn(x), self.shift_in.ypos, 1,
-                                          xpos=self.shift_in.xpos,
-                                          exact_xpos=self.exact_xpos)
+        h = self._shift(self.bn(x), self.shift_in, 1)
         h = pointwise_conv(h, self.temporal_linear.weight,
                            self.temporal_linear.bias, self.compute_dtype)
         h = torch.relu(h)
-        h = temporal_shift.temporal_shift(h, self.shift_out.ypos, self.stride,
-                                          xpos=self.shift_out.xpos,
-                                          exact_xpos=self.exact_xpos)
+        h = self._shift(h, self.shift_out, self.stride)
         return self.bn2(h)
 
 
@@ -203,7 +220,8 @@ class TCNGCNUnit(nn.Module):
 
     def __init__(self, spec: BlockSpec, v: int,
                  compute_dtype: Optional[torch.dtype] = None,
-                 exact_xpos: bool = False):
+                 exact_xpos: bool = False,
+                 max_shift: int = temporal_shift.DEFAULT_MAX_SHIFT):
         super().__init__()
         self.residual_kind = (
             "none" if not spec.residual
@@ -213,7 +231,7 @@ class TCNGCNUnit(nn.Module):
         self.gcn1 = ShiftGCN(spec.in_channels, spec.out_channels, v,
                              compute_dtype)
         self.tcn1 = ShiftTCN(spec.out_channels, spec.stride, compute_dtype,
-                             exact_xpos)
+                             exact_xpos, max_shift)
         if self.residual_kind == "conv":
             self.residual = ResidualTCN(spec.in_channels, spec.out_channels,
                                         spec.stride)
@@ -249,12 +267,14 @@ class Model(nn.Module):
         self.data_bn = BatchNorm(config.num_person * config.in_channels * v)
         for i, spec in enumerate(config.blocks):
             self.add_module(f"l{i + 1}", TCNGCNUnit(
-                spec, v, config.dtype, self.lowering.exact_xpos))
+                spec, v, config.dtype, self.lowering.exact_xpos,
+                self.lowering.max_shift))
         self.fc = Linear(config.blocks[-1].out_channels, config.num_class)
         for module in self.modules():
             if isinstance(module, BatchNorm):
                 module.lp_train = self.lowering.bn_lp
                 module.lp_eval = self.lowering.bn_lp_eval
+        self.mesh = None  # the time ranks under shard_time (seqpar.attach)
         self.register_load_state_dict_post_hook(_check_shift_range)
         self.to(device)
         self.eval()
@@ -324,6 +344,9 @@ class Model(nn.Module):
         # mean over (T', V) then persons, in fp32 whatever the activations
         feat = h.shape[-1]
         h = h.float().reshape(n, m, -1, feat).mean(dim=2).mean(dim=1)
+        if self.mesh is not None:
+            # equal T' shards: the global mean is the mean of shard means
+            h = comm.all_reduce_mean(h, self.mesh.time_group)
         return h @ self.fc.weight.t() + self.fc.bias
 
 

@@ -24,12 +24,22 @@ move with momentum 0.1 toward the batch mean and the unbiased variance,
 and ``num_batches_tracked`` counts the batch (PyTorch's BatchNorm
 semantics).  Gradients come from autograd through these stock ops, as
 the reference package takes them from autodiff.
+
+Sync BN: with a process ``group`` (``BatchNorm.group``, set by
+``parallel.seqpar.attach``) the train-mode E[x] and E[x^2] are averaged
+over the group's ranks, whose shards are of equal size, before the
+variance is taken, the count for the unbiased running variance is
+multiplied by the group size, and the backward averages the statistics'
+cotangents over the group (``parallel.comm.all_reduce_mean``): the
+reference's ``_batch_stats`` with ``pmean`` over ``axis_name``.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from shift_gcn_torch.parallel import comm
 
 
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -73,16 +83,24 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
                      running_var: torch.Tensor,
                      num_batches_tracked: torch.Tensor, *,
                      feature_dims: int = 1, momentum: float = 0.1,
-                     eps: float = 1e-5, lp: bool = False) -> torch.Tensor:
+                     eps: float = 1e-5, lp: bool = False,
+                     group=None) -> torch.Tensor:
     """Normalize x by its batch statistics over every axis but the
-    trailing ``feature_dims``, and update the running statistics in
-    place."""
+    trailing ``feature_dims`` (and over the ranks of ``group``), and
+    update the running statistics in place."""
     dims = tuple(range(x.dim() - feature_dims))
     shape = x.shape[x.dim() - feature_dims:]
     x32 = x.to(stat_dtype(x.dtype))
-    mean = x32.mean(dims)
-    var = (x32 * x32).mean(dims) - mean * mean  # biased
-    n = x.numel() // mean.numel()
+    # E[x] and E[x^2] in one tensor, reduced over the group in one call;
+    # the same graph with and without a group, so a group of one rank
+    # gives the same bits
+    stats = torch.stack([x32.mean(dims), (x32 * x32).mean(dims)])
+    n = x.numel() // stats[0].numel()
+    if group is not None:
+        stats = comm.all_reduce_mean(stats, group)
+        n *= torch.distributed.get_world_size(group)
+    mean, mean_sq = stats.unbind(0)
+    var = mean_sq - mean * mean  # biased
     with torch.no_grad():
         unbiased = var * (n / max(n - 1, 1))
         running_mean.copy_((1 - momentum) * running_mean
@@ -106,6 +124,7 @@ class BatchNorm(nn.Module):
         self.feature_dims = feature_dims
         self.lp_train = False
         self.lp_eval = True
+        self.group = None  # sync BN's process group (parallel/seqpar.py)
         self.weight = nn.Parameter(torch.ones(num_features))
         self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
@@ -118,7 +137,8 @@ class BatchNorm(nn.Module):
             return batch_norm_train(
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, self.num_batches_tracked,
-                feature_dims=self.feature_dims, lp=self.lp_train)
+                feature_dims=self.feature_dims, lp=self.lp_train,
+                group=self.group)
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, feature_dims=self.feature_dims,
                           lp=self.lp_eval)

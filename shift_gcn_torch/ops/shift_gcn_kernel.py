@@ -79,10 +79,10 @@ def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
     if r * v * max(c, d) >= 2 ** 31:
         raise ValueError("shift_gcn: tensor too large for 32-bit indexing")
     out = torch.empty((r, v, d), dtype=x.dtype, device=x.device)
-    status = kernels.library("shift_gcn").shift_gcn_forward(
-        x.data_ptr(), gate.data_ptr(), w.data_ptr(), bias.data_ptr(),
-        out.data_ptr(), r, v, c, d, int(x.dtype == torch.bfloat16),
-        kernels.stream(x))
+    status = kernels.launch(
+        "shift_gcn", "shift_gcn_forward", x, x.data_ptr(), gate.data_ptr(),
+        w.data_ptr(), bias.data_ptr(), out.data_ptr(), r, v, c, d,
+        int(x.dtype == torch.bfloat16))
     kernels.check(status, "shift_gcn")
     kernels.LAUNCHES["shift_gcn"] += 1
     return out
@@ -101,9 +101,10 @@ def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor,
         raise ValueError("shift_gcn_dx: tensor too large for 32-bit "
                          "indexing")
     dx = torch.empty((r, v, c), dtype=g.dtype, device=g.device)
-    status = kernels.library("shift_gcn").shift_gcn_dx(
-        g.data_ptr(), gate.data_ptr(), w.data_ptr(), dx.data_ptr(), r, v, c,
-        d, int(g.dtype == torch.bfloat16), kernels.stream(g))
+    status = kernels.launch(
+        "shift_gcn", "shift_gcn_dx", g, g.data_ptr(), gate.data_ptr(),
+        w.data_ptr(), dx.data_ptr(), r, v, c, d,
+        int(g.dtype == torch.bfloat16))
     kernels.check(status, "shift_gcn_dx")
     kernels.LAUNCHES["shift_gcn_dx"] += 1
     return dx
@@ -152,11 +153,11 @@ def shift_gcn_wgrad(x: torch.Tensor, g: torch.Tensor, gate: torch.Tensor,
     dgate = torch.empty((v, c), dtype=torch.float32, device=x.device)
     dw = torch.empty((c, d), dtype=torch.float32, device=x.device)
     dbias = torch.empty((d,), dtype=torch.float32, device=x.device)
-    status = lib.shift_gcn_wgrad(
-        x.data_ptr(), g.data_ptr(), gate.data_ptr(), w.data_ptr(),
-        partial.data_ptr(), scratch, dgate.data_ptr(), dw.data_ptr(),
-        dbias.data_ptr(), r, v, c, d, parts, chunk,
-        int(x.dtype == torch.bfloat16), kernels.stream(x))
+    status = kernels.launch(
+        "shift_gcn", "shift_gcn_wgrad", x, x.data_ptr(), g.data_ptr(),
+        gate.data_ptr(), w.data_ptr(), partial.data_ptr(), scratch,
+        dgate.data_ptr(), dw.data_ptr(), dbias.data_ptr(), r, v, c, d, parts,
+        chunk, int(x.dtype == torch.bfloat16))
     kernels.check(status, "shift_gcn_wgrad")
     kernels.LAUNCHES["shift_gcn_wgrad"] += 1
     return dgate, dw, dbias

@@ -20,6 +20,11 @@ The backward is the reference's constraint backward, not the derivative:
   exactly 0 (``constraint_step``);
 - xpos gets a zero gradient.
 
+Under data parallelism (``mesh``, ``parallel/mesh.py``) gy_raw is first
+averaged over the data ranks (``Mesh.reduce_position_grad``), so the
+constraint steps on the sign of the global batch's gradient, the same
+step on every rank; ``parallel/halo.py`` runs the shift on T shards.
+
 On the card K1 is one tiled pass that stages the input frames a tile
 reads in shared memory and writes each output once, in the same fp32
 rounding steps as its plain version (``temporal_shift_reference``), so
@@ -192,9 +197,10 @@ def temporal_shift_forward(x: torch.Tensor, ypos: torch.Tensor,
     n, t_in, v, c = x.shape
     t_out = t_in // stride
     out = torch.empty((n, t_out, v, c), dtype=x.dtype, device=x.device)
-    status = kernels.library("temporal_shift").temporal_shift_forward(
-        x.data_ptr(), ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c,
-        stride, int(x.dtype == torch.bfloat16), kernels.stream(x))
+    status = kernels.launch(
+        "temporal_shift", "temporal_shift_forward", x, x.data_ptr(),
+        ypos.data_ptr(), out.data_ptr(), n, t_in, t_out, v, c, stride,
+        int(x.dtype == torch.bfloat16))
     kernels.check(status, "temporal_shift")
     kernels.LAUNCHES["temporal_shift"] += 1
     return out
@@ -232,10 +238,11 @@ def _launch_backward(x: Optional[torch.Tensor], g: torch.Tensor,
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    status = lib.temporal_shift_backward(
+    status = kernels.launch(
+        "temporal_shift", "temporal_shift_backward", g,
         ptr(x) if want_gy else None, g.data_ptr(), ypos.data_ptr(), ptr(dx),
         ptr(partial), ptr(gy), n, t_in, t_out, v, c, stride,
-        int(g.dtype == torch.bfloat16), kernels.stream(g))
+        int(g.dtype == torch.bfloat16))
     kernels.check(status, name)
     kernels.LAUNCHES[name] += 1
     return dx, gy
@@ -281,12 +288,14 @@ def temporal_shift_position_grad(x: torch.Tensor, g: torch.Tensor,
 
 class TemporalShiftFunction(torch.autograd.Function):
     """Forward K1; backward K2 (grad_input) and K3 + ``constraint_step``
-    (ypos), in one fused launch when both are needed, and a zero xpos
+    (ypos, on gy_raw reduced over ``mesh``'s ranks when one is given),
+    in one fused launch when both are needed, and a zero xpos
     gradient."""
 
     @staticmethod
-    def forward(ctx, x, xpos, ypos, stride):
+    def forward(ctx, x, xpos, ypos, stride, mesh=None):
         ctx.stride = stride
+        ctx.mesh = mesh
         ctx.save_for_backward(x, ypos)
         ctx.xpos_meta = (None if xpos is None
                          else (xpos.shape, xpos.dtype, xpos.device))
@@ -306,11 +315,13 @@ class TemporalShiftFunction(torch.autograd.Function):
         elif want_ypos:
             gy_raw = temporal_shift_position_grad(x, g, ypos, ctx.stride)
         if gy_raw is not None:
+            if ctx.mesh is not None:
+                gy_raw = ctx.mesh.reduce_position_grad(gy_raw)
             grad_ypos = constraint_step(gy_raw)
         if want_xpos:
             shape, dtype, device = ctx.xpos_meta
             grad_xpos = torch.zeros(shape, dtype=dtype, device=device)
-        return grad_x, grad_xpos, grad_ypos, None
+        return grad_x, grad_xpos, grad_ypos, None, None
 
 
 def joint_pass(x: torch.Tensor, xpos: torch.Tensor) -> torch.Tensor:
@@ -331,18 +342,19 @@ def joint_pass(x: torch.Tensor, xpos: torch.Tensor) -> torch.Tensor:
 
 def temporal_shift(x: torch.Tensor, ypos: torch.Tensor, stride: int = 1,
                    xpos: Optional[torch.Tensor] = None,
-                   exact_xpos: bool = False) -> torch.Tensor:
+                   exact_xpos: bool = False, mesh=None) -> torch.Tensor:
     """(N, T, V, C) -> (N, T // stride, V, C); see the module docstring.
     Without ``exact_xpos``, ``xpos`` is read by no arithmetic; with it,
     ``joint_pass`` reads it detached.  Passed, it receives the zero
-    gradient."""
+    gradient.  ``mesh``: the data-parallel ranks whose gy_raw the
+    constraint reduces."""
     if exact_xpos:
         if xpos is None:
             raise ValueError("exact_xpos needs xpos")
         x = joint_pass(x, xpos.detach())
     if torch.is_grad_enabled() and any(
             t is not None and t.requires_grad for t in (x, xpos, ypos)):
-        return TemporalShiftFunction.apply(x, xpos, ypos, stride)
+        return TemporalShiftFunction.apply(x, xpos, ypos, stride, mesh)
     return torch.ops.shift_gcn_torch.temporal_shift(x, ypos, stride)
 
 

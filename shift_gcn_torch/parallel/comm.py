@@ -1,0 +1,68 @@
+"""Collectives for the parallel modes, and their autograd rules.
+
+Every collective here runs on any backend: NCCL with CUDA tensors, gloo
+with CPU tensors, and gloo with CUDA tensors (several ranks sharing one
+card), which goes through host memory because gloo does not move CUDA
+tensors in every collective.  bf16 tensors are gathered as bytes (a
+gather copies, so any type of the same width carries them).
+
+``all_reduce_mean`` is differentiable: the forward averages over the
+group, and the backward averages the ranks' cotangents too, the adjoint
+of a mean of per-rank inputs when every rank back-propagates its own
+part of one objective shared by all ranks (``seqpar.py`` says which).
+Sync BN's statistics and, under sequence parallelism, the final
+temporal pooling take it.
+"""
+
+from __future__ import annotations
+
+from typing import List
+
+import torch
+import torch.distributed as dist
+
+
+def _through_host(t: torch.Tensor, group) -> bool:
+    return t.is_cuda and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def all_reduce_sum_(t: torch.Tensor, group) -> torch.Tensor:
+    """Sum ``t`` over the group in place; returns ``t``."""
+    if _through_host(t, group):
+        host = t.cpu()
+        dist.all_reduce(host, group=group)
+        t.copy_(host)
+    else:
+        dist.all_reduce(t, group=group)
+    return t
+
+
+def all_gather(t: torch.Tensor, group) -> List[torch.Tensor]:
+    """Every rank's ``t`` (same shape and type on all), in group rank
+    order, on ``t``'s device."""
+    t = t.contiguous()
+    src = t.view(torch.uint8) if t.dtype == torch.bfloat16 else t
+    if _through_host(t, group):
+        src = src.cpu()
+    out = [torch.empty_like(src) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(out, src, group=group)
+    if t.dtype == torch.bfloat16:
+        out = [o.view(torch.bfloat16) for o in out]
+    return [o.to(t.device) for o in out]
+
+
+class _AllReduceMean(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum_(x.clone(), group) / dist.get_world_size(group)
+
+    @staticmethod
+    def backward(ctx, g):
+        size = dist.get_world_size(ctx.group)
+        return all_reduce_sum_(g.contiguous().clone(), ctx.group) / size, None
+
+
+def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
+    """The group mean of ``x``; its backward averages the cotangents."""
+    return _AllReduceMean.apply(x, group)

@@ -1,0 +1,166 @@
+"""The ('data', 'model') mesh over the ranks of the default process
+group.
+
+The counterpart of the reference package's ``parallel/mesh.py``
+(``make_mesh``: ``np.reshape(devices, (data, model))``): rank r sits at
+(d, m) = divmod(r, M).  Every rank creates one process group per data
+coordinate (its M time ranks, ``time_group``) and one per model
+coordinate (its D data ranks, ``data_group``), in the same order, as
+``new_group`` requires.  ``mesh_shape: null`` puts every rank on
+'data'; D * M must equal the world size.  Data rank d holds batch rows
+[d B / D, (d + 1) B / D) and, under sequence parallelism, model rank m
+holds frames [m T / M, (m + 1) T / M).
+
+Batches: a node's feeder gives the node's batch (``hosts`` > 1, each
+node a shard of the epoch, as a host of the reference package), or
+every rank's feeder gives the whole batch (``hosts`` == 1, one node, or
+D == 1); a rank keeps its rows of what its feeder gave.
+
+The reductions a train step needs live here too: ``reduce_gradients``
+sums every gradient but the shift positions' over the world and divides
+by D, and ``reduce_position_grad`` sums the raw position gradient over
+the world and divides by D (a sum over the time ranks and a mean over
+the data ranks), before the constraint step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from shift_gcn_torch.parallel import comm
+
+# parameters whose step the constraint sets identically on every rank:
+# summed over the world they would be scaled, and averaged, rounded
+POSITION_SUFFIXES = (".xpos", ".ypos")
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    data: int
+    model: int
+    rank: int = 0
+    hosts: int = 1
+    world_group: Any = None
+    data_group: Any = None
+    time_group: Any = None
+
+    @property
+    def world(self) -> int:
+        return self.data * self.model
+
+    @property
+    def host(self) -> int:
+        """This rank's node among the ``hosts`` whose feeders differ
+        (ranks are numbered node by node)."""
+        return self.rank * self.hosts // self.world
+
+    @property
+    def coords(self):
+        """(d, m) of this rank."""
+        return divmod(self.rank, self.model)
+
+    def batch_rows(self, n: int) -> slice:
+        """This rank's rows of a batch of ``n`` its feeder gave."""
+        per_host = self.data // self.hosts
+        if n % per_host:
+            raise ValueError(f"batch of {n} does not split over "
+                             f"{per_host} data ranks")
+        d = self.coords[0] % per_host
+        size = n // per_host
+        return slice(d * size, (d + 1) * size)
+
+    def time_frames(self, t: int) -> slice:
+        if t % self.model:
+            raise ValueError(f"T={t} does not split over {self.model} "
+                             "time ranks")
+        m, size = self.coords[1], t // self.model
+        return slice(m * size, (m + 1) * size)
+
+    def local(self, data, shard_time: bool):
+        """This rank's rows (and, with ``shard_time``, frames) of an
+        (N, C, T, V, M) batch, numpy or torch."""
+        out = data[self.batch_rows(data.shape[0])]
+        if shard_time:
+            out = out[:, :, self.time_frames(data.shape[2])]
+        return out
+
+    def reduce_gradients(self, named_parameters) -> None:
+        """Sum the gradients of (name, parameter) pairs over the world in
+        one flat buffer and divide by D; shift positions keep their
+        (identical) constraint steps."""
+        grads = [p.grad for name, p in named_parameters
+                 if p.grad is not None
+                 and not name.endswith(POSITION_SUFFIXES)]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        comm.all_reduce_sum_(flat, self.world_group)
+        flat /= self.data
+        offset = 0
+        for g in grads:
+            g.copy_(flat[offset:offset + g.numel()].view_as(g))
+            offset += g.numel()
+
+    def reduce_position_grad(self, gy_raw: torch.Tensor) -> torch.Tensor:
+        """gy_raw summed over the time ranks and averaged over the data
+        ranks: the global batch mean of the global (T, V) sum."""
+        return comm.all_reduce_sum_(gy_raw.clone(),
+                                    self.world_group) / self.data
+
+    def mean_over_world(self, values: torch.Tensor) -> torch.Tensor:
+        """Metrics equal on every rank: the world mean."""
+        return comm.all_reduce_sum_(values.clone(),
+                                    self.world_group) / self.world
+
+    def gather_rows(self, arrays: List[Any]) -> List[Any]:
+        """Every data rank's ``arrays`` (a list of numpy arrays with
+        batch rows first), concatenated in data-rank order."""
+        got: List[Any] = [None] * self.data
+        dist.all_gather_object(got, arrays, group=self.data_group)
+        return [np.concatenate(parts) for parts in zip(*got)]
+
+    def any_rank(self, flag: bool) -> bool:
+        """Whether ``flag`` is true on any rank (the same on all)."""
+        got: List[Any] = [None] * self.world
+        dist.all_gather_object(got, bool(flag), group=self.world_group)
+        return any(got)
+
+    def barrier(self) -> None:
+        if self.world_group is not None:
+            dist.barrier(group=self.world_group)
+
+
+def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
+              nodes: int = 1) -> Mesh:
+    """The mesh of the default process group (a one-rank mesh without
+    one) over ``nodes`` nodes: when several nodes feed D > 1 data ranks,
+    each node's feeder gives its shard of the epoch (``hosts`` = nodes);
+    otherwise every feeder gives the whole batch (``hosts`` = 1)."""
+    initialized = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialized else 1
+    data, model = (world, 1) if not mesh_shape else (
+        int(mesh_shape[0]), int(mesh_shape[1]))
+    if data < 1 or model < 1 or data * model != world:
+        raise ValueError(
+            f"mesh_shape {list(mesh_shape or [])} needs {data * model} "
+            f"processes, one per GPU, and this run has {world}: launch "
+            f"with torchrun --nproc-per-node {data * model}")
+    hosts = nodes if nodes > 1 and data > 1 else 1
+    if data % hosts:
+        raise ValueError(f"the data axis ({data}) must split over the "
+                         f"{hosts} nodes that feed it")
+    if not initialized:
+        return Mesh(data, model)
+    rank = dist.get_rank()
+    time_groups = [dist.new_group([d * model + m for m in range(model)])
+                   for d in range(data)]
+    data_groups = [dist.new_group([d * model + m for d in range(data)])
+                   for m in range(model)]
+    d, m = divmod(rank, model)
+    return Mesh(data, model, rank, hosts, dist.group.WORLD, data_groups[m],
+                time_groups[d])

@@ -7,14 +7,20 @@ here to the same values; only the default ``feeder`` and ``model``
 strings name this package's modules.  ``model`` names a family of
 ``models/registry.py`` (the reference's names and aliases resolve).
 
+The parallel modes run one process per GPU (``parallel/``): data
+parallelism, ``mesh_shape: [D, 1]`` (or none: every rank on 'data'),
+and sequence parallelism, ``mesh_shape: [D, M]`` with ``shard_time``.
 Keys this port cannot honor yet raise in ``check_supported`` (called by
-``load_config`` and the ``Trainer``), naming the key and its ROADMAP
-item: the parallel modes ``mesh_shape``, ``shard_time`` and
-``edge_partition`` (A13).  ``fourstream``, ``native_loader``,
+``load_config`` and the ``Trainer``; ``parallel.mesh.make_mesh`` holds
+D * M to the world size), naming the key and its ROADMAP item: tensor
+parallelism (``mesh_shape`` with M > 1 and no ``shard_time``, A13b)
+and ``edge_partition`` (A13c).  ``fourstream``, ``native_loader``,
 ``device_guard``, ``lowering`` (merged over ``model_args.lowering``,
 ``ops/lowering.py``), ``compute_dtype`` and ``activation_dtype`` are read
 by the Trainer.  Keys that only tune the reference package's compiler or
-device (``sync_bn``, ``donate_state``, ``remat``, ``use_pallas``,
+device (``sync_bn``: BN is always synchronized over the ranks, as the
+reference's jit makes it global; ``donate_state``, ``remat``,
+``use_pallas``,
 ``profile_dir``, ``profile_steps``, ``debug_nans``, ``num_worker``,
 ``edge_strategy``) and the reference's ``device`` GPU ids change no
 result here and are read by nothing; ``optimizer``,
@@ -88,9 +94,9 @@ class ExperimentConfig:
                                             # else float32), 'bfloat16' or
                                             # 'float32'; cast back to fp32
                                             # on the device
-    mesh_shape: Optional[List[int]] = None  # (refused)
-    shard_time: bool = False                # (refused)
-    edge_partition: bool = False            # (refused)
+    mesh_shape: Optional[List[int]] = None  # [D, M]: data x time ranks
+    shard_time: bool = False                # T over the M 'model' ranks
+    edge_partition: bool = False            # (refused: A13c)
     edge_strategy: str = "gather"
     sync_bn: bool = True
     donate_state: bool = True
@@ -118,17 +124,33 @@ class ExperimentConfig:
 
 def check_supported(cfg: ExperimentConfig) -> None:
     """Raise ValueError naming the first key this port cannot honor yet
-    and the ROADMAP item that will."""
-    refused = (
-        ("mesh_shape", cfg.mesh_shape, "A13 (parallel modes)"),
-        ("shard_time", cfg.shard_time, "A13 (parallel modes)"),
-        ("edge_partition", cfg.edge_partition, "A13 (parallel modes)"),
-    )
-    for key, value, item in refused:
-        if value:
+    and the ROADMAP item that will, or a parallel layout that cannot
+    run: ``shard_time`` without M >= 2 time ranks or with
+    ``fourstream``.  (``parallel.mesh.make_mesh`` holds D * M to the
+    world size.)"""
+    if cfg.edge_partition:
+        _refuse("edge_partition", cfg, "A13c (edge partition)")
+    # --mesh_shape with no value clears the mesh
+    mesh = [int(a) for a in cfg.mesh_shape or []] or None
+    if mesh is not None:
+        if len(mesh) != 2 or min(mesh) < 1:
+            raise ValueError(f"mesh_shape {mesh!r}: expected [data, model] "
+                             "with both >= 1")
+        if mesh[1] > 1 and not cfg.shard_time:
+            _refuse("mesh_shape", cfg, "A13b (tensor parallelism)")
+    if cfg.shard_time:
+        if mesh is None or mesh[1] < 2:
             raise ValueError(
-                f"config key {key!r} ({getattr(cfg, key)!r}) is not "
-                f"supported by shift_gcn_torch yet: ROADMAP {item}")
+                "config key 'shard_time' needs mesh_shape [data, model] "
+                "with model >= 2 (the 'model' ranks hold the T shards)")
+        if cfg.fourstream:
+            raise ValueError("config key 'shard_time' is not supported with "
+                             "fourstream, as in the reference trainer")
+
+
+def _refuse(key: str, cfg: ExperimentConfig, item: str) -> None:
+    raise ValueError(f"config key {key!r} ({getattr(cfg, key)!r}) is not "
+                     f"supported by shift_gcn_torch yet: ROADMAP {item}")
 
 
 def _coerce(value: str, current: Any) -> Any:

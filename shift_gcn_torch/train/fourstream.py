@@ -73,15 +73,17 @@ def create_models(config: ModelConfig, seed: int, device="cuda",
 def train_step(models: Dict[str, Model],
                optimizers: Dict[str, torch.optim.Optimizer],
                batch: Dict[str, torch.Tensor], lr: float,
-               parents) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One SGD step of every stream on the joint batch ``batch["data"]``;
-    returns the (4,) losses and accuracies as device tensors."""
+               parents, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SGD step of every stream on the joint batch ``batch["data"]``
+    (this rank's rows under a data-parallel ``mesh``, whose reductions
+    each stream's step runs); returns the (4,) losses and accuracies as
+    device tensors."""
     data4 = derive_modalities_device(batch["data"], parents)
     losses, accs = [], []
     for i, stream in enumerate(STREAMS):
         loss, acc = state_lib.train_step(
             models[stream], optimizers[stream],
-            {"data": data4[i], "label": batch["label"]}, lr)
+            {"data": data4[i], "label": batch["label"]}, lr, mesh=mesh)
         losses.append(loss)
         accs.append(acc)
     return torch.stack(losses), torch.stack(accs)

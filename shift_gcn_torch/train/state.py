@@ -6,6 +6,14 @@ cross-entropy and takes one SGD step at the given learning rate.
 ``eval_step`` runs it in eval mode (running BN statistics) and returns
 the logits with the masked NLL sum, so padded samples of the last batch
 drop out of the mean (reference: main.py:259, 493-515).
+
+Under a mesh (``parallel/``) a rank passes its own rows (and frames) to
+``train_step`` with the mesh: it back-propagates its data shard's loss
+over the M time ranks that hold the same loss, so that the ranks' parts
+add up to the sum of the shards' losses (``parallel/seqpar.py``); the
+gradients are reduced over the ranks before the SGD step
+(``Mesh.reduce_gradients``), and the loss and accuracy returned are
+their means over the ranks.
 """
 
 from __future__ import annotations
@@ -34,17 +42,21 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
-               batch: Dict[str, torch.Tensor],
-               lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
+               batch: Dict[str, torch.Tensor], lr: float,
+               mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One SGD step; returns (loss, acc) as device scalars."""
     model.train()
     set_lr(optimizer, lr)
     optimizer.zero_grad(set_to_none=True)
     logits = model(batch["data"])
     loss = cross_entropy(logits, batch["label"])
-    loss.backward()
+    (loss if mesh is None else loss / mesh.model).backward()
+    if mesh is not None:
+        mesh.reduce_gradients(model.named_parameters())
     optimizer.step()
     acc = (logits.argmax(-1) == batch["label"]).float().mean()
+    if mesh is not None:
+        loss, acc = mesh.mean_over_world(torch.stack([loss.detach(), acc]))
     return loss.detach(), acc.detach()
 
 

@@ -1,5 +1,5 @@
-"""Single-process Trainer: the reference Processor (main.py:172-546) on
-one device.
+"""Trainer: the reference Processor (main.py:172-546) on one device, or
+on one device per process of a ``torch.distributed`` run.
 
 The config's ``model`` names a family of ``models/registry.py``
 (Shift-GCN, ST-GCN, ring-GNN), which builds the model config from
@@ -33,6 +33,28 @@ copy while step b runs (``BatchTransfer``).  With bf16 transfer
 rounded to bf16 on the host, moved, and cast back to fp32 on the device
 before ``data_bn`` (and before the four-stream derivation), as the
 reference package does.
+
+Under a default process group (``cli/train.py`` initializes it under
+torchrun, SLURM or Open MPI) the run is data parallel over
+``mesh_shape`` [D, 1] (the default: every rank on 'data'), or data and
+sequence parallel over [D, M] with ``shard_time`` (``parallel/``), as
+the reference trainer's multi-process layouts (trainer.py:124-160):
+
+- every rank builds the model from the same seed and attaches the
+  mesh's collectives (sync BN, the global constraint, the T shards);
+- a node's feeders give its share of the epoch (``hosts`` > 1, when
+  several nodes feed D > 1 data ranks), or every rank's feeder gives
+  the whole batch; each rank keeps its rows (and frames) and moves only
+  those to its card;
+- eval gathers the logits, labels, indices and masks of every data
+  rank and the loss sums, so every rank scores the whole split the
+  same way; in dataset order;
+- rank 0 writes the run's files (config snapshot, checkpoints, score
+  pickles, logs) and a barrier follows each write; every rank resumes
+  from the same checkpoint and makes the same resumed-past-the-end
+  decision;
+- a device the guard finds unhealthy raises on its rank: the guard's
+  re-exec restarts one process, not a group.
 """
 
 from __future__ import annotations
@@ -50,12 +72,15 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from shift_gcn_torch.data.feeder import BatchIterator, Feeder
 from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.registry import get_model
 from shift_gcn_torch.models.shift_gcn import check_shift_range
 from shift_gcn_torch.ops import lowering as lowering_lib
+from shift_gcn_torch.parallel import launch, seqpar
+from shift_gcn_torch.parallel.mesh import make_mesh
 from shift_gcn_torch.train import config as config_lib
 from shift_gcn_torch.train import fourstream
 from shift_gcn_torch.train import state as state_lib
@@ -146,17 +171,35 @@ class BatchTransfer:
 
 class Trainer:
     def __init__(self, cfg: config_lib.ExperimentConfig, device="cuda"):
+        distributed = dist.is_available() and dist.is_initialized()
         config_lib.check_supported(cfg)
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            launch.rank_device(device) if distributed else device)
+        if distributed and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)
+        self.shard_time = bool(cfg.shard_time)
+        # raises unless mesh_shape covers the ranks (one without a group)
+        mesh = make_mesh(cfg.mesh_shape,
+                         launch.node_count() if distributed else 1)
+        # the parallel.mesh.Mesh of a multi-process run, else None; a
+        # node's feeder gives its shard of the epoch when hosts > 1
+        self.mesh = mesh if distributed else None
+        self.host, self.hosts, self.world = mesh.host, mesh.hosts, mesh.world
+        for n in (cfg.batch_size, cfg.test_batch_size):
+            mesh.batch_rows(n)  # raises unless n splits
+        self.rank0 = mesh.rank == 0
         self.work_dir = cfg.resolved_work_dir()
         self.save_dir = cfg.resolved_save_dir()
-        self.logger = RunLogger(self.work_dir, to_file=cfg.print_log)
+        self.logger = RunLogger(self.work_dir,
+                                to_file=cfg.print_log and self.rank0,
+                                echo=self.rank0)
         os.makedirs(os.path.join(self.work_dir, "eval_results"),
                     exist_ok=True)
         self.family = get_model(cfg.model)
-        # the model source beside the run (reference: main.py:257)
-        shutil.copy2(inspect.getfile(self.family.build), self.work_dir)
+        if self.rank0:
+            # the model source beside the run (reference: main.py:257)
+            shutil.copy2(inspect.getfile(self.family.build), self.work_dir)
 
         # resolve `resume: auto` before any overwrite cleanup, so a rerun
         # never deletes the checkpoint it is about to continue from
@@ -166,12 +209,14 @@ class Trainer:
             if resume:
                 self.logger.log(f"Auto-resume found checkpoint: {resume}")
         self._resume_path = resume
-        if cfg.phase == "train" and cfg.overwrite:
+        if cfg.phase == "train" and cfg.overwrite and self.rank0:
             self._cleanup_previous_run()
+        self._barrier()
 
         self.lowering, self.model_config = self._build_model_config()
-        config_lib.save_config(cfg, os.path.join(self.work_dir,
-                                                 "config.yaml"))
+        if self.rank0:
+            config_lib.save_config(cfg, os.path.join(self.work_dir,
+                                                     "config.yaml"))
         self.transfer_dtype = resolve_transfer_dtype(
             cfg.transfer_dtype,
             getattr(self.model_config, "activation_dtype", None))
@@ -196,6 +241,11 @@ class Trainer:
                                            device=self.device)
             self.model.init_weights(torch.Generator().manual_seed(cfg.seed))
             self.optimizer = build_optimizer(self.model, cfg.base_lr)
+        if self.mesh is not None:
+            # same-seed weights on every rank; the collectives attached
+            for model in (self.models.values() if self.fourstream
+                          else [self.model]):
+                seqpar.attach(model, self.mesh, self.shard_time)
         self.global_step = 0
         self.best_acc = 0.0
         self.start_epoch = cfg.start_epoch
@@ -256,21 +306,41 @@ class Trainer:
         self.feeders: Dict[str, Feeder] = {}
         self.iterators: Dict[str, BatchIterator] = {}
         extra = {"native": True} if cfg.native_loader else {}
+        # a node's shard of the epoch when several nodes feed the data
+        # ranks; otherwise every feeder gives the whole batch
+        shards = {"seed": cfg.seed, "host_id": self.host,
+                  "num_hosts": self.hosts}
         if cfg.phase == "train":
             self.feeders["train"] = Feeder(**cfg.train_feeder_args, **extra)
             self.iterators["train"] = BatchIterator(
                 self.feeders["train"], cfg.batch_size, shuffle=True,
-                drop_last=True, seed=cfg.seed)
+                drop_last=True, **shards)
         self.feeders["test"] = Feeder(**cfg.test_feeder_args, **extra)
         self.iterators["test"] = BatchIterator(
             self.feeders["test"], cfg.test_batch_size, shuffle=False,
-            drop_last=False, seed=cfg.seed)
+            drop_last=False, **shards)
+        if self.shard_time:
+            for feeder in self.feeders.values():
+                seqpar.check_batch(self.model, feeder.get(0).shape[1],
+                                   self.mesh, True)
+
+    def _local(self, *arrays):
+        """This rank's rows (and frames: data first) of a host batch."""
+        if self.mesh is None:
+            return arrays
+        rows = self.mesh.batch_rows(len(arrays[0]))
+        return (self.mesh.local(arrays[0], self.shard_time),
+                *(a[rows] for a in arrays[1:]))
 
     def _put_batch(self, data: np.ndarray, label: np.ndarray,
                    mask: Optional[np.ndarray] = None
                    ) -> Dict[str, torch.Tensor]:
         """Host batch -> device tensors; data arrives fp32 on the device."""
         return self.transfer.receive(self.transfer.stage(data, label, mask))
+
+    def _barrier(self) -> None:
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     def _load_weights(self, path: str, ignore: Optional[list] = None) -> None:
         """Load model weights from a reference .pt / .pkl / .pth
@@ -356,8 +426,13 @@ class Trainer:
                     self.save(epoch)
                 if is_last or (epoch + 1) % cfg.eval_interval == 0:
                     self.evaluate(epoch)
-            if not os.path.exists(os.path.join(
-                    self.work_dir, "eval_results", "best_acc.pkl")):
+            need_final_eval = not os.path.exists(os.path.join(
+                self.work_dir, "eval_results", "best_acc.pkl"))
+            if self.mesh is not None:
+                # evaluate() runs collectives: every rank makes the same
+                # call (reference trainer.py:503-515)
+                need_final_eval = self.mesh.any_rank(need_final_eval)
+            if need_final_eval:
                 # a rerun resumed past the end (killed during the final
                 # eval) still completes the score-pickle contract
                 self.logger.log(
@@ -384,8 +459,9 @@ class Trainer:
         """One step: (loss, acc) device tensors, (4,) under fourstream."""
         if self.fourstream:
             return fourstream.train_step(self.models, self.optimizers, batch,
-                                         lr, self.parents)
-        return state_lib.train_step(self.model, self.optimizer, batch, lr)
+                                         lr, self.parents, mesh=self.mesh)
+        return state_lib.train_step(self.model, self.optimizer, batch, lr,
+                                    mesh=self.mesh)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch; the prefetch thread batches step b+1 and starts its
@@ -400,7 +476,7 @@ class Trainer:
 
         def fetch_next():
             for data, label, _, _ in batches:
-                return self.transfer.stage(data, label)
+                return self.transfer.stage(*self._local(data, label))
             return None
 
         timer = {"dataloader": 1e-3, "model": 1e-3}
@@ -451,7 +527,7 @@ class Trainer:
         total = sum(timer.values())
         proportion = {k: f"{int(round(v * 100 / total)):02d}%"
                       for k, v in timer.items()}
-        clips = nb * cfg.batch_size
+        clips = nb * cfg.batch_size * self.hosts
         self.logger.log(
             f"\tMean training loss: {mean_loss:.4f}  acc: {mean_acc:.4f}  "
             f"({clips / max(dt, 1e-9):.1f} clips/s)  time: {proportion}")
@@ -472,7 +548,8 @@ class Trainer:
             return
         suspicious = (
             not device_guard.plausible_throughput(
-                epoch_stats.get("clips_per_sec", 0.0))
+                epoch_stats.get("clips_per_sec", 0.0)
+                / self.world)
             or not np.isfinite(epoch_stats.get("loss", 0.0)))
         if not suspicious:
             return
@@ -484,6 +561,9 @@ class Trainer:
         try:
             device_guard.check(logger=self.logger, device=self.device)
         except device_guard.DeviceUnhealthyError:
+            if self.mesh is not None:
+                # a re-exec restarts this process alone, not the group
+                raise
             device_guard.reexec_with_resume(logger=self.logger,
                                             device=self.device)
 
@@ -501,6 +581,7 @@ class Trainer:
         feeder = self.feeders["test"]
         outputs = []
         for data, label, index, mask in self.iterators["test"].epoch(0):
+            data, label, index, mask = self._local(data, label, index, mask)
             batch = self._put_batch(data, label, mask)
             if self.fourstream:
                 logits4, logits, lsum, n = fourstream.eval_step(
@@ -508,37 +589,46 @@ class Trainer:
             else:
                 logits, lsum, n = state_lib.eval_step(self.model, batch)
                 logits4, lsum, n = logits[None], lsum[None], n[None]
-            outputs.append((logits4, logits, lsum, n, label, index, mask))
-        scores, stream_scores = [], []
-        loss_sum, n_sum = 0.0, 0.0
-        with ExitStack() as files:
-            f_w = f_r = None
-            if wrong_file:
-                f_w = files.enter_context(open(wrong_file, "w"))
-            if result_file:
-                f_r = files.enter_context(open(result_file, "w"))
-            for logits4, logits, lsum, n, label, index, mask in outputs:
-                logits = logits.cpu().numpy()
-                valid = mask > 0
-                scores.append(logits[valid])
-                stream_scores.append(logits4.cpu().numpy()[:, valid])
-                loss_sum = loss_sum + lsum.double().cpu().numpy()
-                n_sum += float(n[0])
-                if f_w or f_r:
-                    preds = logits.argmax(-1)
-                    for i in np.nonzero(valid)[0]:
-                        if f_r:
-                            f_r.write(f"{preds[i]},{label[i]}\n")
-                        if f_w and preds[i] != label[i]:
-                            f_w.write(f"{index[i]},{preds[i]},{label[i]}\n")
-        score = np.concatenate(scores)
-        stream_scores = np.concatenate(stream_scores, axis=1)
+            outputs.append((logits4.transpose(0, 1), logits,
+                            torch.cat([lsum.double(), n.double()])[None],
+                            label, index, mask))
+        # per row: stream logits (B, S, K), logits, label, index, mask; per
+        # batch: loss and mask sums (1, 2S)
+        logits4, logits, sums, label, index, mask = (
+            np.concatenate([o.cpu().numpy() if torch.is_tensor(o) else o
+                            for o in column]) for column in zip(*outputs))
+        if self.mesh is not None and self.mesh.data > 1:
+            logits4, logits, sums, label, index, mask = self.mesh.gather_rows(
+                [logits4, logits, sums, label, index, mask])
+        valid = mask > 0
+        # dataset order: the data ranks' rows interleave
+        order = np.argsort(index[valid], kind="stable")
+        score = logits[valid][order]
+        stream_scores = logits4[valid][order].transpose(1, 0, 2)
+        label, index = label[valid][order], index[valid][order]
+        n_streams = logits4.shape[1]
+        loss_sum = sums[:, :n_streams].sum(0)
+        n_sum = float(sums[:, n_streams].sum())
+        if self.rank0 and (wrong_file or result_file):
+            with ExitStack() as files:
+                f_w = f_r = None
+                if wrong_file:
+                    f_w = files.enter_context(open(wrong_file, "w"))
+                if result_file:
+                    f_r = files.enter_context(open(result_file, "w"))
+                preds = score.argmax(-1)
+                for i in range(len(score)):
+                    if f_r:
+                        f_r.write(f"{preds[i]},{label[i]}\n")
+                    if f_w and preds[i] != label[i]:
+                        f_w.write(f"{index[i]},{preds[i]},{label[i]}\n")
         accuracy = feeder.top_k(score, 1)
         eval_dir = os.path.join(self.work_dir, "eval_results")
 
         def dump(scores_, name):
-            with open(os.path.join(eval_dir, name), "wb") as f:
-                pickle.dump(dict(zip(feeder.sample_name, scores_)), f)
+            if self.rank0:
+                with open(os.path.join(eval_dir, name), "wb") as f:
+                    pickle.dump(dict(zip(feeder.sample_name, scores_)), f)
 
         if self.fourstream:
             for stream, s in zip(fourstream.STREAMS, stream_scores):
@@ -563,6 +653,7 @@ class Trainer:
         for k in cfg.show_topk:
             self.logger.log(f"\tTop{k}: {100 * feeder.top_k(score, k):.2f}%")
         dump(score, f"epoch_{epoch}_{accuracy}.pkl")
+        self._barrier()
         return accuracy
 
     def check_shift_range(self) -> None:
@@ -579,6 +670,11 @@ class Trainer:
 
     def save(self, epoch: int) -> str:
         self.check_shift_range()
+        if not self.rank0:
+            self._barrier()
+            return ckpt_lib.checkpoint_path(self.save_dir,
+                                            self.cfg.Experiment_name, epoch,
+                                            self.global_step)
         if self.fourstream:
             path = ckpt_lib.save_fourstream_checkpoint(
                 self.save_dir, self.cfg.Experiment_name, epoch,
@@ -590,4 +686,5 @@ class Trainer:
                 self.global_step, float(self.best_acc), self.model,
                 self.optimizer)
         self.logger.log(f"\tSaved checkpoint: {path}")
+        self._barrier()
         return path

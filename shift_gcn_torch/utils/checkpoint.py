@@ -154,11 +154,17 @@ def _resume_entry(model: torch.nn.Module,
             "optimizer_state_dict": optimizer.state_dict()}
 
 
+def checkpoint_path(save_dir: str, experiment: str, epoch: int,
+                    global_step: int) -> str:
+    """Where the checkpoint of (epoch, global_step) is written."""
+    return os.path.join(save_dir, f"{experiment}-{epoch}-{global_step}.pt")
+
+
 def _write_checkpoint(save_dir: str, experiment: str, epoch: int,
                       global_step: int, best_acc: float,
                       blob: Dict[str, Any]) -> str:
     os.makedirs(save_dir, exist_ok=True)
-    path = os.path.join(save_dir, f"{experiment}-{epoch}-{global_step}.pt")
+    path = checkpoint_path(save_dir, experiment, epoch, global_step)
     torch.save(dict(blob, epoch=epoch, global_step=global_step,
                     best_acc=best_acc), path)
     return path

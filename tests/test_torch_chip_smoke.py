@@ -219,3 +219,53 @@ def test_family_phase_rehearses_on_cpu(training_rehearsal, capsys,
     assert ("card vs CPU (seeded init) on 8 clips: eval: logits 0 of scale "
             "off the CPU's (tol 1e-4), gradients' relative L2 off float64") \
         in printed
+
+
+def test_parallel_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
+                                         capsys, tmp_path):
+    """Phase 18 on the CPU: a gloo group of one rank for 18a, the kernel
+    checks at the ranks' launch shapes, then the rank processes of 18b
+    ([2, 1]) and 18c ([2, 2], T=64 padded to 72), full width at 4 clips,
+    with 18c's planted faults caught by its gates; only the launch counts
+    fail (the plain versions launch nothing): 18a's, and each rank's of
+    18b and 18c."""
+    monkeypatch.setattr(chip_smoke, "T_WINDOW", 64)
+    monkeypatch.setattr(chip_smoke, "T_PAD", 72)
+    out = chip_smoke.run_parallel(np.random.default_rng(0),
+                                  torch.device("cpu"), str(tmp_path),
+                                  "card", 0)
+    assert len(training_rehearsal) == 7, training_rehearsal
+    assert all("launch" in msg for msg in training_rehearsal)
+    assert len(out["dp_ms"]) == 2 and len(out["seqpar_ms"]) == 4
+    printed = capsys.readouterr().out
+    assert "in a gloo group of one rank: losses" in printed
+    assert "bit-equal to the run without a group" in printed
+    assert printed.count("(ranks sharing one card, not a scaling figure)") \
+        == 2
+    assert printed.count("ypos steps equal on 2816 of 2816, 0 flips at a "
+                         "tie, 0 off one") == 6
+    # the kernels at the halo-extended blocks of a time rank: T_l=36 of 72
+    # with 8 frames below and 9 above, odd at stride 2
+    assert ("at 13 launch shapes of a [2, 1] rank (2 rows, T=64) and 13 of "
+            "a [2, 2] rank") in printed
+    assert "(53, 128, 2)" in printed and "(35, 256, 2)" in printed
+    for fault in chip_smoke.PLANTED_FAULTS:
+        assert (f"planted fault {fault}: caught on ranks [0, 1, 2, 3] of 4"
+                in printed)
+    assert "parameters equal on every rank, checkpoint " \
+        "mediapipe_ShiftGCN_joint_seqpar-0-2.pt, 4 clips scored" in printed
+
+
+def test_rank_lines_parse_in_rank_order(rehearsal):
+    text = "\n".join([
+        "[ Sat ] Training epoch: 1",
+        '[rank] {"rank": 1, "loss": 0.5, "launches": {"shift_gcn": 10}}',
+        "[W socket.cpp] a warning",
+        '[rank] {"rank": 0, "loss": 0.25, "launches": {"shift_gcn": 10}}'])
+    lines = chip_smoke.parse_rank_lines(text, 2)
+    assert [line["rank"] for line in lines] == [0, 1]
+    assert lines[0]["loss"] == 0.25 and lines[1]["launches"] == {
+        "shift_gcn": 10}
+    assert rehearsal == []
+    chip_smoke.parse_rank_lines(text, 3)  # rank 2 printed nothing
+    assert rehearsal == ["rank lines from ranks [0, 1], expected 3"]

@@ -153,6 +153,7 @@ def _trainer_stub(enabled=True):
     trainer.cfg = ExperimentConfig(device_guard=enabled)
     trainer.logger = _Log()
     trainer.device = torch.device("cpu")
+    trainer.mesh, trainer.world = None, 1  # one process, no group
     return trainer
 
 

@@ -54,6 +54,21 @@ def test_prefetch_roundtrip(dataset):
     loader.close()
 
 
+def test_second_prefetch_raises_after_the_gather_finished(dataset):
+    # the worker clears its busy flag as soon as the gather ends, so a
+    # second prefetch before wait() must be refused by the wrapper: the
+    # first batch's buffer has not been handed out yet
+    path, data = dataset
+    loader = NativeClipLoader(path, num_threads=2)
+    idx = np.array([7, 8, 9])
+    loader.prefetch(idx)
+    loader._lib.sgt_wait(loader._handle)  # the worker is idle now
+    with pytest.raises(RuntimeError, match="already outstanding"):
+        loader.prefetch(np.array([1]))
+    np.testing.assert_array_equal(loader.wait(), data[idx])
+    loader.close()
+
+
 def test_out_of_range_raises(dataset):
     path, _ = dataset
     loader = NativeClipLoader(path, num_threads=2)

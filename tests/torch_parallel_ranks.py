@@ -1,0 +1,298 @@
+"""One rank of the port's multi-process CPU tests (gloo).
+
+    RANK=r WORLD_SIZE=w MASTER_ADDR=127.0.0.1 MASTER_PORT=p \\
+        python tests/torch_parallel_ranks.py <job> <workdir>
+
+Reads ``<workdir>/inputs.pkl`` (numpy arrays made by the test from a
+seed), runs ``<job>`` and writes ``<workdir>/out_<rank>.pkl``.  It imports
+the port only, never the reference package: the tests hold what it
+writes against the reference package in their own process.  Jobs:
+
+- ``ops``: the sharded temporal shift (forward and backward), the global
+  constraint, sync BN, and the [2, 2] sequence-parallel train and eval
+  steps (4 ranks);
+- ``steps``: the data-parallel [2, 1] and sequence-parallel [1, 2] train
+  and eval steps, and the four-stream data-parallel step (2 ranks);
+- ``trainer``: ``cli.train.main`` under the launcher's environment, with
+  each epoch's statistics and the final weights recorded (2 ranks).
+"""
+
+import os
+import pickle
+import socket
+import subprocess
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from shift_gcn_torch.models.shift_gcn import (  # noqa: E402
+    Model, config_from_reference_args)
+from shift_gcn_torch.ops import temporal_shift as ts  # noqa: E402
+from shift_gcn_torch.ops.batchnorm import batch_norm_train  # noqa: E402
+from shift_gcn_torch.parallel import halo, seqpar  # noqa: E402
+from shift_gcn_torch.parallel.mesh import make_mesh  # noqa: E402
+from shift_gcn_torch.train import fourstream, optim  # noqa: E402
+from shift_gcn_torch.utils.checkpoint import (  # noqa: E402
+    state_dict_from_arrays, stream_state_dicts_from_arrays)
+
+
+def shard(a, mesh, t_axis=1):
+    """This rank's rows, and frames along ``t_axis`` (None: all)."""
+    a = a[mesh.batch_rows(a.shape[0])]
+    if t_axis is None:
+        return a
+    index = [slice(None)] * a.ndim
+    index[t_axis] = mesh.time_frames(a.shape[t_axis])
+    return a[tuple(index)]
+
+
+def _params(c):
+    return (torch.nn.Parameter(torch.from_numpy(c["xpos"])),
+            torch.nn.Parameter(torch.from_numpy(c["ypos"])))
+
+
+def shift_case(c, mesh, sharded):
+    """One temporal shift forward and backward on this rank's block."""
+    x = shard(torch.from_numpy(c["x"]), mesh,
+              1 if sharded else None).requires_grad_(True)
+    g = shard(torch.from_numpy(c["g"]), mesh, 1 if sharded else None)
+    xpos, ypos = _params(c)
+    if sharded:
+        out = halo.sharded_temporal_shift(x, ypos, c["stride"], mesh,
+                                          c["max_shift"], xpos=xpos)
+    else:
+        out = ts.temporal_shift(x, ypos, c["stride"], xpos=xpos, mesh=mesh)
+    out.backward(g)
+    with torch.no_grad():
+        # the rank's own gy_raw, before the reduction: on the
+        # halo-extended block under sequence parallelism
+        xl, gl, s = x.detach(), g, c["stride"]
+        if sharded:
+            lo, hi = halo.halo_sizes(c["max_shift"], s)
+            xl = halo.halo_exchange(xl, lo, hi, mesh)
+            gl = torch.nn.functional.pad(
+                gl, (0, 0, 0, 0, lo // s, xl.shape[1] // s - lo // s
+                     - gl.shape[1]))
+        local = ts.temporal_shift_position_grad(xl, gl, ypos.detach(), s)
+    return {"out": out.detach().numpy(), "dx": x.grad.numpy(),
+            "gy": ypos.grad.numpy(), "gx": xpos.grad.numpy(),
+            "local_gy_raw": local.numpy()}
+
+
+def bn_case(c, mesh):
+    x = shard(torch.from_numpy(c["x"]), mesh,
+              1 if mesh.model > 1 else None).requires_grad_(True)
+    cot = shard(torch.from_numpy(c["cot"]), mesh,
+                1 if mesh.model > 1 else None)
+    w = torch.nn.Parameter(torch.from_numpy(c["weight"]))
+    b = torch.nn.Parameter(torch.from_numpy(c["bias"]))
+    rm, rv = (torch.from_numpy(c[k].copy()) for k in ("rm", "rv"))
+    nbt = torch.zeros((), dtype=torch.long)
+    out = batch_norm_train(x, w, b, rm, rv, nbt,
+                           feature_dims=c["feature_dims"],
+                           group=mesh.world_group)
+    (out * cot).sum().backward()
+    return {"out": out.detach().numpy(), "dx": x.grad.numpy(),
+            "dw": w.grad.numpy(), "db": b.grad.numpy(), "rm": rm.numpy(),
+            "rv": rv.numpy(), "nbt": int(nbt)}
+
+
+def _model(args, params, bn_state):
+    model = Model(config_from_reference_args(args), device="cpu")
+    model.load_state_dict(state_dict_from_arrays(params, bn_state))
+    return model
+
+
+def _batch(c, *keys):
+    out = {"data": torch.from_numpy(c["data"]),
+           "label": torch.from_numpy(c["label"]).long()}
+    if "mask" in keys:
+        out["mask"] = torch.from_numpy(c["mask"])
+    return out
+
+
+def model_case(c, shape, shard_time):
+    """Eval step from the loaded weights, then one train step."""
+    mesh = make_mesh(shape)
+    model = seqpar.attach(_model(c["args"], c["params"], c["bn_state"]),
+                          mesh, shard_time)
+    logits, loss_sum, n = seqpar.eval_step(model, _batch(c, "mask"), mesh,
+                                           shard_time)
+    opt = optim.build_optimizer(model, c["lr"])
+    loss, acc = seqpar.train_step(model, opt, _batch(c), c["lr"], mesh,
+                                  shard_time)
+    return {"loss": float(loss), "acc": float(acc),
+            "logits": logits, "loss_sum": loss_sum, "n": n,
+            "grads": {k: p.grad.numpy().copy()
+                      for k, p in model.named_parameters()},
+            "state": {k: v.numpy() for k, v in model.state_dict().items()}}
+
+
+def fourstream_case(c):
+    mesh = make_mesh([2, 1])
+    dicts = stream_state_dicts_from_arrays(c["params4"], c["bn4"],
+                                           fourstream.STREAMS)
+    models, opts = {}, {}
+    for stream in fourstream.STREAMS:
+        models[stream] = Model(config_from_reference_args(c["args"]),
+                               device="cpu")
+        models[stream].load_state_dict(dicts[stream])
+        seqpar.attach(models[stream], mesh)
+        opts[stream] = optim.build_optimizer(models[stream], c["lr"])
+    rows = mesh.batch_rows(len(c["label"]))
+    batch = {"data": shard(torch.from_numpy(c["data"]), mesh, None),
+             "label": torch.from_numpy(c["label"][rows]).long()}
+    losses, _ = fourstream.train_step(models, opts, batch, c["lr"],
+                                      c["parents"], mesh=mesh)
+    return {"losses": losses.numpy(),
+            "grads": {s: {k: p.grad.numpy().copy()
+                          for k, p in m.named_parameters()}
+                      for s, m in models.items()},
+            "state": {s: {k: v.numpy() for k, v in m.state_dict().items()}
+                      for s, m in models.items()}}
+
+
+def job_ops(inp):
+    meshes = {shape: make_mesh(list(shape))
+              for shape in ((1, 4), (2, 2), (4, 1))}
+    return {
+        "halo": {k: shift_case(c, meshes[c["mesh"]], True)
+                 for k, c in inp["halo"].items()},
+        "constraint": {k: shift_case(c, meshes[c["mesh"]], c["sharded"])
+                       for k, c in inp["constraint"].items()},
+        "bn": {k: bn_case(c, meshes[c["mesh"]])
+               for k, c in inp["bn"].items()},
+        "seqpar22": model_case(inp["model"], [2, 2], True),
+    }
+
+
+def job_steps(inp):
+    return {"dp21": model_case(inp["model"], [2, 1], False),
+            "seqpar12": model_case(inp["model"], [1, 2], True),
+            "fourstream": fourstream_case(inp["fourstream"])}
+
+
+def job_trainer(inp):
+    """Each of ``inp["runs"]`` ({"argv", "env"}) through the CLI in turn,
+    then, on rank 0 alone, each config of ``inp["single"]`` (argv) in one
+    process without a mesh: per run, the epochs' losses, the mesh and the
+    final weights.  A run's group rendezvous on a port of its own
+    (``env``): a store left on the port of a destroyed group can hang the
+    next one."""
+    from shift_gcn_torch.cli import train as cli_train
+    from shift_gcn_torch.train import config
+    from shift_gcn_torch.train.trainer import Trainer
+
+    epochs, trainers = [], []
+    train_epoch, start = Trainer.train_epoch, Trainer.start
+
+    def recording_epoch(self, epoch):
+        stats = train_epoch(self, epoch)
+        epochs.append(stats)
+        return stats
+
+    def recording_start(self):
+        trainers.append(self)
+        return start(self)
+
+    Trainer.train_epoch, Trainer.start = recording_epoch, recording_start
+    def record(start_run):
+        epochs.clear()
+        trainers.clear()
+        start_run()
+        trainer = trainers[0]
+        mesh = trainer.mesh
+        return {"losses": [e["losses"] for e in epochs],
+                "mesh": mesh and (mesh.data, mesh.model, mesh.hosts),
+                "state": {k: v.numpy()
+                          for k, v in trainer.model.state_dict().items()}}
+
+    results = []
+    for run in inp["runs"]:
+        os.environ.update(run.get("env", {}))
+        results.append(record(lambda: cli_train.main(run["argv"])))
+    if os.environ["RANK"] == "0":
+        for argv in inp.get("single", []):
+            cfg = config.load_config(argv)
+            cfg.mesh_shape, cfg.shard_time = None, False
+            results.append(record(lambda: Trainer(cfg, device="cpu")
+                                  .start()))
+    return results
+
+
+JOBS = {"ops": job_ops, "steps": job_steps, "trainer": job_trainer}
+
+
+def free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def run_ranks(job, workdir, world, inputs, timeout=240, env=None):
+    """Run ``job`` in ``world`` fresh processes (spawned, never forked)
+    on a free port; returns every rank's output in rank order.  A rank
+    that fails or outlives ``timeout`` seconds fails the run, with every
+    rank's output in the message."""
+    workdir = str(workdir)
+    with open(os.path.join(workdir, "inputs.pkl"), "wb") as f:
+        pickle.dump(inputs, f)
+    port = free_port()
+    procs = []
+    for rank in range(world):
+        rank_env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world),
+                        LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                        MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                        OMP_NUM_THREADS="1", **(env or {}))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), job, workdir],
+            env=rank_env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    logs, failed = [], False
+    for proc in procs:
+        try:
+            logs.append(proc.communicate(timeout=timeout)[0])
+        except subprocess.TimeoutExpired:
+            for other in procs:
+                other.kill()
+            logs.append(proc.communicate()[0] + "\n(timed out)")
+        logs[-1] += f"\n(exit code {proc.returncode})"
+        failed |= proc.returncode != 0
+    if failed:
+        raise RuntimeError(f"{job}: a rank failed\n" + "\n----\n".join(
+            logs))
+    outs = []
+    for rank in range(world):
+        with open(os.path.join(workdir, f"out_{rank}.pkl"), "rb") as f:
+            outs.append(pickle.load(f))
+    return outs
+
+
+def main():
+    # as in tests/test_torch_train.py: torch's oneDNN convolution backward
+    # has been seen corrupting the heap in this test environment; torch's
+    # native convolution has the same arithmetic
+    torch.backends.mkldnn.enabled = False
+    job, workdir = sys.argv[1:3]
+    with open(os.path.join(workdir, "inputs.pkl"), "rb") as f:
+        inp = pickle.load(f)
+    own_group = job != "trainer"  # the trainer's CLI joins on its own
+    if own_group:
+        dist.init_process_group("gloo", init_method="env://")
+    rank = int(os.environ["RANK"])
+    out = JOBS[job](inp)
+    path = os.path.join(workdir, f"out_{rank}.pkl")
+    with open(path + ".tmp", "wb") as f:
+        pickle.dump(out, f)
+    os.replace(path + ".tmp", path)
+    if own_group:
+        dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    main()
