@@ -154,7 +154,24 @@ Phases, in order; any failure exits non-zero:
    step, as (b), and the same step with each of PLANTED_FAULTS (the
    reverse halo exchange dropped; sync BN's backward unaveraged), which
    the gates must catch.  Prints step times (ranks sharing one card, not
-   a scaling figure), peak memory per rank and each fault's readings.
+   a scaling figure), peak memory per rank and each fault's readings;
+19. tensor parallelism on this card: (a) K4 and K5 within 2e-5 of scale
+   (2^-7 in bf16) and K6 within phase 7's gates at every (shape, d0) a
+   rank of [1, 2] (64 rows) and of [2, 2] (32 rows) launches in a train
+   step at T=300, fp32 and bf16, the first unit's C=3 included, with
+   each kernel's time a step at the last rank's slice beside its bound;
+   (b) ``configs/mediapipe/train_joint.yaml`` unchanged in model, batch
+   64 and bf16 through ``Trainer.start()`` at mesh [1, 2] in 2 gloo
+   ranks sharing the card, 2 steps with eval and save: each rank's
+   launches the per-step counts x 2 plus an eval forward, equal losses,
+   each rank holding its slices; the full-layout checkpoint evaluated in
+   this process alone within TP_SCORE_GATE of the run's scores, every
+   prediction equal; then one fp32 step at 64 clips x T=300 on each rank
+   against the one-process step, with 18b's gates; (c) that step at
+   [2, 2] in 4 gloo ranks, and again with each of TP_FAULTS (K4 at
+   d0 = 0 on every rank; the sharded gradients summed over the world),
+   which the gates must catch.  Prints the step times (gathers through
+   host memory: not a scaling figure) and peak memory per rank.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -750,18 +767,19 @@ def check_fused_backward(x, g, ypos, stride: int, label: str):
     return err, float(diff.max()), int((~clear).sum())
 
 
-def check_wgrad(x, g, gate, w, label: str):
-    """K6 vs its plain version on one input: dgate, dW and dbias each
-    within WGRAD_TOL of its scale (another summation order over R, and
-    3xTF32 products for fp32 inputs; bf16 inputs multiply exactly on both
-    sides), and a second launch bit-equal.  Returns the largest max |err|
-    of the three and the largest max |err| / scale."""
+def check_wgrad(x, g, gate, w, label: str, d0: int = 0):
+    """K6 vs its plain version on one input (w the output channels from
+    ``d0``): dgate, dW and dbias each within WGRAD_TOL of its scale
+    (another summation order over R, and 3xTF32 products for fp32 inputs;
+    bf16 inputs multiply exactly on both sides), and a second launch
+    bit-equal.  Returns the largest max |err| of the three and the
+    largest max |err| / scale."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
 
-    got = sk.shift_gcn_wgrad(x, g, gate, w)
-    again = sk.shift_gcn_wgrad(x, g, gate, w)
-    want = ss.shift_gcn_wgrad_reference(x, g, gate, w)
+    got = sk.shift_gcn_wgrad(x, g, gate, w, d0)
+    again = sk.shift_gcn_wgrad(x, g, gate, w, d0)
+    want = ss.shift_gcn_wgrad_reference(x, g, gate, w, d0)
     torch.cuda.synchronize()
     worst = worst_rel = 0.0
     for name, a, b, ref in zip(("dgate", "dW", "dbias"), got, again, want):
@@ -2739,11 +2757,13 @@ def parallel_step(settings: dict, t: int, mesh=None, shard_time=False,
     """One fp32 step of the full-width MediaPipe model from the seeded init
     on the seeded batch of ``settings["batch"]`` clips, padded with empty
     frames to ``t``: on this rank's part under ``mesh``, else whole.
-    Returns the loss; the gradients: the parameters', the input's
-    ("input", this rank's rows and frames) and each shift's raw position
-    gradient as its constraint step took it ("gy_raw:<ypos name>", reduced
-    over the ranks); the step's launches; its ms (two more steps, None
-    unless ``timed``) and the peak memory in GiB."""
+    Returns the loss; the gradients: the parameters' (a tensor-parallel
+    rank's slices gathered over the model ranks), the input's ("input",
+    this rank's rows and frames; under tensor parallelism the model
+    ranks' parts summed) and each shift's raw position gradient as its
+    constraint step took it ("gy_raw:<ypos name>", reduced over the
+    ranks); the step's launches; its ms (two more steps, None unless
+    ``timed``) and the peak memory in GiB."""
     from shift_gcn_torch import kernels
     from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
     from shift_gcn_torch.ops import temporal_shift as ts
@@ -2791,6 +2811,15 @@ def parallel_step(settings: dict, t: int, mesh=None, shard_time=False,
     grads = {n: p.grad.cpu().numpy().copy()
              for n, p in model.named_parameters()}
     grad_in = batch["data"].grad
+    if mesh is not None and mesh.tensor_parallel:
+        from shift_gcn_torch.parallel import comm, tensor
+
+        for n, p in model.named_parameters():
+            axis = tensor.sharded_axis(n)
+            if axis is not None:
+                grads[n] = torch.cat(comm.all_gather(
+                    p.grad, mesh.model_group), axis).cpu().numpy()
+        grad_in = comm.all_reduce_sum_(grad_in.clone(), mesh.model_group)
     grads["input"] = (grad_in if mesh is None else mesh.local(
         grad_in, shard_time)).cpu().numpy().copy()
     # the backward takes the shifts in the reverse of the forward's order
@@ -2994,9 +3023,6 @@ def rank_seqpar(settings: dict, workdir: str):
                 parallel_step(settings, settings["t_pad"], mesh,
                               shard_time=True, timed=False)[:2]
     return summary, arrays
-
-
-RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar}
 
 
 def rank_main(args) -> None:
@@ -3263,6 +3289,330 @@ def run_parallel(rng, dev, workdir: str, card: str, seed: int) -> dict:
     return {"dp_ms": [line["step_ms"] for line in dp_lines],
             "seqpar_ms": [line["step_ms"] for line in lines],
             "one_ms": (ref_ms, ref_ms_dp)}
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism (phase 19)
+# ---------------------------------------------------------------------------
+
+TP_MESHES = ((1, 2), (2, 2))
+TP_STEPS = 2   # Trainer steps of phase 19b
+# 19c reruns its fp32 step with one tensor-parallel rule broken on every
+# rank (``tp_planted``): "k4_offset" launches K4 (and so K5 and K6) at
+# d0 = 0 whatever the rank's slice; "sharded_sum" sums the sharded
+# gradients over the world, the model ranks' different slices added,
+# where they belong to the data ranks alone.  The gates of phase 18
+# (PARALLEL_GRAD_TOL) must catch each.
+TP_FAULTS = ("k4_offset", "sharded_sum")
+# the one-process evaluation of 19b's checkpoint against the scores the
+# [1, 2] run wrote: bf16 activations, and the 1x1's matmul on a slice may
+# take another cuBLAS order (scripts/torch_multigpu_smoke.sh's gate)
+TP_SCORE_GATE = 1e-2
+
+
+@contextmanager
+def tp_planted(fault: str):
+    """One of TP_FAULTS planted in this rank process (every rank the
+    same, so that the collectives still pair)."""
+    import types
+
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.parallel import mesh as mesh_lib
+
+    real = sk.fused_shift_gcn
+    patch = {
+        "k4_offset": lambda: mock.patch.object(
+            sk, "fused_shift_gcn",
+            lambda x, gate, w, bias, d0=0: real(x, gate, w, bias)),
+        "sharded_sum": lambda: mock.patch.object(
+            mesh_lib, "tensor",
+            types.SimpleNamespace(sharded_axis=lambda name: None)),
+    }[fault]()
+    with patch:
+        yield
+
+
+def check_tp_kernels(config, gen, dev, card: str) -> str:
+    """K4 and K5 within 2e-5 of scale (2^-7 in bf16) and K6 within phase
+    7's gates of their plain versions at every (shape, d0) a rank of
+    TP_MESHES launches in one train step (N / D rows at T=T_WINDOW, each
+    layer's output channels over M: d0 = 0 and d0 = D / M), fp32 and
+    bf16, the first unit's C=3 included; each kernel's time a step at the
+    last rank's slice (d0 != 0) beside its bound.  Returns the text."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+
+    v = config.num_point
+    _, k4_shapes = forward_shapes(config, T_WINDOW)
+    checked, texts = 0, []
+    for data, model in TP_MESHES:
+        n = N_WINDOWS // data
+        # per step of the last rank: kernel -> [fp32 ms, bf16 ms, fp32
+        # bound, bf16 bound]
+        times = {k: [0.0] * 4 for k in ("shift_gcn", "shift_gcn_dx",
+                                         "shift_gcn_wgrad")}
+        for i, dtype in enumerate((torch.float32, torch.bfloat16)):
+            tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+            size = 4 if dtype == torch.float32 else 2
+            for t, c, d in sorted(set(k4_shapes)):
+                count = k4_shapes.count((t, c, d))
+                width, r = d // model, n * t
+                x = torch.randn(r, v, c, generator=gen, device=dev).to(dtype)
+                g = torch.randn(r, v, width, generator=gen,
+                                device=dev).to(dtype)
+                gate = torch.tanh(torch.randn(v, c, generator=gen,
+                                              device=dev)) + 1.0
+                w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+                b = torch.randn(d, generator=gen, device=dev) * 0.1
+                for m in range(model):
+                    d0 = m * width
+                    ws = w[:, d0:d0 + width].contiguous()
+                    bs = b[d0:d0 + width].contiguous()
+                    label = (f"19 [{data}, {model}] rank m={m} "
+                             f"{str(dtype)[6:]} T={t} C={c} D={d} d0={d0}")
+                    for kernel, got, want in (
+                            ("K4", sk.fused_shift_gcn(x, gate, ws, bs, d0),
+                             ss.shift_gcn_transform(x, gate, ws, bs, d0)),
+                            ("K5", sk.shift_gcn_dx(g, gate, ws, d0),
+                             ss.shift_gcn_dx_reference(g, gate, ws, d0))):
+                        err, scale = max_err(got, want)
+                        if not err <= tol * scale:
+                            fail(f"{label} {kernel}: max|err| {err:.3g} > "
+                                 f"{tol * scale:.3g}")
+                    check_wgrad(x, g, gate, ws, label, d0)
+                    checked += 1
+                bound = max(k4_cost_ms(r, c, width, itemsize=size))
+                k6_bound = max(k6_cost_ms(
+                    r, c, width, itemsize=size,
+                    flops_per_s=TF32_3X_FLOPS if size == 4 else BF16_FLOPS))
+                for kernel, fn, kb in (
+                        ("shift_gcn", lambda: sk.fused_shift_gcn(
+                            x, gate, ws, bs, d0), bound),
+                        ("shift_gcn_dx", lambda: sk.shift_gcn_dx(
+                            g, gate, ws, d0), bound),
+                        ("shift_gcn_wgrad", lambda: sk.shift_gcn_wgrad(
+                            x, g, gate, ws, d0), k6_bound)):
+                    times[kernel][i] += count * time_ms(fn, iters=5, reps=3)
+                    times[kernel][2 + i] += count * kb
+                del x, g
+            torch.cuda.empty_cache()
+        texts.append(f"[{data}, {model}] rank m={model - 1} ({n} rows, "
+                     f"d0 = D/{model}) per step, fp32 / bf16 ms (bound): "
+                     + ", ".join(
+                         f"{k} {a:.4f} ({c_:.4f}) / {b_:.4f} ({d_:.4f})"
+                         for k, (a, b_, c_, d_) in times.items()))
+    return (f"K4/K5 within 2e-5 (bf16 2^-7) of scale and K6 within phase "
+            f"7's gates, fp32 and bf16, at {checked} (shape, d0) launches "
+            f"of the ranks of {[list(m) for m in TP_MESHES]} (T={T_WINDOW},"
+            f" C=3 first unit included); " + "; ".join(texts)
+            + f" | {card}")
+
+
+def tp_feeders(workdir: str) -> dict:
+    return {split: {"data_path": os.path.join(workdir, f"{split}_data.npy"),
+                    "label_path": os.path.join(workdir,
+                                               f"{split}_label.pkl")}
+            for split in ("train", "val")}
+
+
+def rank_tp(settings: dict, workdir: str):
+    """Phase 19b on one rank: ``Trainer.start()`` on TRAIN_CONFIG at mesh
+    [1, 2] for TP_STEPS steps with eval and save, then the fp32 step on
+    the tensor-parallel mesh."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.train.trainer import Trainer
+
+    dev = torch.device(settings["device"])
+    cfg = one_epoch_config(
+        TRAIN_CONFIG, workdir, tp_feeders(workdir), "--batch_size",
+        str(settings["batch"]), "--test_batch_size", str(settings["batch"]),
+        "--mesh_shape", "1", "2")
+    trainer = Trainer(cfg, device=dev)
+    epochs = record_epochs(trainer)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.start()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    mesh = trainer.mesh
+    summary = {"losses": epochs[0]["losses"],
+               "clips_per_sec": epochs[0]["clips_per_sec"],
+               "launches": dict(kernels.LAUNCHES), "wall_s": wall,
+               "mesh": [mesh.data, mesh.model, int(mesh.tensor_parallel)],
+               "activation_dtype": trainer.cfg.activation_dtype,
+               "shapes": {k: list(p.shape) for k, p in
+                          trainer.model.named_parameters()
+                          if k.endswith(("Linear_weight",
+                                         "temporal_linear.weight"))}}
+    del trainer
+    loss, grads, step_launches, ms, peak = parallel_step(
+        settings, settings["t"], mesh)
+    summary.update(loss=loss, step_launches=step_launches, step_ms=ms,
+                   peak_gib=peak)
+    return summary, {"grads": grads}
+
+
+def rank_tp22(settings: dict, workdir: str):
+    """Phase 19c on one rank: the fp32 step at mesh [2, 2], sound and with
+    each of TP_FAULTS."""
+    from shift_gcn_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh([2, 2], tensor_parallel=True)
+    loss, grads, launches, ms, peak = parallel_step(settings, settings["t"],
+                                                    mesh)
+    summary = {"loss": loss, "step_launches": launches, "step_ms": ms,
+               "peak_gib": peak}
+    arrays = {"grads": grads}
+    for fault in settings["faults"]:
+        with tp_planted(fault):
+            summary[f"loss:{fault}"], arrays[f"grads:{fault}"] = \
+                parallel_step(settings, settings["t"], mesh,
+                              timed=False)[:2]
+    return summary, arrays
+
+
+def scores_file(workdir: str, name: str) -> dict:
+    """The one epoch_0_*.pkl score file a run wrote."""
+    folder = os.path.join(workdir, "work", name, "eval_results")
+    found = [f for f in os.listdir(folder) if f.startswith("epoch_0_")]
+    if len(found) != 1:
+        fail(f"19: score files {found} in {folder}")
+    with open(os.path.join(folder, found[0]), "rb") as f:
+        got = pickle.load(f)
+    return np.stack([got[k] for k in sorted(got)])
+
+
+def run_tensor_parallel(rng, dev, workdir: str, card: str,
+                        seed: int) -> dict:
+    """Phase 19: tensor parallelism on this card (19a the kernels at every
+    rank's (shape, d0); 19b [1, 2] and 19c [2, 2] in gloo ranks sharing
+    it, with TP_FAULTS read against 19c's gates).  Returns the figures
+    for the summary."""
+    from shift_gcn_torch.models.shift_gcn import ModelConfig
+    from shift_gcn_torch.parallel.mesh import Mesh
+    from shift_gcn_torch.train.trainer import Trainer
+
+    config = ModelConfig(num_class=2, num_point=V, num_person=1,
+                         graph="mediapipe_pose")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    print(f"[tp] 19a kernels: {check_tp_kernels(config, gen, dev, card)}")
+
+    settings = {"device": str(dev), "seed": seed, "batch": N_WINDOWS,
+                "t": T_WINDOW, "faults": list(TP_FAULTS)}
+    ref_loss, ref_grads, _, ref_ms, ref_peak = parallel_step(settings,
+                                                             T_WINDOW)
+    # 19b: TRAIN_CONFIG through the Trainer at [1, 2], then the fp32 step
+    bdir = os.path.join(workdir, "b")
+    os.makedirs(bdir)
+    for split, n in (("train", TP_STEPS * N_WINDOWS), ("val", N_WINDOWS)):
+        write_split(bdir, split, *synthetic_batch(rng, n, T_WINDOW))
+    lines, results = run_ranks("tp", 2, bdir, settings, timeout=600)
+    expect = {k: PER_STEP[k] * TP_STEPS + PER_EVAL_FORWARD.get(k, 0)
+              for k in PER_STEP}
+    texts = []
+    for line, res in zip(lines, results):
+        rank = line["rank"]
+        if (line["activation_dtype"] != "bfloat16"
+                or line["mesh"] != [1, 2, 1]):
+            fail(f"19b rank {rank}: not bf16 on a [1, 2] tensor-parallel "
+                 f"mesh: {line}")
+        if line["shapes"]["l1.gcn1.Linear_weight"] != [3, 32] or line[
+                "shapes"]["l10.tcn1.temporal_linear.weight"] != [
+                    128, 256, 1, 1]:
+            fail(f"19b rank {rank}: not its slices: {line['shapes']}")
+        if line["launches"] != expect or line["step_launches"] != PER_STEP:
+            fail(f"19b rank {rank} launches {line['launches']} / step "
+                 f"{line['step_launches']} != {expect} / {PER_STEP}")
+        if (line["losses"] != lines[0]["losses"]
+                or len(line["losses"]) != TP_STEPS
+                or not np.isfinite(line["losses"]).all()):
+            fail(f"19b rank {rank} losses {line['losses']}")
+        texts.append(compare_step(f"19b rank {rank}", line["loss"],
+                                  res["grads"], ref_loss, ref_grads,
+                                  Mesh(1, 2, rank), False))
+    name = "mediapipe_ShiftGCN_joint"
+    saved = sorted(os.listdir(os.path.join(bdir, "save", name)))
+    if len(saved) != 1:
+        fail(f"19b: checkpoints {saved}")
+    # the full-layout checkpoint, evaluated in this process alone
+    odir = os.path.join(workdir, "one")
+    cfg = one_epoch_config(
+        TRAIN_CONFIG, odir, tp_feeders(bdir), "--phase", "test", "--weights",
+        os.path.join(bdir, "save", name, saved[0]), "--batch_size",
+        str(N_WINDOWS), "--test_batch_size", str(N_WINDOWS))
+    Trainer(cfg, device=dev).start()
+    got, want = scores_file(bdir, name), scores_file(odir, name)
+    gap = float(np.abs(got - want).max() / np.abs(want).max())
+    same = int((got.argmax(1) == want.argmax(1)).sum())
+    if not gap <= TP_SCORE_GATE or same != len(got):
+        fail(f"19b: the [1, 2] run's scores vs its checkpoint evaluated in "
+             f"one process: max |diff| {gap:.3g} of scale (gate "
+             f"{TP_SCORE_GATE:g}), predictions equal on {same} of "
+             f"{len(got)}")
+    print(f"[tp] 19b: Trainer.start() on {TRAIN_CONFIG} (bf16, batch "
+          f"{N_WINDOWS}, T={T_WINDOW}) at mesh [1, 2], 2 gloo ranks sharing "
+          f"this card, {TP_STEPS} steps + eval + save: losses "
+          f"{lines[0]['losses']} on both ranks, each holding its slices "
+          f"(l1 Linear_weight {lines[0]['shapes']['l1.gcn1.Linear_weight']}"
+          f"), launches per rank {[l['launches'] for l in lines]}, epoch "
+          f"clips/s {[round(l['clips_per_sec'], 2) for l in lines]}, wall s "
+          f"{[round(l['wall_s'], 1) for l in lines]}; checkpoint "
+          f"{saved[0]} (full layout) evaluated in one process: scores "
+          f"within {gap:.3g} of scale, predictions equal on {same} of "
+          f"{len(got)} | {card}")
+    print(f"[tp] 19b: one fp32 step, {N_WINDOWS} clips x T={T_WINDOW}, at "
+          f"[1, 2] vs one process: "
+          + "; ".join(f"rank {r} {text}" for r, text in enumerate(texts))
+          + f"; step ms per rank {[round(l['step_ms'], 3) for l in lines]} "
+          f"(ranks sharing one card, gathers through host memory: not a "
+          f"scaling figure) vs {ref_ms:.3f} one process; peak GiB per rank "
+          f"{[round(l['peak_gib'], 3) for l in lines]} vs {ref_peak:.3f} | "
+          f"{card}")
+
+    # 19c: the fp32 step at [2, 2], sound and with each planted fault
+    cdir = os.path.join(workdir, "c")
+    os.makedirs(cdir)
+    lines22, results22 = run_ranks("tp22", 4, cdir, settings, timeout=600)
+    texts22 = []
+    caught = {fault: [] for fault in TP_FAULTS}
+    for line, res in zip(lines22, results22):
+        rank = line["rank"]
+        if line["step_launches"] != PER_STEP:
+            fail(f"19c rank {rank} launches {line['step_launches']} != "
+                 f"{PER_STEP}")
+        mesh = Mesh(2, 2, rank)
+        texts22.append(compare_step(f"19c rank {rank}", line["loss"],
+                                    res["grads"], ref_loss, ref_grads, mesh,
+                                    False))
+        for fault in TP_FAULTS:
+            r = step_readings(line[f"loss:{fault}"], res[f"grads:{fault}"],
+                              ref_loss, ref_grads, mesh, False)
+            caught[fault].append((r, broken_gates(r)))
+    print(f"[tp] 19c: one fp32 step, {N_WINDOWS} clips x T={T_WINDOW}, at "
+          f"[2, 2] (4 gloo ranks sharing this card) vs one process: "
+          + "; ".join(f"rank {r} {text}" for r, text in enumerate(texts22))
+          + f"; step ms per rank "
+          f"{[round(l['step_ms'], 3) for l in lines22]} (not a scaling "
+          f"figure) vs {ref_ms:.3f} one process; peak GiB per rank "
+          f"{[round(l['peak_gib'], 3) for l in lines22]} vs "
+          f"{ref_peak:.3f} | {card}")
+    for fault, per_rank in caught.items():
+        if not any(broken for _, broken in per_rank):
+            fail(f"19c: the planted fault {fault} passed every gate: "
+                 + "; ".join(readings_text(r) for r, _ in per_rank))
+        worst = max(per_rank, key=lambda item: len(item[1]))
+        print(f"[tp] 19c planted fault {fault}: caught on ranks "
+              f"{[r for r, (_, b) in enumerate(per_rank) if b]} of 4; "
+              f"{readings_text(worst[0])}; broken: {'; '.join(worst[1])} | "
+              f"{card}")
+    return {"tp12_ms": [line["step_ms"] for line in lines],
+            "tp22_ms": [line["step_ms"] for line in lines22],
+            "one_ms": ref_ms}
+
+
+RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
+             "tp22": rank_tp22}
 
 
 def main() -> None:
@@ -3551,6 +3901,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         par = run_parallel(rng, dev, workdir, card, args.seed)
 
+    # 19. tensor parallelism -----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        tp = run_tensor_parallel(rng, dev, workdir, card, args.seed)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -3599,7 +3953,10 @@ def main() -> None:
           f"the card, [2,1] " + "/".join(f"{v:.4g}" for v in par["dp_ms"])
           + f" vs {par['one_ms'][1]:.4g}, [2,2] T={T_PAD} "
           + "/".join(f"{v:.4g}" for v in par["seqpar_ms"])
-          + f" vs {par['one_ms'][0]:.4g}")
+          + f" vs {par['one_ms'][0]:.4g}; TP [1,2] "
+          + "/".join(f"{v:.4g}" for v in tp["tp12_ms"]) + ", [2,2] "
+          + "/".join(f"{v:.4g}" for v in tp["tp22_ms"])
+          + f" vs {tp['one_ms']:.4g}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

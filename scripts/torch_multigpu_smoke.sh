@@ -8,7 +8,12 @@
 #   2. torchrun over N cards as data parallelism, mesh [N, 1],
 #   3. torchrun over N cards as data x sequence parallelism, mesh
 #      [N/2, 2] (the config's own [4, 2] when N=8),
-#   4. for runs 2 and 3, one process on one card resumed from the run's
+#   4. torchrun over N cards as tensor parallelism, mesh [1, N] and
+#      [N/2, 2] with shard_time off: configs/mediapipe/train_joint.yaml's
+#      model and batch (the seqpar config is that model and batch with
+#      T padded to 304 and a mesh), on the same padded clips, so that run
+#      1 is their one-process reference too,
+#   5. for runs 2 to 4, one process on one card resumed from the run's
 #      last checkpoint, past the end: it only evaluates, without a group.
 # Any run that fails fails the script.  Then it checks, and fails unless:
 #   - every run's first-step loss is within LOSS_GATE relative of run 1's
@@ -64,7 +69,7 @@ run() {
     echo "== $name failed"
     exit 1
   fi
-  grep -E "Batch\(|Mean|Top1" "$OUT/$name.log"
+  grep -E "Batch\(|Mean|Top1|clips/s" "$OUT/$name.log"
 }
 ONE=(--mesh_shape --shard_time false)
 EXTRA=("${ONE[@]}")
@@ -73,7 +78,12 @@ EXTRA=(--mesh_shape "$N" 1 --shard_time false)
 run "dp$N" python -m torch.distributed.run --standalone --nproc-per-node "$N"
 EXTRA=(--mesh_shape $((N / 2)) 2)
 run "seqpar$N" python -m torch.distributed.run --standalone --nproc-per-node "$N"
-for name in "dp$N" "seqpar$N"; do
+TP=("tp1x$N" "tp$((N / 2))x2")
+EXTRA=(--mesh_shape 1 "$N" --shard_time false)
+run "${TP[0]}" python -m torch.distributed.run --standalone --nproc-per-node "$N"
+EXTRA=(--mesh_shape $((N / 2)) 2 --shard_time false)
+run "${TP[1]}" python -m torch.distributed.run --standalone --nproc-per-node "$N"
+for name in "dp$N" "seqpar$N" "${TP[@]}"; do
   EXTRA=("${ONE[@]}" --resume "$(ls "$OUT/save/$name"/*.pt)")
   run "$name-eval1" python
 done
@@ -99,7 +109,7 @@ def scores(name):
     return np.stack([got[k] for k in sorted(got)])
 
 
-runs = ["one", f"dp{n}", f"seqpar{n}"]
+runs = ["one", f"dp{n}", f"seqpar{n}", f"tp1x{n}", f"tp{int(n) // 2}x2"]
 first = {r: float(re.search(r"Batch\(0/\d+\) done\. Loss: ([-\d.naif]+)",
                             log(r)).group(1)) for r in runs}
 for r in runs[1:]:

@@ -13,6 +13,13 @@
 //   z[r, u, d]   = sum_c h[r, u, c] * W[c, d] + bias[d]
 //   out[r, w, d] = z[r, (w - d) % V, d]                     (shear out)
 //
+// Under tensor parallelism a rank holds output channels [d0, d0 + D) of
+// a wider layer: W and bias are its column slice, and every shear on the
+// d axis indexes the global channel d0 + d (K4's shear out, K5's and
+// K6's shear in of the cotangent).  The shears on the c axis stay as
+// they are: the rank holds every input channel.  d0 = 0 is the unsharded
+// layer, and the kernels then do exactly what they did without d0.
+//
 // K5, for the cotangent g (R, V, D):
 //
 //   dz[r, u, c]  = sum_d g[r, (u + d) % V, d] * W[c, d]
@@ -304,13 +311,15 @@ __device__ __forceinline__ float bf16_hi(uint32_t pair) {
 }
 
 // Store the tile's rows of z (staged in zs) with the out-shear folded in:
-// out[r, w, n] = zs[f*V + (w - n) % V][n], times gate[(w - n) % V, n] for
-// K5.  Each thread owns one kVec-column chunk and walks the rows.
+// out[r, w, n] = zs[f*V + (w - n') % V][n], n' = d0 + n (K4's global
+// output channel) or n (K5: the input channels, all held), times
+// gate[(w - n) % V, n] for K5.  Each thread owns one kVec-column chunk
+// and walks the rows.
 template <typename T, bool kDx, int kBN, int kVec>
 __device__ __forceinline__ void store_tile(const float* zs, T* out,
                                            const float* gate,
                                            int64_t row0, int rows, int v,
-                                           int n0, int n) {
+                                           int n0, int n, int d0) {
   constexpr int kLdz = kBN + 4;
   constexpr int kChunks = kBN / kVec;
   constexpr int kStep = kMmaThreads / kChunks;
@@ -320,7 +329,7 @@ __device__ __forceinline__ void store_tile(const float* zs, T* out,
   if (col >= n) return;  // n % kVec == 0 on the vector path
   int nm[kVec];
 #pragma unroll
-  for (int e = 0; e < kVec; ++e) nm[e] = (col + e) % v;
+  for (int e = 0; e < kVec; ++e) nm[e] = ((kDx ? 0 : d0) + col + e) % v;
   int m = threadIdx.x / kChunks;
   int f = m / v;
   int w = m - f * v;
@@ -356,14 +365,16 @@ __device__ __forceinline__ void store_tile(const float* zs, T* out,
 // forward's (n, kdim) array read transposed, gate (V, n) multiplies the
 // output at its source joint, no bias.  vec_x / vec_w / vec_g / vec_out:
 // the 16-byte paths apply (row lengths and base pointers allow them).
+// d0: the global index of output channel 0 of the forward (K4's n axis,
+// K5's kdim axis), which the shears on that axis read.
 template <typename T, bool kDx, int kBN>
 __global__ void __launch_bounds__(kMmaThreads, kDx && kBN == 64 ? 2 : 1)
 shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
                      const float* __restrict__ w,
                      const float* __restrict__ bias, T* __restrict__ out,
                      int r_total, int v, int kdim, int n, int frames,
-                     int col_tiles, int tiles, bool vec_x, bool vec_w,
-                     bool vec_g, bool vec_out) {
+                     int col_tiles, int tiles, int d0, bool vec_x,
+                     bool vec_w, bool vec_g, bool vec_out) {
   using L = Layout<T, kDx, kBN>;
   constexpr int kNT = kBN / 32;
   constexpr int kLda = slab_ld<T>();
@@ -549,7 +560,8 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
       const float* gs =
           reinterpret_cast<const float*>(base + L::kSlabBytes + L::kWBytes);
       const T* xs = reinterpret_cast<const T*>(base);
-      const int c_lo = k0 + a_kk_lo;
+      // K5's k axis is the forward's output channels: global from d0
+      const int c_lo = (kDx ? d0 : 0) + k0 + a_kk_lo;
       const int cm_lo = c_lo % v;  // channel mod V, once per stage
       const int cm_hi = (c_lo + 4) % v;
 #pragma unroll
@@ -651,9 +663,9 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
     const int64_t row0 = static_cast<int64_t>(r0) * v;
     if (vec_out) {
       store_tile<T, kDx, kBN, vec_elems<T>()>(zs, out, gate, row0, rows, v,
-                                              n0, n);
+                                              n0, n, d0);
     } else {
-      store_tile<T, kDx, kBN, 1>(zs, out, gate, row0, rows, v, n0, n);
+      store_tile<T, kDx, kBN, 1>(zs, out, gate, row0, rows, v, n0, n, d0);
     }
   }
   cp_async_wait<0>();
@@ -681,6 +693,7 @@ __host__ __device__ constexpr int wg_frames() {
 
 struct WgradGeom {
   int r, v, c, d;
+  int d_global;                // global index of output channel 0 (d0)
   int groups, joints, window;  // joint groups, joints a group, rows staged
   int c_tiles, d_tiles;
   int parts, chunk;            // frame chunks, frames a chunk
@@ -783,7 +796,7 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int f_end = min(s.r, f_begin + s.chunk);
   const int steps = f_end > f_begin ? (f_end - f_begin + kF - 1) / kF : 0;
   const int base_x = (u0 + c0) % s.v;
-  const int base_g = (u0 + d0) % s.v;
+  const int base_g = (u0 + s.d_global % s.v + d0) % s.v;
   const bool want_bias = cti == 0;
 
   const int tid = threadIdx.x;
@@ -1105,7 +1118,7 @@ bool aligned16(const void* p) {
 template <typename T, bool kDx, int kBN>
 int launch_tile(const void* x, const void* gate, const void* w,
                 const void* bias, void* out, int r, int v, int kdim, int n,
-                void* stream) {
+                int d0, void* stream) {
   auto kernel = shift_gcn_mma_kernel<T, kDx, kBN>;
   const int smem = Layout<T, kDx, kBN>::bytes(v);
   cudaError_t err = cudaFuncSetAttribute(
@@ -1136,32 +1149,34 @@ int launch_tile(const void* x, const void* gate, const void* w,
       static_cast<const T*>(x), static_cast<const float*>(gate),
       static_cast<const float*>(w), static_cast<const float*>(bias),
       static_cast<T*>(out), r, v, kdim, n, frames, col_tiles,
-      static_cast<int>(tiles), vec_x, vec_w, vec_g, vec_out);
+      static_cast<int>(tiles), d0, vec_x, vec_w, vec_g, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kDx>
 int launch(const void* x, const void* gate, const void* w, const void* bias,
-           void* out, int r, int v, int kdim, int n, void* stream) {
-  if (v < 1 || v > kRows) return static_cast<int>(cudaErrorInvalidValue);
+           void* out, int r, int v, int kdim, int n, int d0, void* stream) {
+  if (v < 1 || v > kRows || d0 < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (r == 0 || kdim == 0 || n == 0) return 0;
   return n > 64 ? launch_tile<T, kDx, 128>(x, gate, w, bias, out, r, v, kdim,
-                                           n, stream)
+                                           n, d0, stream)
                 : launch_tile<T, kDx, 64>(x, gate, w, bias, out, r, v, kdim, n,
-                                          stream);
+                                          d0, stream);
 }
 
 // The shape of one K6 launch, but for the stage count and the 16-byte
 // paths; false if the arguments are out of range.
-bool wg_geom(int r, int v, int c, int d, int parts, int chunk,
+bool wg_geom(int r, int v, int c, int d, int d0, int parts, int chunk,
              WgradGeom& s) {
-  if (v < 1 || v > kRows || c < 1 || d < 1 || r < 0 || parts < 1 ||
-      chunk < 1 || static_cast<int64_t>(parts) * chunk < r)
+  if (v < 1 || v > kRows || c < 1 || d < 1 || d0 < 0 || r < 0 ||
+      parts < 1 || chunk < 1 || static_cast<int64_t>(parts) * chunk < r)
     return false;
   s.r = r;
   s.v = v;
   s.c = c;
   s.d = d;
+  s.d_global = d0;
   s.groups = (v + kWgGroup - 1) / kWgGroup;
   s.joints = (v + s.groups - 1) / s.groups;
   s.window = v < s.joints + kWgTile - 1 ? v : s.joints + kWgTile - 1;
@@ -1178,10 +1193,10 @@ bool wg_geom(int r, int v, int c, int d, int parts, int chunk,
 template <typename T>
 int launch_wgrad(const void* x, const void* g, const void* gate,
                  const void* w, void* partial, int64_t scratch, void* dgate,
-                 void* dw, void* dbias, int r, int v, int c, int d, int parts,
-                 int chunk, void* stream) {
+                 void* dw, void* dbias, int r, int v, int c, int d, int d0,
+                 int parts, int chunk, void* stream) {
   WgradGeom s;
-  if (!wg_geom(r, v, c, d, parts, chunk, s))
+  if (!wg_geom(r, v, c, d, d0, parts, chunk, s))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr int kVec = vec_elems<T>();
   s.vec_x = c % kVec == 0 && aligned16(x);
@@ -1217,30 +1232,33 @@ int launch_wgrad(const void* x, const void* g, const void* gate,
 
 }  // namespace
 
-// K4: out (r, v, d) from x (r, v, c), gate (v, c), W (c, d), bias (d).
+// K4: out (r, v, d) from x (r, v, c), gate (v, c), W (c, d), bias (d);
+// d0 the global index of output channel 0 (0 unless W is a column slice).
 extern "C" int shift_gcn_forward(const void* x, const void* gate,
                                  const void* w, const void* bias, void* out,
-                                 int r, int v, int c, int d, int is_bf16,
-                                 void* stream) {
+                                 int r, int v, int c, int d, int d0,
+                                 int is_bf16, void* stream) {
   return is_bf16 ? launch<__nv_bfloat16, false>(x, gate, w, bias, out, r, v,
-                                                c, d, stream)
+                                                c, d, d0, stream)
                  : launch<float, false>(x, gate, w, bias, out, r, v, c, d,
-                                        stream);
+                                        d0, stream);
 }
 
 // K5: dx (r, v, c) from the cotangent g (r, v, d), the forward's gate
-// (v, c) and W (c, d).
+// (v, c) and W (c, d); d0 as K4's.  Under a column slice dx is this
+// slice's part of the input gradient.
 extern "C" int shift_gcn_dx(const void* g, const void* gate, const void* w,
-                            void* dx, int r, int v, int c, int d,
+                            void* dx, int r, int v, int c, int d, int d0,
                             int is_bf16, void* stream) {
   return is_bf16 ? launch<__nv_bfloat16, true>(g, gate, w, nullptr, dx, r, v,
-                                               d, c, stream)
+                                               d, c, d0, stream)
                  : launch<float, true>(g, gate, w, nullptr, dx, r, v, d, c,
-                                       stream);
+                                       d0, stream);
 }
 
 // K6: dgate (v, c), dw (c, d), dbias (d), all fp32, from the forward's
-// input x (r, v, c), the cotangent g (r, v, d), gate (v, c) and W (c, d).
+// input x (r, v, c), the cotangent g (r, v, d), gate (v, c) and W (c, d);
+// d0 as K4's (dgate is then this slice's part).
 // R is summed in `parts` chunks of `chunk` frames; `partial` is fp32
 // scratch of `scratch` floats, at least shift_gcn_wgrad_scratch(...).
 // Two kernels, one launch.
@@ -1248,20 +1266,21 @@ extern "C" int shift_gcn_wgrad(const void* x, const void* g, const void* gate,
                                const void* w, void* partial,
                                long long scratch, void* dgate, void* dw,
                                void* dbias, int r, int v, int c, int d,
-                               int parts, int chunk, int is_bf16,
+                               int d0, int parts, int chunk, int is_bf16,
                                void* stream) {
   return is_bf16 ? launch_wgrad<__nv_bfloat16>(x, g, gate, w, partial,
                                                scratch, dgate, dw, dbias, r,
-                                               v, c, d, parts, chunk, stream)
+                                               v, c, d, d0, parts, chunk,
+                                               stream)
                  : launch_wgrad<float>(x, g, gate, w, partial, scratch,
-                                       dgate, dw, dbias, r, v, c, d, parts,
-                                       chunk, stream);
+                                       dgate, dw, dbias, r, v, c, d, d0,
+                                       parts, chunk, stream);
 }
 
 // fp32 scratch floats shift_gcn_wgrad needs for these arguments, or -1 if
 // it refuses them.
 extern "C" long long shift_gcn_wgrad_scratch(int r, int v, int c, int d,
-                                             int parts, int chunk) {
+                                             int d0, int parts, int chunk) {
   WgradGeom s;
-  return wg_geom(r, v, c, d, parts, chunk, s) ? wg_scratch(s) : -1;
+  return wg_geom(r, v, c, d, d0, parts, chunk, s) ? wg_scratch(s) : -1;
 }

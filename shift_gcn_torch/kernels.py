@@ -119,16 +119,16 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
         }
     else:
         signatures = {
-            # (x, gate, w, bias, out, r, v, c, d, is_bf16, stream)
-            "shift_gcn_forward": [ptr] * 5 + [i32] * 5 + [ptr],
-            # (g, gate, w, dx, r, v, c, d, is_bf16, stream)
-            "shift_gcn_dx": [ptr] * 4 + [i32] * 5 + [ptr],
+            # (x, gate, w, bias, out, r, v, c, d, d0, is_bf16, stream)
+            "shift_gcn_forward": [ptr] * 5 + [i32] * 6 + [ptr],
+            # (g, gate, w, dx, r, v, c, d, d0, is_bf16, stream)
+            "shift_gcn_dx": [ptr] * 4 + [i32] * 6 + [ptr],
             # (x, g, gate, w, partial, scratch floats, dgate, dw, dbias,
-            #  r, v, c, d, parts, chunk, is_bf16, stream)
-            "shift_gcn_wgrad": [ptr] * 5 + [i64] + [ptr] * 3 + [i32] * 7
+            #  r, v, c, d, d0, parts, chunk, is_bf16, stream)
+            "shift_gcn_wgrad": [ptr] * 5 + [i64] + [ptr] * 3 + [i32] * 8
                                + [ptr],
-            # (r, v, c, d, parts, chunk) -> its scratch floats (int64)
-            "shift_gcn_wgrad_scratch": [i32] * 6,
+            # (r, v, c, d, d0, parts, chunk) -> its scratch floats (int64)
+            "shift_gcn_wgrad_scratch": [i32] * 7,
         }
     for symbol, argtypes in signatures.items():
         fn = getattr(lib, symbol)

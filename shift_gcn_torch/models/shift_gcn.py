@@ -34,6 +34,10 @@ each BN's ``group`` (sync BN), each ``ShiftTCN``'s ``mesh`` (the
 constraint's reduction) and ``shard_time`` (the shifts on halo-extended
 T shards, ``parallel/halo.py``), and ``Model.mesh`` under
 ``shard_time``, whose time ranks the final pooling is averaged over.
+Under tensor parallelism (``parallel/tensor.py``) it sets each
+``ShiftGCN``'s and ``ShiftTCN``'s ``mesh`` to a tensor-parallel mesh:
+K4 and the temporal 1x1 then run on the rank's slice of their output
+channels, and the slices are gathered over the model ranks.
 """
 
 from __future__ import annotations
@@ -53,7 +57,7 @@ from shift_gcn_torch.ops.lowering import Lowering
 from shift_gcn_torch.ops.lowering import from_dict as lowering_from_dict
 from shift_gcn_torch.ops.lowering import resolve as resolve_lowering
 from shift_gcn_torch.ops.spatial_shift import flat_shift_index
-from shift_gcn_torch.parallel import comm, halo
+from shift_gcn_torch.parallel import comm, halo, tensor
 from shift_gcn_torch.utils.device import pin_fp32_math, resolve_device
 
 
@@ -128,6 +132,7 @@ class ShiftGCN(nn.Module):
         self.bn = BatchNorm(v * cout, feature_dims=2)
         self.down = (nn.Sequential(Conv(cin, cout), BatchNorm(cout))
                      if cin != cout else None)
+        self.mesh = None  # a tensor-parallel mesh (seqpar.attach)
         # the reference's index buffers, kept for state_dict parity; the
         # kernel computes the same shifts from index arithmetic
         self.register_buffer(
@@ -138,9 +143,16 @@ class ShiftGCN(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, t, v, cin = x.shape
         gate = torch.tanh(self.Feature_Mask[0]) + 1.0
-        h = shift_gcn_kernel.fused_shift_gcn(
-            x.reshape(n * t, v, cin), gate, self.Linear_weight,
-            self.Linear_bias.reshape(-1))
+        bias = self.Linear_bias.reshape(-1)
+        if self.mesh is None:
+            h = shift_gcn_kernel.fused_shift_gcn(
+                x.reshape(n * t, v, cin), gate, self.Linear_weight, bias)
+        else:
+            # this rank's output channels, then every rank's
+            cols = tensor.columns(self.mesh, self.Linear_weight.shape[1])
+            h = comm.gather_channels(shift_gcn_kernel.fused_shift_gcn(
+                x.reshape(n * t, v, cin), gate, self.Linear_weight,
+                bias[cols], cols.start), self.mesh.model_group)
         h = self.bn(h.reshape(n, t, v, -1))
         if self.down is not None:
             conv, bn = self.down
@@ -194,8 +206,15 @@ class ShiftTCN(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = self._shift(self.bn(x), self.shift_in, 1)
-        h = pointwise_conv(h, self.temporal_linear.weight,
-                           self.temporal_linear.bias, self.compute_dtype)
+        weight, bias = self.temporal_linear.weight, self.temporal_linear.bias
+        if self.mesh is not None and self.mesh.tensor_parallel:
+            # this rank's output channels (weight rows), then every rank's
+            cols = tensor.columns(self.mesh, weight.shape[0])
+            h = comm.gather_channels(pointwise_conv(
+                h, weight, bias[cols], self.compute_dtype),
+                self.mesh.model_group)
+        else:
+            h = pointwise_conv(h, weight, bias, self.compute_dtype)
         h = torch.relu(h)
         h = self._shift(h, self.shift_out, self.stride)
         return self.bn2(h)

@@ -8,8 +8,10 @@ K4 are ``torch.library.custom_op``s:
 
 - ``shift_gcn_torch::temporal_shift(x, ypos, stride)``: K1,
   (N, T, V, C) -> (N, T // stride, V, C);
-- ``shift_gcn_torch::shift_gcn(x, gate, w, bias)``: K4,
-  (R, V, C) -> (R, V, D).
+- ``shift_gcn_torch::shift_gcn(x, gate, w, bias, d0=0)``: K4,
+  (R, V, C) -> (R, V, D), output channels [d0, d0 + D) of the layer
+  (``d0`` is nonzero only on a tensor-parallel rank; a graph exported
+  without it records the default).
 
 Each runs its raw launcher (``temporal_shift.temporal_shift_forward``,
 ``shift_gcn_kernel.shift_gcn_forward``), the one launch site of its
@@ -52,13 +54,13 @@ def _temporal_shift_fake(x, ypos, stride):
 
 @torch.library.custom_op("shift_gcn_torch::shift_gcn", mutates_args=())
 def shift_gcn(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
-              bias: torch.Tensor) -> torch.Tensor:
+              bias: torch.Tensor, d0: int = 0) -> torch.Tensor:
     """K4: x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D) in
-    x.dtype."""
-    return shift_gcn_kernel.shift_gcn_forward(x, gate, w, bias)
+    x.dtype, output channels [d0, d0 + D) of the layer."""
+    return shift_gcn_kernel.shift_gcn_forward(x, gate, w, bias, d0)
 
 
 @shift_gcn.register_fake
-def _shift_gcn_fake(x, gate, w, bias):
+def _shift_gcn_fake(x, gate, w, bias, d0=0):
     r, v, _ = x.shape
     return x.new_empty((r, v, w.shape[-1]))

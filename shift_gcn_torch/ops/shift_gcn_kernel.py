@@ -32,6 +32,12 @@ run their plain PyTorch versions
 (``csrc/shift_gcn.cu``) on a CUDA tensor, or raise; called in grad mode
 on an input that requires grad, each raises.  Math is fp32; activations
 follow x.dtype (fp32 or bf16); K6's outputs are fp32.
+
+Every entry point takes ``d0``, the global index of the first output
+channel, default 0: under tensor parallelism (``parallel/tensor.py``) w
+and bias are a rank's column slice of a wider layer, the output shears
+index the global channel, and dx and dgate are that slice's parts,
+which the ranks' backward passes add up (``ops.spatial_shift``).
 """
 
 from __future__ import annotations
@@ -66,12 +72,19 @@ def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
                          "144-row frame tile")
 
 
+def _check_offset(name: str, d0: int) -> None:
+    if d0 < 0:
+        raise ValueError(f"{name}: output-channel offset d0={d0} < 0")
+
+
 def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
-    """K4: x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D)."""
+                      bias: torch.Tensor, d0: int = 0) -> torch.Tensor:
+    """K4: x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D);
+    output channels [d0, d0 + D) of the layer."""
     kernels.refuse_grad("shift_gcn", x, gate, w, bias)
+    _check_offset("shift_gcn", d0)
     if x.device.type == "cpu":
-        return shift_gcn_transform(x, gate, w, bias)
+        return shift_gcn_transform(x, gate, w, bias, d0)
     r, v, c = x.shape
     d = w.shape[-1]
     _check_cuda("shift_gcn", x, gate=(gate, (v, c)), w=(w, (c, d)),
@@ -81,19 +94,21 @@ def shift_gcn_forward(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
     out = torch.empty((r, v, d), dtype=x.dtype, device=x.device)
     status = kernels.launch(
         "shift_gcn", "shift_gcn_forward", x, x.data_ptr(), gate.data_ptr(),
-        w.data_ptr(), bias.data_ptr(), out.data_ptr(), r, v, c, d,
+        w.data_ptr(), bias.data_ptr(), out.data_ptr(), r, v, c, d, d0,
         int(x.dtype == torch.bfloat16))
     kernels.check(status, "shift_gcn")
     kernels.LAUNCHES["shift_gcn"] += 1
     return out
 
 
-def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor,
-                 w: torch.Tensor) -> torch.Tensor:
-    """K5: cotangent g (R, V, D), gate (V, C), w (C, D) -> dx (R, V, C)."""
+def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
+                 d0: int = 0) -> torch.Tensor:
+    """K5: cotangent g (R, V, D) of output channels [d0, d0 + D), gate
+    (V, C), w (C, D) -> dx (R, V, C)."""
     kernels.refuse_grad("shift_gcn_dx", g, gate, w)
+    _check_offset("shift_gcn_dx", d0)
     if g.device.type == "cpu":
-        return shift_gcn_dx_reference(g, gate, w)
+        return shift_gcn_dx_reference(g, gate, w, d0)
     r, v, d = g.shape
     c = w.shape[0]
     _check_cuda("shift_gcn_dx", g, gate=(gate, (v, c)), w=(w, (c, d)))
@@ -103,7 +118,7 @@ def shift_gcn_dx(g: torch.Tensor, gate: torch.Tensor,
     dx = torch.empty((r, v, c), dtype=g.dtype, device=g.device)
     status = kernels.launch(
         "shift_gcn", "shift_gcn_dx", g, g.data_ptr(), gate.data_ptr(),
-        w.data_ptr(), dx.data_ptr(), r, v, c, d,
+        w.data_ptr(), dx.data_ptr(), r, v, c, d, d0,
         int(g.dtype == torch.bfloat16))
     kernels.check(status, "shift_gcn_dx")
     kernels.LAUNCHES["shift_gcn_dx"] += 1
@@ -127,13 +142,14 @@ def wgrad_split(r: int, v: int, c: int, d: int) -> Tuple[int, int]:
 
 
 def shift_gcn_wgrad(x: torch.Tensor, g: torch.Tensor, gate: torch.Tensor,
-                    w: torch.Tensor):
-    """K6: from the forward's input x (R, V, C), the cotangent g (R, V, D),
-    gate (V, C) and w (C, D), (dgate (V, C), dw (C, D), dbias (D,)), fp32,
-    in one launch."""
+                    w: torch.Tensor, d0: int = 0):
+    """K6: from the forward's input x (R, V, C), the cotangent g (R, V, D)
+    of output channels [d0, d0 + D), gate (V, C) and w (C, D), (dgate
+    (V, C), dw (C, D), dbias (D,)), fp32, in one launch."""
     kernels.refuse_grad("shift_gcn_wgrad", x, g, gate, w)
+    _check_offset("shift_gcn_wgrad", d0)
     if x.device.type == "cpu":
-        return shift_gcn_wgrad_reference(x, g, gate, w)
+        return shift_gcn_wgrad_reference(x, g, gate, w, d0)
     r, v, c = x.shape
     d = w.shape[-1]
     _check_cuda("shift_gcn_wgrad", x, gate=(gate, (v, c)), w=(w, (c, d)))
@@ -146,7 +162,7 @@ def shift_gcn_wgrad(x: torch.Tensor, g: torch.Tensor, gate: torch.Tensor,
                          "indexing")
     parts, chunk = wgrad_split(r, v, c, d)
     lib = kernels.library("shift_gcn")
-    scratch = lib.shift_gcn_wgrad_scratch(r, v, c, d, parts, chunk)
+    scratch = lib.shift_gcn_wgrad_scratch(r, v, c, d, d0, parts, chunk)
     if scratch < 0:
         raise ValueError(f"shift_gcn_wgrad: unsupported shape {(r, v, c, d)}")
     partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
@@ -156,8 +172,8 @@ def shift_gcn_wgrad(x: torch.Tensor, g: torch.Tensor, gate: torch.Tensor,
     status = kernels.launch(
         "shift_gcn", "shift_gcn_wgrad", x, x.data_ptr(), g.data_ptr(),
         gate.data_ptr(), w.data_ptr(), partial.data_ptr(), scratch,
-        dgate.data_ptr(), dw.data_ptr(), dbias.data_ptr(), r, v, c, d, parts,
-        chunk, int(x.dtype == torch.bfloat16))
+        dgate.data_ptr(), dw.data_ptr(), dbias.data_ptr(), r, v, c, d, d0,
+        parts, chunk, int(x.dtype == torch.bfloat16))
     kernels.check(status, "shift_gcn_wgrad")
     kernels.LAUNCHES["shift_gcn_wgrad"] += 1
     return dgate, dw, dbias
@@ -167,9 +183,10 @@ class FusedShiftGCNFunction(torch.autograd.Function):
     """Forward K4; backward K5 (dx) and K6 (dgate, dw, dbias)."""
 
     @staticmethod
-    def forward(ctx, x, gate, w, bias):
+    def forward(ctx, x, gate, w, bias, d0=0):
         ctx.save_for_backward(x, gate, w)
-        return torch.ops.shift_gcn_torch.shift_gcn(x, gate, w, bias)
+        ctx.d0 = d0
+        return torch.ops.shift_gcn_torch.shift_gcn(x, gate, w, bias, d0)
 
     @staticmethod
     def backward(ctx, g):
@@ -177,17 +194,18 @@ class FusedShiftGCNFunction(torch.autograd.Function):
         g = g.contiguous()
         dx = dgate = dw = dbias = None
         if ctx.needs_input_grad[0]:
-            dx = shift_gcn_dx(g, gate, w)
-        if any(ctx.needs_input_grad[1:]):
-            dgate, dw, dbias = shift_gcn_wgrad(x, g, gate, w)
-        return dx, dgate, dw, dbias
+            dx = shift_gcn_dx(g, gate, w, ctx.d0)
+        if any(ctx.needs_input_grad[1:4]):
+            dgate, dw, dbias = shift_gcn_wgrad(x, g, gate, w, ctx.d0)
+        return dx, dgate, dw, dbias, None
 
 
 def fused_shift_gcn(x: torch.Tensor, gate: torch.Tensor, w: torch.Tensor,
-                    bias: torch.Tensor) -> torch.Tensor:
+                    bias: torch.Tensor, d0: int = 0) -> torch.Tensor:
     """x (R, V, C), gate (V, C), w (C, D), bias (D,) -> (R, V, D) in
-    x.dtype; see the module docstring."""
+    x.dtype, output channels [d0, d0 + D) of the layer; see the module
+    docstring."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (x, gate, w, bias)):
-        return FusedShiftGCNFunction.apply(x, gate, w, bias)
-    return torch.ops.shift_gcn_torch.shift_gcn(x, gate, w, bias)
+        return FusedShiftGCNFunction.apply(x, gate, w, bias, d0)
+    return torch.ops.shift_gcn_torch.shift_gcn(x, gate, w, bias, d0)

@@ -12,6 +12,19 @@ of a mean of per-rank inputs when every rank back-propagates its own
 part of one objective shared by all ranks (``seqpar.py`` says which).
 Sync BN's statistics and, under sequence parallelism, the final
 temporal pooling take it.
+
+``gather_channels`` is differentiable too: the forward concatenates the
+group's channel slices along the last axis (tensor parallelism, each
+model rank computing its slice of a layer's output channels), and the
+backward sums the ranks' cotangents of the whole and keeps this rank's
+slice.  Every rank's cotangent of a gathered tensor is its own part of
+the shared objective's, so that sum is the whole objective's cotangent
+of the slice, the exact adjoint of a gather; a backward that kept the
+own slice of the own cotangent alone would drop the other ranks'
+parts.  The partial input gradients the slice's op then passes down
+(K5's dx, the 1x1's) need no reduction: they stay each rank's part,
+and the parameter gradients computed from them are summed over the
+ranks with the rest (``Mesh.reduce_gradients``).
 """
 
 from __future__ import annotations
@@ -66,3 +79,25 @@ class _AllReduceMean(torch.autograd.Function):
 def all_reduce_mean(x: torch.Tensor, group) -> torch.Tensor:
     """The group mean of ``x``; its backward averages the cotangents."""
     return _AllReduceMean.apply(x, group)
+
+
+class _GatherChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.width = x.shape[-1]
+        return torch.cat(all_gather(x, group), -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        # the sum in fp32 (gloo sums no bf16 on every build), then one
+        # rounding to the cotangent's type
+        total = all_reduce_sum_(g.float().contiguous(), ctx.group)
+        start = dist.get_rank(ctx.group) * ctx.width
+        return total[..., start:start + ctx.width].to(g.dtype), None
+
+
+def gather_channels(x: torch.Tensor, group) -> torch.Tensor:
+    """(..., C / M) slices of the group's M ranks -> (..., C), in group
+    rank order; its backward is the adjoint (see the module docstring)."""
+    return _GatherChannels.apply(x.contiguous(), group)

@@ -4,12 +4,15 @@ group.
 The counterpart of the reference package's ``parallel/mesh.py``
 (``make_mesh``: ``np.reshape(devices, (data, model))``): rank r sits at
 (d, m) = divmod(r, M).  Every rank creates one process group per data
-coordinate (its M time ranks, ``time_group``) and one per model
+coordinate (its M model ranks, ``model_group``) and one per model
 coordinate (its D data ranks, ``data_group``), in the same order, as
 ``new_group`` requires.  ``mesh_shape: null`` puts every rank on
 'data'; D * M must equal the world size.  Data rank d holds batch rows
-[d B / D, (d + 1) B / D) and, under sequence parallelism, model rank m
-holds frames [m T / M, (m + 1) T / M).
+[d B / D, (d + 1) B / D).  The model ranks hold, under sequence
+parallelism, frames [m T / M, (m + 1) T / M) (``time_group`` names
+their group then), and under tensor parallelism (``tensor_parallel``:
+M > 1 without ``shard_time``) output channels [m C / M, (m + 1) C / M)
+of the sharded parameters (``parallel/tensor.py``).
 
 Batches: a node's feeder gives the node's batch (``hosts`` > 1, each
 node a shard of the epoch, as a host of the reference package), or
@@ -18,9 +21,11 @@ D == 1); a rank keeps its rows of what its feeder gave.
 
 The reductions a train step needs live here too: ``reduce_gradients``
 sums every gradient but the shift positions' over the world and divides
-by D, and ``reduce_position_grad`` sums the raw position gradient over
-the world and divides by D (a sum over the time ranks and a mean over
-the data ranks), before the constraint step.
+by D, except a tensor-parallel rank's slices, which it sums over the
+data ranks alone (the model ranks hold different slices); and
+``reduce_position_grad`` sums the raw position gradient over the world
+and divides by D (a sum over the model ranks' parts and a mean over the
+data ranks), before the constraint step.
 """
 
 from __future__ import annotations
@@ -32,7 +37,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from shift_gcn_torch.parallel import comm
+from shift_gcn_torch.parallel import comm, tensor
 
 # parameters whose step the constraint sets identically on every rank:
 # summed over the world they would be scaled, and averaged, rounded
@@ -47,11 +52,20 @@ class Mesh:
     hosts: int = 1
     world_group: Any = None
     data_group: Any = None
-    time_group: Any = None
+    model_group: Any = None
+    # M > 1 without shard_time: the model ranks hold slices of the
+    # sharded parameters (parallel/tensor.py)
+    tensor_parallel: bool = False
 
     @property
     def world(self) -> int:
         return self.data * self.model
+
+    @property
+    def time_group(self):
+        """The model ranks' group, which holds the T shards under
+        sequence parallelism."""
+        return self.model_group
 
     @property
     def host(self) -> int:
@@ -90,25 +104,33 @@ class Mesh:
         return out
 
     def reduce_gradients(self, named_parameters) -> None:
-        """Sum the gradients of (name, parameter) pairs over the world in
-        one flat buffer and divide by D; shift positions keep their
+        """Sum the gradients of (name, parameter) pairs over the world
+        (a tensor-parallel rank's slices over the data ranks) in one flat
+        buffer a group and divide by D; shift positions keep their
         (identical) constraint steps."""
-        grads = [p.grad for name, p in named_parameters
-                 if p.grad is not None
-                 and not name.endswith(POSITION_SUFFIXES)]
-        if not grads:
-            return
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        comm.all_reduce_sum_(flat, self.world_group)
-        flat /= self.data
-        offset = 0
-        for g in grads:
-            g.copy_(flat[offset:offset + g.numel()].view_as(g))
-            offset += g.numel()
+        replicated, sharded = [], []
+        for name, p in named_parameters:
+            if p.grad is None or name.endswith(POSITION_SUFFIXES):
+                continue
+            (sharded if self.tensor_parallel
+             and tensor.sharded_axis(name) is not None
+             else replicated).append(p.grad)
+        for group, grads in ((self.world_group, replicated),
+                             (self.data_group, sharded)):
+            if not grads:
+                continue
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            comm.all_reduce_sum_(flat, group)
+            flat /= self.data
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
     def reduce_position_grad(self, gy_raw: torch.Tensor) -> torch.Tensor:
-        """gy_raw summed over the time ranks and averaged over the data
-        ranks: the global batch mean of the global (T, V) sum."""
+        """gy_raw summed over the model ranks (their frames, or their
+        parts of the cotangent under tensor parallelism) and averaged over
+        the data ranks: the global batch mean of the global (T, V) sum."""
         return comm.all_reduce_sum_(gy_raw.clone(),
                                     self.world_group) / self.data
 
@@ -136,11 +158,13 @@ class Mesh:
 
 
 def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
-              nodes: int = 1) -> Mesh:
+              nodes: int = 1, tensor_parallel: bool = False) -> Mesh:
     """The mesh of the default process group (a one-rank mesh without
     one) over ``nodes`` nodes: when several nodes feed D > 1 data ranks,
     each node's feeder gives its shard of the epoch (``hosts`` = nodes);
-    otherwise every feeder gives the whole batch (``hosts`` = 1)."""
+    otherwise every feeder gives the whole batch (``hosts`` = 1).
+    ``tensor_parallel``: the model ranks, if M > 1, shard parameters
+    (the caller's choice: without it they shard T or nothing)."""
     initialized = dist.is_available() and dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     data, model = (world, 1) if not mesh_shape else (
@@ -154,13 +178,14 @@ def make_mesh(mesh_shape: Optional[Sequence[int]] = None,
     if data % hosts:
         raise ValueError(f"the data axis ({data}) must split over the "
                          f"{hosts} nodes that feed it")
+    tensor_parallel = bool(tensor_parallel) and model > 1
     if not initialized:
-        return Mesh(data, model)
+        return Mesh(data, model, tensor_parallel=tensor_parallel)
     rank = dist.get_rank()
-    time_groups = [dist.new_group([d * model + m for m in range(model)])
-                   for d in range(data)]
+    model_groups = [dist.new_group([d * model + m for m in range(model)])
+                    for d in range(data)]
     data_groups = [dist.new_group([d * model + m for d in range(data)])
                    for m in range(model)]
     d, m = divmod(rank, model)
     return Mesh(data, model, rank, hosts, dist.group.WORLD, data_groups[m],
-                time_groups[d])
+                model_groups[d], tensor_parallel)

@@ -1,5 +1,5 @@
-"""Data and sequence parallelism of a model: its collectives attached,
-and the train and eval steps over a mesh.
+"""Data, sequence and tensor parallelism of a model: its collectives
+attached, and the train and eval steps over a mesh.
 
 The counterpart of the reference package's ``parallel/seqpar.py`` and of
 its data-parallel ``jit`` over a batch sharded on 'data'.  Each rank runs
@@ -15,10 +15,16 @@ axis).  ``attach`` wires the collectives in:
   halo-extended block (``halo.py``);
 - under ``shard_time`` the final temporal pooling is averaged over the
   time ranks (``comm.all_reduce_mean``), so every time rank of a data
-  shard holds the shard's logits.
+  shard holds the shard's logits;
+- on a tensor-parallel mesh (``Mesh.tensor_parallel``: M > 1 without
+  ``shard_time``) the sharded parameters are cut to the rank's slices
+  and their products gather their outputs (``parallel/tensor.py``), and
+  every BN averages its statistics over the data ranks alone, with the
+  count times D: the model ranks hold the same rows, and a world group
+  would count each row M times in the unbiased running variance.
 
 The objective all ranks share is the sum of the data shards' mean
-losses, each counted once.  The M time ranks of a data shard hold the
+losses, each counted once.  The M model ranks of a data shard hold the
 same loss, so each back-propagates 1/M of it (``state.train_step``):
 the classifier, which every time rank runs whole, gets 1/M of its
 gradient on each, and the pooling's backward, the mean of the M
@@ -27,7 +33,11 @@ backward summed the time ranks' cotangents of an unscaled loss would
 multiply every gradient below it by M.  The mean-loss gradient is then
 the sum of the ranks' gradients over D (``Mesh.reduce_gradients``); the
 constraint's steps are reduced on their own (``reduce_position_grad``)
-and are not summed again.
+and are not summed again.  Under tensor parallelism the same holds with
+each rank's gradients its parts of the data shard's: 1/M of the
+replicated layers' above the last gather, and below a gather the part
+that flows through its slice (``comm.gather_channels``); the sharded
+slices, whole on their rank, are summed over the data ranks alone.
 
 Shapes (``validate_time_sharding``, the reference's rule): T divisible
 by the time ranks, every block's local T divisible by its stride, and at
@@ -44,6 +54,7 @@ import numpy as np
 import torch
 
 from shift_gcn_torch.ops.batchnorm import BatchNorm
+from shift_gcn_torch.parallel import tensor
 from shift_gcn_torch.parallel.mesh import Mesh
 from shift_gcn_torch.train import state as state_lib
 
@@ -77,17 +88,26 @@ def validate_time_sharding(config, t: int, n_shards: int,
 def attach(model: torch.nn.Module, mesh: Mesh,
            shard_time: bool = False) -> torch.nn.Module:
     """Wire ``mesh``'s collectives into ``model`` (see the module
-    docstring); returns the model.  ``shard_time`` needs a model with
-    temporal shifts (Shift-GCN) and k=1 residual convs."""
+    docstring), and on a tensor-parallel mesh cut its sharded parameters
+    to this rank's slices (``tensor.shard_``: attach the initialized or
+    loaded model, then load only sliced weights); returns the model.
+    ``shard_time`` needs a model with temporal shifts (Shift-GCN) and
+    k=1 residual convs."""
     from shift_gcn_torch.models import shift_gcn
 
     if shard_time and not isinstance(model, shift_gcn.Model):
         raise ValueError(
             f"shard_time is not supported by {type(model).__module__}: "
             "only the Shift-GCN family runs T-sharded")
+    tp = mesh.tensor_parallel
+    if tp and shard_time:
+        raise ValueError("shard_time needs a mesh whose model ranks hold "
+                         "T shards, not a tensor-parallel one")
     for module in model.modules():
         if isinstance(module, BatchNorm):
-            module.group = mesh.world_group
+            module.group = mesh.data_group if tp else mesh.world_group
+        if tp and isinstance(module, shift_gcn.ShiftGCN):
+            module.mesh = mesh
         if isinstance(module, shift_gcn.ShiftTCN):
             module.mesh = mesh
             module.shard_time = shard_time
@@ -98,6 +118,8 @@ def attach(model: torch.nn.Module, mesh: Mesh,
                 "(k>1 would need its own halo exchange)")
     if isinstance(model, shift_gcn.Model):
         model.mesh = mesh if shard_time else None
+    if tp:
+        tensor.shard_(model, mesh)
     return model
 
 

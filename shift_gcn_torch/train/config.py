@@ -9,12 +9,13 @@ strings name this package's modules.  ``model`` names a family of
 
 The parallel modes run one process per GPU (``parallel/``): data
 parallelism, ``mesh_shape: [D, 1]`` (or none: every rank on 'data'),
-and sequence parallelism, ``mesh_shape: [D, M]`` with ``shard_time``.
-Keys this port cannot honor yet raise in ``check_supported`` (called by
-``load_config`` and the ``Trainer``; ``parallel.mesh.make_mesh`` holds
-D * M to the world size), naming the key and its ROADMAP item: tensor
-parallelism (``mesh_shape`` with M > 1 and no ``shard_time``, A13b)
-and ``edge_partition`` (A13c).  ``fourstream``, ``native_loader``,
+sequence parallelism, ``mesh_shape: [D, M]`` with ``shard_time``, and
+tensor parallelism, ``mesh_shape: [D, M]`` with M > 1 and no
+``shard_time`` (``parallel/tensor.py``).  Keys this port cannot honor
+yet raise in ``check_supported`` (called by ``load_config`` and the
+``Trainer``; ``parallel.mesh.make_mesh`` holds D * M to the world
+size), naming the key and its ROADMAP item: ``edge_partition``
+(A13c).  ``fourstream``, ``native_loader``,
 ``device_guard``, ``lowering`` (merged over ``model_args.lowering``,
 ``ops/lowering.py``), ``compute_dtype`` and ``activation_dtype`` are read
 by the Trainer.  Keys that only tune the reference package's compiler or
@@ -126,8 +127,9 @@ def check_supported(cfg: ExperimentConfig) -> None:
     """Raise ValueError naming the first key this port cannot honor yet
     and the ROADMAP item that will, or a parallel layout that cannot
     run: ``shard_time`` without M >= 2 time ranks or with
-    ``fourstream``.  (``parallel.mesh.make_mesh`` holds D * M to the
-    world size.)"""
+    ``fourstream``, or tensor parallelism over M ranks that do not
+    divide an output width of the model.  (``parallel.mesh.make_mesh``
+    holds D * M to the world size.)"""
     if cfg.edge_partition:
         _refuse("edge_partition", cfg, "A13c (edge partition)")
     # --mesh_shape with no value clears the mesh
@@ -137,7 +139,13 @@ def check_supported(cfg: ExperimentConfig) -> None:
             raise ValueError(f"mesh_shape {mesh!r}: expected [data, model] "
                              "with both >= 1")
         if mesh[1] > 1 and not cfg.shard_time:
-            _refuse("mesh_shape", cfg, "A13b (tensor parallelism)")
+            from shift_gcn_torch.parallel import tensor
+
+            try:
+                tensor.check_config(cfg.model, cfg.model_args, mesh[1])
+            except ValueError as err:
+                raise ValueError(f"config key 'mesh_shape' ({mesh!r}): "
+                                 f"{err}") from None
     if cfg.shard_time:
         if mesh is None or mesh[1] < 2:
             raise ValueError(
@@ -173,6 +181,8 @@ def load_config(argv: Optional[List[str]] = None) -> ExperimentConfig:
 
     cfg = ExperimentConfig()
     valid_keys = {f.name for f in dataclasses.fields(ExperimentConfig)}
+    list_keys = {f.name for f in dataclasses.fields(ExperimentConfig)
+                 if "List" in str(f.type)}
 
     if known.config:
         with open(known.config) as f:
@@ -193,7 +203,9 @@ def load_config(argv: Optional[List[str]] = None) -> ExperimentConfig:
         if key not in valid_keys:
             raise KeyError(f"WRONG ARG: {key}")
         current = getattr(cfg, key)
-        if isinstance(current, list):
+        # a list key unset in the YAML (mesh_shape) takes a list too
+        if isinstance(current, list) or (current is None
+                                         and key in list_keys):
             vals = []
             i += 1
             while i < len(overrides) and not overrides[i].startswith("--"):

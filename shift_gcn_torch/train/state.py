@@ -9,11 +9,13 @@ drop out of the mean (reference: main.py:259, 493-515).
 
 Under a mesh (``parallel/``) a rank passes its own rows (and frames) to
 ``train_step`` with the mesh: it back-propagates its data shard's loss
-over the M time ranks that hold the same loss, so that the ranks' parts
-add up to the sum of the shards' losses (``parallel/seqpar.py``); the
-gradients are reduced over the ranks before the SGD step
-(``Mesh.reduce_gradients``), and the loss and accuracy returned are
-their means over the ranks.
+over the M model ranks that hold the same loss (time ranks under
+sequence parallelism, channel ranks under tensor parallelism), so that
+the ranks' parts add up to the sum of the shards' losses
+(``parallel/seqpar.py``); the gradients are reduced over the ranks
+before the SGD step (``Mesh.reduce_gradients``: a tensor-parallel
+slice over the data ranks, the rest over the world), and the loss and
+accuracy returned are their means over the ranks.
 """
 
 from __future__ import annotations

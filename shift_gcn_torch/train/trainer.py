@@ -36,12 +36,14 @@ reference package does.
 
 Under a default process group (``cli/train.py`` initializes it under
 torchrun, SLURM or Open MPI) the run is data parallel over
-``mesh_shape`` [D, 1] (the default: every rank on 'data'), or data and
-sequence parallel over [D, M] with ``shard_time`` (``parallel/``), as
-the reference trainer's multi-process layouts (trainer.py:124-160):
+``mesh_shape`` [D, 1] (the default: every rank on 'data'), data and
+sequence parallel over [D, M] with ``shard_time``, or data and tensor
+parallel over [D, M] with M > 1 and no ``shard_time`` (``parallel/``),
+as the reference trainer's multi-process layouts (trainer.py:124-160):
 
 - every rank builds the model from the same seed and attaches the
-  mesh's collectives (sync BN, the global constraint, the T shards);
+  mesh's collectives (sync BN, the global constraint, the T shards, or
+  the sharded output channels, cut to the rank's slices);
 - a node's feeders give its share of the epoch (``hosts`` > 1, when
   several nodes feed D > 1 data ranks), or every rank's feeder gives
   the whole batch; each rank keeps its rows (and frames) and moves only
@@ -52,7 +54,10 @@ the reference trainer's multi-process layouts (trainer.py:124-160):
 - rank 0 writes the run's files (config snapshot, checkpoints, score
   pickles, logs) and a barrier follows each write; every rank resumes
   from the same checkpoint and makes the same resumed-past-the-end
-  decision;
+  decision.  Checkpoints keep the full reference layout: under tensor
+  parallelism every rank gathers its slices for rank 0 to write, and
+  ``resume`` and ``weights`` cut a full file to each rank's slices, so
+  a file moves between any layouts and one process;
 - a device the guard finds unhealthy raises on its rank: the guard's
   re-exec restarts one process, not a group.
 """
@@ -79,7 +84,7 @@ from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.registry import get_model
 from shift_gcn_torch.models.shift_gcn import check_shift_range
 from shift_gcn_torch.ops import lowering as lowering_lib
-from shift_gcn_torch.parallel import launch, seqpar
+from shift_gcn_torch.parallel import launch, seqpar, tensor
 from shift_gcn_torch.parallel.mesh import make_mesh
 from shift_gcn_torch.train import config as config_lib
 from shift_gcn_torch.train import fourstream
@@ -181,7 +186,8 @@ class Trainer:
         self.shard_time = bool(cfg.shard_time)
         # raises unless mesh_shape covers the ranks (one without a group)
         mesh = make_mesh(cfg.mesh_shape,
-                         launch.node_count() if distributed else 1)
+                         launch.node_count() if distributed else 1,
+                         tensor_parallel=not self.shard_time)
         # the parallel.mesh.Mesh of a multi-process run, else None; a
         # node's feeder gives its shard of the epoch when hosts > 1
         self.mesh = mesh if distributed else None
@@ -324,6 +330,29 @@ class Trainer:
                 seqpar.check_batch(self.model, feeder.get(0).shape[1],
                                    self.mesh, True)
 
+    @property
+    def _tensor_parallel(self) -> bool:
+        return self.mesh is not None and self.mesh.tensor_parallel
+
+    def _local_weights(self, weights: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """A full-layout state_dict cut to this rank's slices under
+        tensor parallelism (else as it is)."""
+        if not self._tensor_parallel:
+            return weights
+        return tensor.local_state_dict(weights, self.mesh)
+
+    def _load_entry(self, model: torch.nn.Module,
+                    optimizer: torch.optim.Optimizer, entry) -> None:
+        """Load a full-layout resume entry (model and optimizer state)."""
+        osd = entry["optimizer_state_dict"]
+        if self._tensor_parallel:
+            osd = tensor.local_optimizer_state(model, optimizer, osd,
+                                               self.mesh)
+        model.load_state_dict(
+            self._local_weights(entry["model_state_dict"]), strict=True)
+        optimizer.load_state_dict(osd)
+
     def _local(self, *arrays):
         """This rank's rows (and frames: data first) of a host batch."""
         if self.mesh is None:
@@ -376,6 +405,7 @@ class Trainer:
             for k in [k for k in weights if name in k]:
                 weights.pop(k)
                 self.logger.log(f"Successfully Remove Weights: {k}.")
+        weights = self._local_weights(weights)
         own = model.state_dict()
         missing = sorted(set(own) - set(weights))
         if missing:
@@ -395,15 +425,12 @@ class Trainer:
         if self.fourstream:
             streams, blob = ckpt_lib.load_fourstream_checkpoint(path)
             for stream, model in self.models.items():
-                model.load_state_dict(streams[stream]["model_state_dict"],
-                                      strict=True)
-                self.optimizers[stream].load_state_dict(
-                    streams[stream]["optimizer_state_dict"])
+                self._load_entry(model, self.optimizers[stream],
+                                 streams[stream])
         else:
             blob = torch.load(path, map_location=self.device,
                               weights_only=True)
-            self.model.load_state_dict(blob["model_state_dict"], strict=True)
-            self.optimizer.load_state_dict(blob["optimizer_state_dict"])
+            self._load_entry(self.model, self.optimizer, blob)
         self.start_epoch = int(blob["epoch"]) + 1
         self.global_step = int(blob["global_step"])
         self.best_acc = float(blob["best_acc"])
@@ -670,21 +697,26 @@ class Trainer:
 
     def save(self, epoch: int) -> str:
         self.check_shift_range()
-        if not self.rank0:
-            self._barrier()
-            return ckpt_lib.checkpoint_path(self.save_dir,
-                                            self.cfg.Experiment_name, epoch,
-                                            self.global_step)
-        if self.fourstream:
-            path = ckpt_lib.save_fourstream_checkpoint(
-                self.save_dir, self.cfg.Experiment_name, epoch,
-                self.global_step, float(self.best_acc), self.models,
-                self.optimizers)
-        else:
-            path = ckpt_lib.save_checkpoint(
-                self.save_dir, self.cfg.Experiment_name, epoch,
-                self.global_step, float(self.best_acc), self.model,
-                self.optimizer)
-        self.logger.log(f"\tSaved checkpoint: {path}")
+        path = ckpt_lib.checkpoint_path(self.save_dir,
+                                        self.cfg.Experiment_name, epoch,
+                                        self.global_step)
+        # under tensor parallelism every rank gathers its slices
+        if self.rank0 or self._tensor_parallel:
+            models = self.models if self.fourstream else {"": self.model}
+            optimizers = (self.optimizers if self.fourstream
+                          else {"": self.optimizer})
+            entries = {
+                stream: (tensor.full_entry(model, optimizers[stream],
+                                           self.mesh)
+                         if self._tensor_parallel
+                         else ckpt_lib.resume_entry(model,
+                                                    optimizers[stream]))
+                for stream, model in models.items()}
+            if self.rank0:
+                ckpt_lib.write_checkpoint(
+                    self.save_dir, self.cfg.Experiment_name, epoch,
+                    self.global_step, float(self.best_acc),
+                    entries if self.fourstream else entries[""])
+                self.logger.log(f"\tSaved checkpoint: {path}")
         self._barrier()
         return path

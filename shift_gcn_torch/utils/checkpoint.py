@@ -20,7 +20,10 @@ writes ``save_fourstream_checkpoint`` under the same name: one
 name beside ``epoch``, ``global_step`` and ``best_acc``, read back by
 ``load_fourstream_checkpoint``.  ``stream_state_dicts_from_arrays``
 splits the reference package's stacked four-stream parameter trees into
-one state_dict per stream.
+one state_dict per stream.  ``resume_entry`` and ``write_checkpoint``
+are the two halves of a save, for a caller that builds the entries
+itself (a tensor-parallel trainer gathers them first,
+``parallel/tensor.py``, and the files keep the full layout).
 
 Orbax checkpoints of the reference package's trainer are not read here:
 reading them needs orbax and its array library.  Export one to a ``.pt``
@@ -147,8 +150,9 @@ def load_reference_checkpoint(
 _CHECKPOINT_NAME = re.compile(r"(?P<name>.+)-(?P<epoch>\d+)-(?P<step>\d+)\.pt")
 
 
-def _resume_entry(model: torch.nn.Module,
+def resume_entry(model: torch.nn.Module,
                   optimizer: torch.optim.Optimizer) -> Dict[str, Any]:
+    """{model_state_dict (on the CPU), optimizer_state_dict}."""
     return {"model_state_dict": {k: v.detach().cpu()
                                  for k, v in model.state_dict().items()},
             "optimizer_state_dict": optimizer.state_dict()}
@@ -160,9 +164,11 @@ def checkpoint_path(save_dir: str, experiment: str, epoch: int,
     return os.path.join(save_dir, f"{experiment}-{epoch}-{global_step}.pt")
 
 
-def _write_checkpoint(save_dir: str, experiment: str, epoch: int,
-                      global_step: int, best_acc: float,
-                      blob: Dict[str, Any]) -> str:
+def write_checkpoint(save_dir: str, experiment: str, epoch: int,
+                     global_step: int, best_acc: float,
+                     blob: Dict[str, Any]) -> str:
+    """``torch.save`` of ``blob`` with epoch, global_step and best_acc
+    beside its entries; returns the path."""
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, experiment, epoch, global_step)
     torch.save(dict(blob, epoch=epoch, global_step=global_step,
@@ -175,8 +181,8 @@ def save_checkpoint(save_dir: str, experiment: str, epoch: int,
                     model: torch.nn.Module,
                     optimizer: torch.optim.Optimizer) -> str:
     """Write the reference resume dict; returns its path."""
-    return _write_checkpoint(save_dir, experiment, epoch, global_step,
-                             best_acc, _resume_entry(model, optimizer))
+    return write_checkpoint(save_dir, experiment, epoch, global_step,
+                            best_acc, resume_entry(model, optimizer))
 
 
 def save_fourstream_checkpoint(
@@ -185,9 +191,9 @@ def save_fourstream_checkpoint(
         optimizers: Mapping[str, torch.optim.Optimizer]) -> str:
     """Write one resume dict per stream, under the stream's name, in one
     file; returns its path."""
-    return _write_checkpoint(
+    return write_checkpoint(
         save_dir, experiment, epoch, global_step, best_acc,
-        {stream: _resume_entry(model, optimizers[stream])
+        {stream: resume_entry(model, optimizers[stream])
          for stream, model in models.items()})
 
 

@@ -62,8 +62,12 @@ def test_init_without_rendezvous_address_raises():
 @pytest.mark.parametrize("overrides", [
     {"mesh_shape": [4, 1]}, {"mesh_shape": [4, 2], "shard_time": True},
     {"mesh_shape": [1, 2], "shard_time": True},
-    {"mesh_shape": [2, 1], "fourstream": True}],
-    ids=["dp", "dp-seqpar", "seqpar", "fourstream-dp"])
+    {"mesh_shape": [2, 1], "fourstream": True},
+    {"mesh_shape": [2, 2]}, {"mesh_shape": [1, 4], "fourstream": True},
+    # no sharded parameter: any number of model ranks
+    {"mesh_shape": [1, 3], "model": "stgcn"}],
+    ids=["dp", "dp-seqpar", "seqpar", "fourstream-dp", "tp",
+         "fourstream-tp", "stgcn-tp3"])
 def test_check_supported_takes_dp_and_seqpar(overrides):
     # --mesh_shape with no value clears a YAML's mesh (README)
     config.check_supported(config.ExperimentConfig(mesh_shape=[]))
@@ -78,7 +82,8 @@ def test_check_supported_takes_dp_and_seqpar(overrides):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"mesh_shape": [2, 4]}, r"'mesh_shape'.*ROADMAP A13b \(tensor"),
+    # tensor parallelism (A13b) is ported: M must divide the widths
+    ({"mesh_shape": [2, 3]}, r"'mesh_shape'.*\[64, 128, 256\] are not"),
     ({"edge_partition": True}, r"'edge_partition'.*ROADMAP A13c \(edge"),
     ({"shard_time": True}, "model >= 2"),
     ({"mesh_shape": [4, 1], "shard_time": True}, "model >= 2"),

@@ -67,10 +67,11 @@ def test_port_paths_and_families():
             registry.get_model(bad)
 
 
-# the parallel keys alone: tensor parallelism and edge partitioning are
-# refused with their ROADMAP items; data and sequence parallelism are
-# ported (A13), but shard_time needs time ranks (M >= 2) to shard over
-REFUSED = {"mesh_shape": ([2, 4], "ROADMAP A13b"),
+# the parallel keys alone: edge partitioning is refused with its ROADMAP
+# item; data, sequence and tensor parallelism are ported (A13, A13b), but
+# shard_time needs time ranks (M >= 2) to shard over and tensor
+# parallelism model ranks that divide every sharded width
+REFUSED = {"mesh_shape": ([2, 3], "divisible by 3"),
            "shard_time": (True, "needs mesh_shape"),
            "edge_partition": (True, "ROADMAP A13c")}
 

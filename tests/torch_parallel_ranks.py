@@ -14,7 +14,12 @@ writes against the reference package in their own process.  Jobs:
 - ``steps``: the data-parallel [2, 1] and sequence-parallel [1, 2] train
   and eval steps, and the four-stream data-parallel step (2 ranks);
 - ``trainer``: ``cli.train.main`` under the launcher's environment, with
-  each epoch's statistics and the final weights recorded (2 ranks).
+  each epoch's statistics and the final weights recorded (2 ranks);
+- ``tp``: the channel gather's forward and adjoint, and the
+  tensor-parallel [1, 2] train and eval steps of the Shift-GCN model, of
+  the four streams and of ST-GCN, each beside the one-process step
+  from the same weights (2 ranks);
+- ``tp22``: the tensor-parallel [2, 2] train and eval steps (4 ranks).
 """
 
 import os
@@ -34,9 +39,10 @@ from shift_gcn_torch.models.shift_gcn import (  # noqa: E402
     Model, config_from_reference_args)
 from shift_gcn_torch.ops import temporal_shift as ts  # noqa: E402
 from shift_gcn_torch.ops.batchnorm import batch_norm_train  # noqa: E402
-from shift_gcn_torch.parallel import halo, seqpar  # noqa: E402
+from shift_gcn_torch.models import stgcn  # noqa: E402
+from shift_gcn_torch.parallel import comm, halo, seqpar, tensor  # noqa: E402
 from shift_gcn_torch.parallel.mesh import make_mesh  # noqa: E402
-from shift_gcn_torch.train import fourstream, optim  # noqa: E402
+from shift_gcn_torch.train import fourstream, optim, state  # noqa: E402
 from shift_gcn_torch.utils.checkpoint import (  # noqa: E402
     state_dict_from_arrays, stream_state_dicts_from_arrays)
 
@@ -133,8 +139,8 @@ def model_case(c, shape, shard_time):
             "state": {k: v.numpy() for k, v in model.state_dict().items()}}
 
 
-def fourstream_case(c):
-    mesh = make_mesh([2, 1])
+def fourstream_case(c, shape=(2, 1), tensor_parallel=False):
+    mesh = make_mesh(list(shape), tensor_parallel=tensor_parallel)
     dicts = stream_state_dicts_from_arrays(c["params4"], c["bn4"],
                                            fourstream.STREAMS)
     models, opts = {}, {}
@@ -150,11 +156,67 @@ def fourstream_case(c):
     losses, _ = fourstream.train_step(models, opts, batch, c["lr"],
                                       c["parents"], mesh=mesh)
     return {"losses": losses.numpy(),
-            "grads": {s: {k: p.grad.numpy().copy()
-                          for k, p in m.named_parameters()}
-                      for s, m in models.items()},
-            "state": {s: {k: v.numpy() for k, v in m.state_dict().items()}
+            "grads": {s: full_grads(m, mesh) for s, m in models.items()},
+            "state": {s: {k: v.numpy() for k, v in
+                          tensor.full_state_dict(m, mesh).items()}
+                      if mesh.tensor_parallel else
+                      {k: v.numpy() for k, v in m.state_dict().items()}
                       for s, m in models.items()}}
+
+
+def full_grads(model, mesh):
+    """The model's gradients, a tensor-parallel rank's slices gathered
+    over the model ranks."""
+    out = {}
+    for k, p in model.named_parameters():
+        axis = tensor.sharded_axis(k) if mesh.tensor_parallel else None
+        g = p.grad if axis is None else torch.cat(
+            comm.all_gather(p.grad, mesh.model_group), axis)
+        out[k] = g.numpy().copy()
+    return out
+
+
+def one_process_step(model, c, batch):
+    opt = optim.build_optimizer(model, c["lr"])
+    loss, _ = state.train_step(model, opt, batch, c["lr"])
+    return {"loss": float(loss), "grads": {
+        k: p.grad.numpy().copy() for k, p in model.named_parameters()},
+        "state": {k: v.numpy() for k, v in model.state_dict().items()}}
+
+
+def tp_case(c, shape, build):
+    """The tensor-parallel eval step and one train step at ``shape`` of the
+    model ``build()`` gives, with the local shapes of its sharded
+    parameters and, in the full layout, its gradients, state and
+    momentum; and the one-process train step of another ``build()``."""
+    mesh = make_mesh(shape, tensor_parallel=True)
+    model = seqpar.attach(build(), mesh)
+    shapes = {k: tuple(p.shape) for k, p in model.named_parameters()
+              if tensor.sharded_axis(k) is not None}
+    logits, loss_sum, n = seqpar.eval_step(model, _batch(c, "mask"), mesh)
+    opt = optim.build_optimizer(model, c["lr"])
+    loss, acc = seqpar.train_step(model, opt, _batch(c), c["lr"], mesh)
+    entry = tensor.full_entry(model, opt, mesh)
+    names = tensor._slot_names(model, opt)
+    return {"loss": float(loss), "logits": logits, "loss_sum": loss_sum,
+            "n": n, "shapes": shapes, "grads": full_grads(model, mesh),
+            "state": {k: v.numpy()
+                      for k, v in entry["model_state_dict"].items()},
+            "momentum": {names[i]: v["momentum_buffer"].cpu().numpy()
+                         for i, v in entry["optimizer_state_dict"][
+                             "state"].items()},
+            "single": one_process_step(build(), c, _batch(c))}
+
+
+def gather_case(c, mesh):
+    """gather_channels of this rank's slice, and its adjoint under a
+    cotangent that differs by rank."""
+    x = torch.from_numpy(c["x"])
+    cols = tensor.columns(mesh, x.shape[-1] // mesh.model)
+    local = x[..., cols].clone().requires_grad_(True)
+    out = comm.gather_channels(local, mesh.model_group)
+    (out * torch.from_numpy(c["cot"][mesh.rank])).sum().backward()
+    return {"out": out.detach().numpy(), "grad": local.grad.numpy()}
 
 
 def job_ops(inp):
@@ -178,10 +240,12 @@ def job_steps(inp):
 
 
 def job_trainer(inp):
-    """Each of ``inp["runs"]`` ({"argv", "env"}) through the CLI in turn,
-    then, on rank 0 alone, each config of ``inp["single"]`` (argv) in one
-    process without a mesh: per run, the epochs' losses, the mesh and the
-    final weights.  A run's group rendezvous on a port of its own
+    """On rank 0 alone, each config of ``inp["before"]`` (argv) in one
+    process without a mesh (the other ranks wait at the next group's
+    rendezvous); then each of ``inp["runs"]`` ({"argv", "env"}) through
+    the CLI in turn; then, on rank 0 alone, each config of
+    ``inp["single"]`` likewise: per run, the epochs' losses, the mesh and
+    the final weights.  A run's group rendezvous on a port of its own
     (``env``): a store left on the port of a destroyed group can hang the
     next one."""
     from shift_gcn_torch.cli import train as cli_train
@@ -212,20 +276,49 @@ def job_trainer(inp):
                 "state": {k: v.numpy()
                           for k, v in trainer.model.state_dict().items()}}
 
-    results = []
+    def single(argvs):
+        out = []
+        if os.environ["RANK"] == "0":
+            for argv in argvs:
+                cfg = config.load_config(argv)
+                cfg.mesh_shape, cfg.shard_time = None, False
+                out.append(record(lambda: Trainer(cfg, device="cpu")
+                                  .start()))
+        return out
+
+    results = single(inp.get("before", []))
     for run in inp["runs"]:
         os.environ.update(run.get("env", {}))
         results.append(record(lambda: cli_train.main(run["argv"])))
-    if os.environ["RANK"] == "0":
-        for argv in inp.get("single", []):
-            cfg = config.load_config(argv)
-            cfg.mesh_shape, cfg.shard_time = None, False
-            results.append(record(lambda: Trainer(cfg, device="cpu")
-                                  .start()))
-    return results
+    return results + single(inp.get("single", []))
 
 
-JOBS = {"ops": job_ops, "steps": job_steps, "trainer": job_trainer}
+def job_tp(inp):
+    m = inp["model"]
+    s = inp["stgcn"]
+
+    def shift_gcn():
+        return _model(m["args"], m["params"], m["bn_state"])
+
+    def st_gcn():
+        return stgcn.Model(stgcn.config_from_args(s["args"]),
+                           device="cpu").init_weights(
+            torch.Generator().manual_seed(s["seed"]))
+
+    return {"gather": gather_case(inp["gather"], make_mesh([1, 2], True)),
+            "tp12": tp_case(m, [1, 2], shift_gcn),
+            "fourstream": fourstream_case(inp["fourstream"], (1, 2), True),
+            "stgcn": tp_case(s, [1, 2], st_gcn)}
+
+
+def job_tp22(inp):
+    m = inp["model"]
+    return {"tp22": tp_case(m, [2, 2], lambda: _model(
+        m["args"], m["params"], m["bn_state"]))}
+
+
+JOBS = {"ops": job_ops, "steps": job_steps, "trainer": job_trainer,
+        "tp": job_tp, "tp22": job_tp22}
 
 
 def free_port():
