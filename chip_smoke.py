@@ -127,9 +127,10 @@ Phases, in order; any failure exits non-zero:
    temporal kernel 9, adaptive B) at batch 64 x T=300, the CPU on 8 of
    the clips, and one step with ``adaptive_embed: 16``; ring-GNN with
    ``configs/synthetic_ring.yaml``'s (V=256, C=8, hidden 32/32) at its
-   batch of 16 node-feature clips made in-process.  Both configs lose
-   their parallel-mode keys (``mesh_shape``, ``edge_partition``,
-   ``edge_strategy``: ROADMAP A13c).  Prints the step times;
+   batch of 16 node-feature clips made in-process.  Both configs run
+   here without their parallel-mode keys (``mesh_shape``,
+   ``edge_partition``, ``edge_strategy``), in one process; phase 20
+   runs them with those keys.  Prints the step times;
 18. data and sequence parallelism on this card: (a) ``Trainer.start()``
    on ``configs/mediapipe/train_joint.yaml`` unchanged for 2 steps with
    eval, in an NCCL group of one rank, bit-equal in losses and every
@@ -171,7 +172,30 @@ Phases, in order; any failure exits non-zero:
    [2, 2] in 4 gloo ranks, and again with each of TP_FAULTS (K4 at
    d0 = 0 on every rank; the sharded gradients summed over the world),
    which the gates must catch.  Prints the step times (gathers through
-   host memory: not a scaling figure) and peak memory per rank.
+   host memory: not a scaling figure) and peak memory per rank;
+20. the edge partition on this card, its ranks sharing it over gloo and
+   launching none of the port's kernels: (a) ``Trainer.start()`` on
+   ``configs/stgcn_edges.yaml`` unchanged in model (full-width ST-GCN,
+   fp32) and batch (16, T=300), its mesh [2, 4] cut on the data axis to
+   [1, 4] (``gather``, 4 ranks), 2 steps with eval and save: equal
+   finite losses on every rank, one checkpoint, which evaluated in this
+   process alone (the edge partition off) scores within EDGE_SCORE_GATE
+   of the run's scores with every prediction equal; (b) one fp32 step
+   of that model and batch from the seeded init at [1, 4] and [2, 2]
+   against the one-process step: the loss within EDGE_LOSS_TOL
+   relative, each gradient by phase 17's rule against the one-process
+   float64 step (GRAD_RATIO x the one-process fp32 step's relative L2
+   gap + GRAD_FLOOR; the biases a train-mode BN cancels within 5e-4 of
+   their weight gradient's scale); (c) ``configs/synthetic_ring.yaml``
+   unchanged through ``Trainer.start()`` at its mesh [1, 8] (``ring``,
+   8 ranks, node shards of 32), 4 steps with eval and save, its
+   checkpoint scored in one process as (a), and one fp32 step against
+   the one-process step, logits and gradients within RING_TOL of scale;
+   (d) the steps again with each of EDGE_FAULTS planted (the partial
+   sums' all-reduce with an identity backward; the ring's cotangents
+   sent the forward's way), which the gates must catch.  Prints the
+   step times and peak memory per rank (ranks sharing one card, not a
+   scaling figure).
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -224,7 +248,8 @@ FOURSTREAM_CONFIG = "configs/mediapipe/train_fourstream.yaml"
 NTU60_CONFIG = "configs/nturgbd-cross-subject/train_joint.yaml"
 STGCN_CONFIG = "configs/stgcn_edges.yaml"
 RING_CONFIG = "configs/synthetic_ring.yaml"
-# the edge-partition keys phase 17 drops from its configs (ROADMAP A13c)
+# the edge-partition keys phase 17 drops from its configs (phase 20 keeps
+# them)
 MESH_KEYS = ("mesh_shape", "edge_partition", "edge_strategy")
 NTU_STEPS = FAMILY_STEPS = 4   # train steps of phases 16 and 17
 RING_BATCH = 16                # RING_CONFIG's batch_size
@@ -233,6 +258,10 @@ RING_BATCH = 16                # RING_CONFIG's batch_size
 # convolutions on the card measured up to ~3x the CPU's gap, PERF.md)
 GRAD_RATIO, GRAD_FLOOR = 4, 1e-3
 STREAMS = 4
+# ST-GCN's biases that feed a train-mode BN, and the weight whose gradient
+# scale holds their roundoff (phases 17 and 20)
+STGCN_ZERO_GRAD = (("gcn_bias", "gcn_weight"), ("tcn.bias", "tcn.weight"),
+                   ("down.bias", "down.weight"))
 GY_RAW_TOL = 2e-5      # of sum|terms|: gy_raw vs its plain version (phases 7, 8)
 WGRAD_TOL = 2e-5       # of scale: K6's outputs vs its plain version (phase 7)
 STEP_GRAD_TOL = 1e-5   # of scale: a true gradient, kernel vs plain step
@@ -2485,8 +2514,7 @@ def run_families(rng, dev, workdir: str, card: str):
     from shift_gcn_torch.train.state import train_step
 
     times = {}
-    zero_grad = (("gcn_bias", "gcn_weight"), ("tcn.bias", "tcn.weight"),
-                 ("down.bias", "down.weight"))
+    zero_grad = STGCN_ZERO_GRAD
     # ST-GCN: 4 steps of 64 clips x T=300, eval on 64
     os.makedirs(os.path.join(workdir, "stgcn"))
     trainer, epoch, wall, best = train_family(
@@ -3611,8 +3639,470 @@ def run_tensor_parallel(rng, dev, workdir: str, card: str,
             "one_ms": ref_ms}
 
 
+# ---------------------------------------------------------------------------
+# The edge partition (phase 20)
+# ---------------------------------------------------------------------------
+
+# 20a's one cut: STGCN_CONFIG's mesh [2, 4] on the data axis only, the edge
+# axis as shipped; 20b's steps at both layouts of 4 ranks; 20c at
+# RING_CONFIG's own [1, 8]
+EDGE_MESH = (1, 4)
+EDGE_STEP_MESHES = ((1, 4), (2, 2))
+RING_MESH = (1, 8)
+EDGE_STEPS = 2        # Trainer steps of 20a
+RING_STEPS = 4        # Trainer steps of 20c
+EDGE_BATCH = 16       # STGCN_CONFIG's (and RING_CONFIG's) batch_size
+# 20d reruns a step with one adjoint broken on every rank (``edge_planted``):
+# "edge_adjoint" makes the backward of the partial sums' all-reduce the
+# identity (each partial gets its own rank's 1/M share of the cotangent);
+# "ring_reverse" sends the ring's cotangents the way its forward sent the
+# features, to the left.  The gates of 20b / 20c must catch each.
+EDGE_FAULTS = ("edge_adjoint", "ring_reverse")
+# a ring-GNN logit or gradient against one process: another fp32 order
+# of the same sums, no BN (tests/test_torch_ring_gnn.py's tolerance); the
+# checkpoints scored in one process likewise
+RING_TOL = EDGE_SCORE_GATE = 1e-5
+EDGE_LOSS_TOL = 1e-5  # relative: a rank's loss against one process
+
+
+@contextmanager
+def edge_planted(fault: str):
+    """One of EDGE_FAULTS planted in this rank process (every rank the
+    same, so that the collectives still pair)."""
+    import types
+
+    from shift_gcn_torch.parallel import comm, edge_partition
+
+    class IdentityBackward(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x, group):
+            return comm.all_reduce_sum_(x.clone(), group)
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None
+
+    found = {
+        "edge_adjoint": types.SimpleNamespace(
+            all_reduce_sum=IdentityBackward.apply, rotate=comm.rotate),
+        "ring_reverse": types.SimpleNamespace(
+            all_reduce_sum=comm.all_reduce_sum,
+            rotate=lambda t, group, shift: comm.rotate(t, group, -1)),
+    }[fault]
+    with mock.patch.object(edge_partition, "comm", found):
+        yield
+
+
+def edge_batch(settings: dict, family: str):
+    """The seeded global batch of a phase 20 step: ST-GCN clips
+    (EDGE_BATCH, 3, T, 33, 1) or ring-GNN node clips (EDGE_BATCH, 8, 1,
+    256, 1), and labels running through the classes."""
+    rng = np.random.default_rng(settings["seed"] + 20)
+    if family == "stgcn":
+        data, _ = synthetic_batch(rng, settings["batch"], settings["t"])
+    else:
+        data = rng.standard_normal((settings["batch"], 8, 1, 256, 1)
+                                   ).astype(np.float32)
+    return data, np.arange(settings["batch"]) % 2
+
+
+def edge_model_args(settings: dict, family: str) -> dict:
+    """``model_args`` of STGCN_CONFIG / RING_CONFIG, with the settings'
+    overrides (none on the card: the full width)."""
+    import yaml
+
+    with open(STGCN_CONFIG if family == "stgcn" else RING_CONFIG) as f:
+        return dict(yaml.safe_load(f)["model_args"],
+                    **settings.get("model_args", {}).get(family, {}))
+
+
+def edge_model(settings: dict, family: str, dev, dtype=torch.float32):
+    """The family's model of ``edge_model_args`` from the seeded init."""
+    from shift_gcn_torch.models import ring_gnn, stgcn
+
+    module = stgcn if family == "stgcn" else ring_gnn
+    model = module.Model(module.config_from_args(edge_model_args(
+        settings, family)), device="cpu")
+    model.init_weights(torch.Generator().manual_seed(settings["seed"]))
+    return model.to(device=dev, dtype=dtype)
+
+
+def edge_step(settings: dict, family: str, mesh=None, strategy=None,
+              dtype=torch.float32, timed: bool = True):
+    """One SGD step of ``family``'s model from the seeded init on the
+    seeded global batch: under ``mesh`` this rank's (edge_partition's
+    train step), else whole in ``dtype``.  Returns the loss, the logits
+    of the train-mode forward (this rank's rows), the gradients, the
+    step's ms (two more steps, None unless ``timed``) and peak GiB."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.parallel import edge_partition
+    from shift_gcn_torch.train import state
+    from shift_gcn_torch.train.optim import build_optimizer
+
+    dev = torch.device(settings["device"])
+    model = edge_model(settings, family, dev, dtype)
+    if mesh is not None:
+        edge_partition.attach(model, mesh, strategy)
+    opt = build_optimizer(model, PARALLEL_LR)
+    data, labels = edge_batch(settings, family)
+    batch = {"data": torch.from_numpy(data).to(dev, dtype),
+             "label": torch.from_numpy(labels).to(dev)}
+    logits = []
+    hook = model.register_forward_hook(
+        lambda _m, _i, out: logits.append(out.detach().cpu().double()))
+
+    def step():
+        if mesh is None:
+            return state.train_step(model, opt, batch, PARALLEL_LR)
+        return edge_partition.train_step(model, opt, batch, PARALLEL_LR,
+                                         mesh)
+
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    loss = float(step()[0])
+    hook.remove()
+    if any(kernels.LAUNCHES.values()):
+        fail(f"20: {family} launched the port's kernels {kernels.LAUNCHES}")
+    grads = {n: p.grad.detach().cpu().double().numpy().copy()
+             for n, p in model.named_parameters()}
+    ms = elapsed_ms(step, dev) if timed else None
+    peak = (torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if dev.type == "cuda" else 0.0)
+    del model, opt, batch
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    return loss, logits[0].numpy(), grads, ms, peak
+
+
+def edge_trainer(settings: dict, workdir: str, family: str, mesh):
+    """``Trainer.start()`` on the family's config at ``mesh`` for one
+    epoch with eval and save on the splits under ``workdir`` (this
+    rank's part of a gloo group, or one process when ``mesh`` is None:
+    then ``phase: test`` on ``settings["weights"]``, the edge-partition
+    keys off).  Returns its summary."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.train.trainer import Trainer
+
+    dev = torch.device(settings["device"])
+    path = STGCN_CONFIG if family == "stgcn" else RING_CONFIG
+    extra = ["--batch_size", str(settings["batch"]), "--test_batch_size",
+             str(settings["batch"])]
+    if family in settings.get("model_args", {}):
+        extra += ["--model_args", json.dumps(edge_model_args(settings,
+                                                             family))]
+    if mesh is None:
+        extra += ["--mesh_shape", "--edge_partition", "false", "--phase",
+                  "test", "--weights", settings["weights"]]
+    else:
+        extra += ["--mesh_shape", *map(str, mesh)]
+    cfg = one_epoch_config(path, workdir, tp_feeders(settings["data"]),
+                           "--Experiment_name", family, *extra)
+    trainer = Trainer(cfg, device=dev)
+    epochs = record_epochs(trainer)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    wall = time.perf_counter() - t0
+    if any(kernels.LAUNCHES.values()):
+        fail(f"20: the {family} Trainer launched the port's kernels "
+             f"{kernels.LAUNCHES}")
+    tmesh = trainer.mesh
+    return {"losses": epochs[0]["losses"] if epochs else [],
+            "clips_per_sec": epochs[0]["clips_per_sec"] if epochs else None,
+            "best_acc": best, "wall_s": wall,
+            "mesh": None if tmesh is None else [
+                tmesh.data, tmesh.model, int(tmesh.tensor_parallel)],
+            "config": [trainer.cfg.edge_partition, trainer.cfg.edge_strategy,
+                       repr(trainer.model_config)],
+            "saved": (sorted(os.listdir(trainer.save_dir))
+                      if os.path.isdir(trainer.save_dir) else [])}
+
+
+def rank_edge(settings: dict, workdir: str):
+    """Phase 20a/b/d on one of 4 ranks: ``Trainer.start()`` on STGCN_CONFIG
+    at EDGE_MESH, the fp32 step at each of EDGE_STEP_MESHES, and the step
+    at EDGE_MESH again with "edge_adjoint" planted."""
+    from shift_gcn_torch.parallel.mesh import make_mesh
+
+    summary = {"trainer": edge_trainer(settings, workdir, "stgcn",
+                                       EDGE_MESH)}
+    arrays = {}
+    meshes = {tuple(shape): make_mesh(list(shape))
+              for shape in EDGE_STEP_MESHES}
+    for shape, mesh in meshes.items():
+        key = "x".join(map(str, shape))
+        loss, logits, grads, ms, peak = edge_step(settings, "stgcn", mesh,
+                                                  "gather")
+        summary[key] = {"loss": loss, "step_ms": ms, "peak_gib": peak}
+        arrays[key] = {"grads": grads}
+    with edge_planted("edge_adjoint"):
+        loss, _, grads, _, _ = edge_step(settings, "stgcn",
+                                         meshes[EDGE_MESH], "gather",
+                                         timed=False)
+    summary["edge_adjoint"] = {"loss": loss}
+    arrays["edge_adjoint"] = {"grads": grads}
+    return summary, arrays
+
+
+def rank_ring(settings: dict, workdir: str):
+    """Phase 20c/d on one of 8 ranks: ``Trainer.start()`` on RING_CONFIG at
+    its mesh, the fp32 step there, and again with "ring_reverse"
+    planted."""
+    summary = {"trainer": edge_trainer(settings, workdir, "ring",
+                                       RING_MESH)}
+    from shift_gcn_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(list(RING_MESH))
+    loss, logits, grads, ms, peak = edge_step(settings, "ring", mesh, "ring")
+    summary["step"] = {"loss": loss, "step_ms": ms, "peak_gib": peak}
+    arrays = {"step": {"grads": grads, "logits": logits}}
+    with edge_planted("ring_reverse"):
+        loss, logits, grads, _, _ = edge_step(settings, "ring", mesh, "ring",
+                                              timed=False)
+    summary["ring_reverse"] = {"loss": loss}
+    arrays["ring_reverse"] = {"grads": grads, "logits": logits}
+    return summary, arrays
+
+
+def edge_gates(loss: float, grads, ref: dict, family: str) -> dict:
+    """A rank's fp32 step against the one-process step (``ref``: loss,
+    grads; for ST-GCN also ``grads64``, the float64 step's): the loss's
+    relative gap (gate EDGE_LOSS_TOL); ST-GCN's gradients by phase 17's
+    rule (each true gradient's relative L2 gap to float64 within
+    GRAD_RATIO x the one-process fp32 step's plus GRAD_FLOOR; the
+    biases a train-mode BN cancels within 5e-4 of their weight
+    gradient's scale), the ring-GNN's within RING_TOL of scale of the
+    one process's.  Returns the readings with the gates broken."""
+    out = {"loss": abs(loss - ref["loss"]) / abs(ref["loss"]),
+           "worst": 0.0, "at": None, "broken": []}
+    if not out["loss"] <= EDGE_LOSS_TOL:
+        out["broken"].append(f"loss off by {out['loss']:.3g} relative "
+                             f"(gate {EDGE_LOSS_TOL:g})")
+
+    def l2(g, want):
+        return float(np.linalg.norm(g - want)) / max(
+            float(np.linalg.norm(want)), 1e-30)
+
+    for name, want in ref["grads"].items():
+        got = grads[name]
+        if family == "ring":
+            r = float(np.abs(got - want).max()) / max(
+                float(np.abs(want).max()), 1e-30)
+            gate = RING_TOL
+        else:
+            weight = next((name[:-len(b)] + w for b, w in STGCN_ZERO_GRAD
+                           if name.endswith(b)), None)
+            if weight is not None:
+                r = float(np.abs(got).max()) / float(
+                    np.abs(ref["grads64"][weight]).max())
+                gate = 5e-4
+            else:
+                r = l2(got, ref["grads64"][name])
+                gate = GRAD_RATIO * l2(want, ref["grads64"][name]) + \
+                    GRAD_FLOOR
+        if r > out["worst"]:
+            out["worst"], out["at"] = r, name
+        if not r <= gate:
+            out["broken"].append(f"gradient {name} at {r:.3g} (gate "
+                                 f"{gate:.3g})")
+    return out
+
+
+def edge_text(r: dict) -> str:
+    return (f"loss {r['loss']:.3g} relative, worst gradient {r['worst']:.3g}"
+            f" ({r['at']})")
+
+
+def check_edge_run(label: str, line: dict, mesh, family: str,
+                   want_config: str, steps: int):
+    """A rank's Trainer summary: its mesh and edge strategy, the model
+    config, finite losses equal to rank 0's, one checkpoint."""
+    run = line["trainer"]
+    strategy = "gather" if family == "stgcn" else "ring"
+    if (run["mesh"] != [mesh[0], mesh[1], 0]
+            or run["config"] != [True, strategy, want_config]):
+        fail(f"{label}: mesh {run['mesh']} / config {run['config']}, "
+             f"expected {list(mesh)} {strategy} {want_config}")
+    if (len(run["losses"]) != steps
+            or not np.isfinite(run["losses"]).all()):
+        fail(f"{label}: losses {run['losses']}")
+    if len(run["saved"]) != 1:
+        fail(f"{label}: checkpoints {run['saved']}")
+
+
+def score_checkpoint(settings: dict, rundir: str, workdir: str,
+                     family: str) -> tuple:
+    """The run's checkpoint evaluated in this process alone (the edge
+    partition off), its scores against the run's: (max |diff| / scale,
+    predictions equal, clips); fails outside EDGE_SCORE_GATE or on a
+    changed prediction."""
+    save = os.path.join(rundir, "save", family)
+    name = sorted(os.listdir(save))[0]
+    edge_trainer(dict(settings, data=rundir,
+                      weights=os.path.join(save, name)), workdir, family,
+                 None)
+    got, want = scores_file(rundir, family), scores_file(workdir, family)
+    gap = float(np.abs(got - want).max() / np.abs(want).max())
+    same = int((got.argmax(1) == want.argmax(1)).sum())
+    if not gap <= EDGE_SCORE_GATE or same != len(got):
+        fail(f"20 {family}: the run's scores vs its checkpoint {name} "
+             f"evaluated in one process: max |diff| {gap:.3g} of scale "
+             f"(gate {EDGE_SCORE_GATE:g}), predictions equal on {same} of "
+             f"{len(got)}")
+    return name, gap, same, len(got)
+
+
+def run_edge_partition(rng, dev, workdir: str, card: str, seed: int,
+                       settings: dict = None) -> dict:
+    """Phase 20: the edge partition on this card, ranks sharing it over
+    gloo (20a ST-GCN's Trainer at EDGE_MESH, 20b its fp32 steps at
+    EDGE_STEP_MESHES, 20c the ring-GNN's Trainer and step at RING_MESH,
+    20d EDGE_FAULTS against those gates).  Returns the figures for the
+    summary."""
+    settings = settings or {"device": str(dev), "seed": seed,
+                            "batch": EDGE_BATCH, "t": T_WINDOW}
+    # the one-process references, fp32 and (ST-GCN) float64
+    loss32, _, grads32, one_ms, one_peak = edge_step(settings, "stgcn")
+    grads64 = edge_step(settings, "stgcn", dtype=torch.float64,
+                        timed=False)[2]
+    ref = {"loss": loss32, "grads": grads32, "grads64": grads64}
+    want_config = repr(edge_model(settings, "stgcn", "cpu").config)
+
+    # 20a, 20b and "edge_adjoint": 4 ranks
+    adir = os.path.join(workdir, "a")
+    os.makedirs(adir)
+    for split, n in (("train", EDGE_STEPS * settings["batch"]),
+                     ("val", settings["batch"])):
+        write_split(adir, split, *synthetic_batch(rng, n, settings["t"]))
+    world = EDGE_MESH[0] * EDGE_MESH[1]
+    lines, results = run_ranks("edge", world, adir, dict(settings,
+                                                         data=adir),
+                               timeout=900)
+    texts = {k: [] for k in ("1x4", "2x2")}
+    faults = []
+    for line, res in zip(lines, results):
+        rank = line["rank"]
+        check_edge_run(f"20a rank {rank}", line, EDGE_MESH, "stgcn",
+                       want_config, EDGE_STEPS)
+        if line["trainer"]["losses"] != lines[0]["trainer"]["losses"]:
+            fail(f"20a rank {rank}: losses {line['trainer']['losses']} != "
+                 f"rank 0's")
+        for key in texts:
+            r = edge_gates(line[key]["loss"], res[key]["grads"], ref,
+                           "stgcn")
+            if r["broken"]:
+                fail(f"20b {key} rank {rank}: " + "; ".join(r["broken"]))
+            texts[key].append(edge_text(r))
+        faults.append(edge_gates(line["edge_adjoint"]["loss"],
+                                 res["edge_adjoint"]["grads"], ref, "stgcn"))
+    odir = os.path.join(workdir, "a_one")
+    os.makedirs(odir)
+    name, gap, same, clips = score_checkpoint(settings, adir, odir, "stgcn")
+    run = lines[0]["trainer"]
+    print(f"[edge] 20a: Trainer.start() on {STGCN_CONFIG} (full-width "
+          f"ST-GCN, fp32, batch {settings['batch']}, T={settings['t']}) at "
+          f"mesh {list(EDGE_MESH)} (gather), {world} gloo ranks sharing "
+          f"this card, {EDGE_STEPS} steps + eval + save: losses "
+          f"{run['losses']} on every rank, epoch clips/s "
+          f"{[round(l['trainer']['clips_per_sec'], 2) for l in lines]}, "
+          f"wall s {[round(l['trainer']['wall_s'], 1) for l in lines]}; "
+          f"checkpoint {name} evaluated in one process: scores within "
+          f"{gap:.3g} of scale (gate {EDGE_SCORE_GATE:g}), predictions "
+          f"equal on {same} of {clips} | {card}")
+    for key in texts:
+        print(f"[edge] 20b: one fp32 step at [{key.replace('x', ', ')}] vs "
+              f"one process (loss gate {EDGE_LOSS_TOL:g}; gradients within "
+              f"{GRAD_RATIO}x the one process's gap to float64 + "
+              f"{GRAD_FLOOR:g}): " + "; ".join(
+                  f"rank {r} {t}" for r, t in enumerate(texts[key]))
+              + f"; step ms per rank "
+              f"{[round(l[key]['step_ms'], 3) for l in lines]} (ranks "
+              f"sharing one card, partial sums through host memory: not a "
+              f"scaling figure) vs {one_ms:.3f} one process; peak GiB per "
+              f"rank {[round(l[key]['peak_gib'], 3) for l in lines]} vs "
+              f"{one_peak:.3f} | {card}")
+
+    # 20c and "ring_reverse": 8 ranks
+    ring_loss, ring_logits, ring_grads, ring_ms, ring_peak = edge_step(
+        settings, "ring")
+    ring_ref = {"loss": ring_loss, "grads": ring_grads}
+    cdir = os.path.join(workdir, "c")
+    os.makedirs(cdir)
+    for split, n in (("train", RING_STEPS * settings["batch"]),
+                     ("val", settings["batch"])):
+        # node-feature clips with a two-class signal, as phase 17's
+        labels = rng.integers(0, 2, n)
+        data = rng.standard_normal((n, 8, 1, 256, 1)).astype(np.float32)
+        data[:, 0] += (labels * 1.5 - 0.75)[:, None, None, None]
+        write_split(cdir, split, data, labels)
+    ring_world = RING_MESH[0] * RING_MESH[1]
+    rlines, rresults = run_ranks("ring", ring_world, cdir,
+                                 dict(settings, data=cdir), timeout=600)
+    want_ring = repr(edge_model(settings, "ring", "cpu").config)
+    ring_texts = []
+    for line, res in zip(rlines, rresults):
+        rank = line["rank"]
+        check_edge_run(f"20c rank {rank}", line, RING_MESH, "ring",
+                       want_ring, RING_STEPS)
+        if line["trainer"]["losses"] != rlines[0]["trainer"]["losses"]:
+            fail(f"20c rank {rank}: losses differ from rank 0's")
+        r = edge_gates(line["step"]["loss"], res["step"]["grads"], ring_ref,
+                       "ring")
+        logits_gap = float(np.abs(res["step"]["logits"] - ring_logits).max()
+                           / np.abs(ring_logits).max())
+        if logits_gap > RING_TOL:
+            r["broken"].append(f"logits at {logits_gap:.3g} (gate "
+                               f"{RING_TOL:g})")
+        if r["broken"]:
+            fail(f"20c rank {rank}: " + "; ".join(r["broken"]))
+        ring_texts.append(f"{edge_text(r)}, logits {logits_gap:.3g}")
+        faults.append(edge_gates(line["ring_reverse"]["loss"],
+                                 res["ring_reverse"]["grads"], ring_ref,
+                                 "ring"))
+    rodir = os.path.join(workdir, "c_one")
+    os.makedirs(rodir)
+    rname, rgap, rsame, rclips = score_checkpoint(settings, cdir, rodir,
+                                                  "ring")
+    rrun = rlines[0]["trainer"]
+    print(f"[edge] 20c: Trainer.start() on {RING_CONFIG} (V=256, C=8, "
+          f"hidden 32/32, batch {settings['batch']}) at its mesh "
+          f"{list(RING_MESH)} (ring), {ring_world} gloo ranks sharing this "
+          f"card, {RING_STEPS} steps + eval + save: losses "
+          f"{[round(v, 5) for v in rrun['losses']]} on every rank, best acc "
+          f"{rrun['best_acc']:.4f}; checkpoint {rname} in one process: "
+          f"scores within {rgap:.3g} of scale, predictions equal on "
+          f"{rsame} of {rclips}; one fp32 step vs one process (gates "
+          f"{RING_TOL:g} of scale): " + "; ".join(
+              f"rank {r} {t}" for r, t in enumerate(ring_texts))
+          + f"; step ms per rank "
+          f"{[round(l['step']['step_ms'], 3) for l in rlines]} (not a "
+          f"scaling figure) vs {ring_ms:.4f} one process; peak GiB per "
+          f"rank {[round(l['step']['peak_gib'], 4) for l in rlines]} vs "
+          f"{ring_peak:.4f} | {card}")
+
+    # 20d: each planted fault outside its gate on some rank
+    for fault, readings in (("edge_adjoint", faults[:world]),
+                            ("ring_reverse", faults[world:])):
+        caught = [r for r, item in enumerate(readings) if item["broken"]]
+        if not caught:
+            fail(f"20d: the planted fault {fault} passed every gate: "
+                 + "; ".join(edge_text(item) for item in readings))
+        worst = max(readings, key=lambda item: item["worst"])
+        print(f"[edge] 20d planted fault {fault}: caught on ranks {caught} "
+              f"of {len(readings)}; {edge_text(worst)}; broken: "
+              f"{'; '.join(worst['broken'][:3])} | {card}")
+    return {"edge14_ms": [line["1x4"]["step_ms"] for line in lines],
+            "edge22_ms": [line["2x2"]["step_ms"] for line in lines],
+            "one_ms": one_ms,
+            "ring_ms": [line["step"]["step_ms"] for line in rlines],
+            "ring_one_ms": ring_ms}
+
+
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
-             "tp22": rank_tp22}
+             "tp22": rank_tp22, "edge": rank_edge, "ring": rank_ring}
 
 
 def main() -> None:
@@ -3905,6 +4395,10 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         tp = run_tensor_parallel(rng, dev, workdir, card, args.seed)
 
+    # 20. the edge partition -----------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        edge = run_edge_partition(rng, dev, workdir, card, args.seed)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -3926,7 +4420,7 @@ def main() -> None:
           f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
           "the Trainer run, the fused kernel's library_ms the sum of two "
           "calls, K6's that of index_select x2 + bmm + three reductions; "
-          "summary: phases 6, 8, 9, 10, 12, 13, 14, 16, 17 and 18")
+          "summary: phases 6, 8, 9, 10, 12, 13, 14, 16-20")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -3956,7 +4450,12 @@ def main() -> None:
           + f" vs {par['one_ms'][0]:.4g}; TP [1,2] "
           + "/".join(f"{v:.4g}" for v in tp["tp12_ms"]) + ", [2,2] "
           + "/".join(f"{v:.4g}" for v in tp["tp22_ms"])
-          + f" vs {tp['one_ms']:.4g}")
+          + f" vs {tp['one_ms']:.4g}; ST-GCN gather [1,4] "
+          + "/".join(f"{v:.4g}" for v in edge["edge14_ms"]) + ", [2,2] "
+          + "/".join(f"{v:.4g}" for v in edge["edge22_ms"])
+          + f" vs {edge['one_ms']:.4g}; ring [1,8] "
+          + "/".join(f"{v:.3g}" for v in edge["ring_ms"])
+          + f" vs {edge['ring_one_ms']:.3g}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -5,7 +5,11 @@ gives ``build_config(model_args)`` and ``build(config, device)``, a
 module with ``init_weights(generator)`` whose ``forward`` maps (N, C, T,
 V, M) clips to logits.  ``skeleton`` says whether its config names a
 skeleton graph, which four-stream training needs to derive the bone
-streams (the reference's ``fourstream.graph_for_config``).  The names the
+streams (the reference's ``fourstream.graph_for_config``), and
+``edge_strategies`` the edge-partition strategies its model takes
+(``parallel/edge_partition.py``: ST-GCN's edge path ``gather``, the
+ring-GNN's node shards ``ring``; the reference's test for an ``edges``
+or ``ring_steps`` parameter of its apply).  The names the
 reference resolves (its family names, its aliases and its module paths)
 resolve here to the same families, beside this package's module paths,
 so its YAML configs train here unchanged.
@@ -13,7 +17,7 @@ so its YAML configs train here unchanged.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, NamedTuple
+from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 from torch import nn
 
@@ -25,6 +29,7 @@ class ModelFamily(NamedTuple):
     build_config: Callable[[Dict[str, Any]], Any]
     build: Callable[..., nn.Module]
     skeleton: bool
+    edge_strategies: Tuple[str, ...] = ()
 
 
 _REGISTRY: Dict[str, ModelFamily] = {}
@@ -45,12 +50,14 @@ register_model(ModelFamily(
     build_config=stgcn.config_from_args,
     build=stgcn.Model,
     skeleton=True,
+    edge_strategies=("gather",),
 ))
 register_model(ModelFamily(
     name="ring_gnn",
     build_config=ring_gnn.config_from_args,
     build=ring_gnn.Model,
     skeleton=False,
+    edge_strategies=("ring",),
 ))
 
 # the reference torch repo's model path and the reference's short alias;

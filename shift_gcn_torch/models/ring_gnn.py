@@ -15,10 +15,13 @@ any other T or M.
 
 Parameter names follow the reference's tree (``l{i}.weight`` (C_in,
 C_out), ``l{i}.bias``, ``fc.weight`` (num_class, H), ``fc.bias``); the
-edges are buffers kept out of the state_dict.  Only the dense
-(unsharded) path is ported; the reference's ring path (``ring_steps``,
-node shards exchanged around a mesh axis) is a parallel mode.  The
-family launches no kernel of the port: the segment sum is
+edges are buffers kept out of the state_dict.  The reference's ring
+path runs when ``parallel.edge_partition.attach`` has given the model
+this rank's ring buckets (``ring_steps``) and the model group
+(``edge_group``): the clips are then this rank's node shard
+(N, C, 1, V / P, 1), every aggregation is ``ring_aggregate`` and the
+pooled mean is the node sum summed over the group over ``num_nodes``.
+The family launches no kernel of the port: the segment sum is
 ``index_add_``, whose CUDA order is not fixed, so a card's logits agree
 with the CPU's to fp32 roundoff, not bit for bit.
 """
@@ -27,13 +30,15 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from shift_gcn_torch.ops.aggregate import edge_aggregate, wide
+from shift_gcn_torch.parallel import comm
+from shift_gcn_torch.parallel.edge_partition import ring_aggregate
 from shift_gcn_torch.utils.device import pin_fp32_math, resolve_device
 
 
@@ -96,6 +101,9 @@ class Model(nn.Module):
         for i, (cin, cout) in enumerate(zip(dims[:-1], dims[1:])):
             self.add_module(f"l{i + 1}", Dense(cin, cout))
         self.fc = Classifier(dims[-1], config.num_class)
+        # the ring's buckets and group (parallel/edge_partition.py)
+        self.ring_steps: Optional[List[Dict[str, torch.Tensor]]] = None
+        self.edge_group = None
         self.to(device)
         self.eval()
 
@@ -122,18 +130,28 @@ class Model(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         n, c, t, v, m = x.shape
-        if (t, m) != (1, 1) or v != self.config.num_nodes:
+        ring = self.ring_steps is not None
+        nodes = self.config.num_nodes // (len(self.ring_steps) if ring
+                                          else 1)
+        if (t, m) != (1, 1) or v != nodes:
             raise ValueError(
-                f"ring-GNN clips are (N, C, 1, {self.config.num_nodes}, 1); "
-                f"got {tuple(x.shape)}")
+                f"ring-GNN clips are (N, C, 1, {nodes}, 1)"
+                + (" node shards" if ring else "")
+                + f"; got {tuple(x.shape)}")
         h = wide(x).permute(0, 2, 4, 3, 1).reshape(n, v, c)
         layers = len(self.config.hidden)
         for i in range(layers):
             layer = getattr(self, f"l{i + 1}")
-            h = edge_aggregate(h, self.edges, v) @ layer.weight + layer.bias
+            agg = (ring_aggregate(h, self.ring_steps, self.edge_group)
+                   if ring else edge_aggregate(h, self.edges, v))
+            h = agg @ layer.weight + layer.bias
             if i + 1 < layers:
                 h = torch.relu(h)
-        pooled = h.mean(dim=1)
+        if ring:
+            pooled = (comm.all_reduce_sum(h.sum(dim=1), self.edge_group)
+                      / self.config.num_nodes)
+        else:
+            pooled = h.mean(dim=1)
         return pooled @ self.fc.weight.t() + self.fc.bias
 
 

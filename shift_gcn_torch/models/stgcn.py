@@ -20,8 +20,14 @@ across unchanged and ``train/optim.py``'s name-keyed weight-decay table
 gives the reference's decays.  The adjacency ``A`` is a buffer kept out
 of the state_dict, as the reference keeps it out of the tree.
 
-Only the dense aggregation is ported; the reference's edge-partitioned
-path (``edges`` / ``edge_axis``, a parallel mode) is not.  The family
+The edge path of the reference's ``_block`` (its ``edges`` /
+``edge_axis``) runs when ``parallel.edge_partition.attach`` has given
+the model this rank's slice of the subset-flattened COO edges
+(``edges``) and the model group (``edge_group``): the per-subset
+projection, its (K, V) axes flattened into K*V source nodes, one
+partitioned segment sum summed over the group, and the learnable B and
+the attention term dense, so that the result is dense(A + B) up to
+roundoff.  Without them the dense path runs, as before.  The family
 has no shift and launches no kernel of the port: its products are
 ``torch.einsum`` (cuBLAS) and its convs cuDNN, both pinned to full fp32
 (``utils/device.pin_fp32_math``).  It runs in fp32: its config has no
@@ -32,7 +38,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -41,6 +47,7 @@ from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.ops.aggregate import dense_graph_aggregate, wide
 from shift_gcn_torch.ops.batchnorm import BatchNorm
 from shift_gcn_torch.ops.conv import Conv, pointwise_conv, temporal_conv
+from shift_gcn_torch.parallel.edge_partition import edge_partitioned_aggregate
 from shift_gcn_torch.utils.device import pin_fp32_math, resolve_device
 
 
@@ -97,10 +104,23 @@ class Block(nn.Module):
             self.down = Conv(cin, cout)
             self.down_bn = BatchNorm(cout)
 
-    def forward(self, x: torch.Tensor, adj_base: torch.Tensor
-                ) -> torch.Tensor:
-        adj = adj_base + self.B if hasattr(self, "B") else adj_base
-        h = dense_graph_aggregate(x, adj, self.gcn_weight)
+    def forward(self, x: torch.Tensor, adj_base: torch.Tensor,
+                edges: Optional[Dict[str, torch.Tensor]] = None,
+                edge_group=None) -> torch.Tensor:
+        if edges is None:
+            adj = adj_base + self.B if hasattr(self, "B") else adj_base
+            h = dense_graph_aggregate(x, adj, self.gcn_weight)
+        else:
+            # per-subset projection, (K, V) flattened into one source axis
+            # so that one partitioned segment sum covers every subset
+            hk = torch.einsum("...uc,kcd->k...ud", wide(x),
+                              wide(self.gcn_weight)).movedim(0, -3)
+            hk = hk.reshape(hk.shape[:-3] + (-1, hk.shape[-1]))
+            h = edge_partitioned_aggregate(
+                hk, edges["src"], edges["dst"], edges["weight"],
+                x.shape[-2], edge_group)
+            if hasattr(self, "B"):
+                h = h + dense_graph_aggregate(x, self.B, self.gcn_weight)
         if hasattr(self, "theta"):
             attn = adaptive_attention(x, self.theta, self.phi)
             hk = torch.einsum("...uc,kcd->k...ud", wide(x), self.gcn_weight)
@@ -155,6 +175,9 @@ class Model(nn.Module):
                                                adjacency.shape[0], v, config))
             cin = cout
         self.fc = Linear(cin, config.num_class)
+        # the edge partition's slice and group (parallel/edge_partition.py)
+        self.edges: Optional[Dict[str, torch.Tensor]] = None
+        self.edge_group = None
         self.to(device)
         self.eval()
 
@@ -207,7 +230,7 @@ class Model(nn.Module):
         h = h.reshape(n, t, m, v, c).permute(0, 2, 1, 3, 4)
         h = h.reshape(n * m, t, v, c).contiguous()
         for block in self.blocks():
-            h = block(h, self.A)
+            h = block(h, self.A, self.edges, self.edge_group)
         feat = h.shape[-1]
         h = h.reshape(n, m, -1, feat).mean(dim=2).mean(dim=1)
         return h @ self.fc.weight.t() + self.fc.bias

@@ -25,11 +25,25 @@ parts.  The partial input gradients the slice's op then passes down
 (K5's dx, the 1x1's) need no reduction: they stay each rank's part,
 and the parameter gradients computed from them are summed over the
 ranks with the rest (``Mesh.reduce_gradients``).
+
+``all_reduce_sum`` is differentiable as well: the forward sums the
+ranks' partial sums (edge partition, each model rank aggregating its
+slice of the edges; the ring-GNN's pooled node sum over its node
+shards), and the backward sums the ranks' cotangents, its adjoint: every
+rank's output is the whole sum, so each partial's cotangent is the sum
+of the ranks' parts of the shared objective's.  An identity backward
+would hand each partial 1/M of it.
+
+``rotate`` starts one step of a ring: this rank sends a tensor to the
+group rank ``shift`` places on and receives the tensor of the rank
+``shift`` places back, with ``dist.batch_isend_irecv``, so that the
+caller computes while the exchange runs and waits on the returned
+handle (``parallel/edge_partition.ring_aggregate`` holds its adjoint).
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, NamedTuple
 
 import torch
 import torch.distributed as dist
@@ -101,3 +115,50 @@ def gather_channels(x: torch.Tensor, group) -> torch.Tensor:
     """(..., C / M) slices of the group's M ranks -> (..., C), in group
     rank order; its backward is the adjoint (see the module docstring)."""
     return _GatherChannels.apply(x.contiguous(), group)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_sum_(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_sum_(g.contiguous().clone(), ctx.group), None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """The group sum of ``x``; its backward sums the cotangents."""
+    return _AllReduceSum.apply(x.contiguous(), group)
+
+
+class Rotation(NamedTuple):
+    works: list
+    sent: torch.Tensor  # held until the send completes
+    received: torch.Tensor
+    device: torch.device
+
+    def wait(self) -> torch.Tensor:
+        """The tensor received, on the sent tensor's device."""
+        for work in self.works:
+            work.wait()
+        return self.received.to(self.device)
+
+
+def rotate(t: torch.Tensor, group, shift: int) -> Rotation:
+    """Start sending ``t`` to group rank (r + shift) mod P and receiving
+    from (r - shift) mod P, P the group's size and r this rank's; every
+    rank of the group calls it with the same ``shift``."""
+    size = dist.get_world_size(group)
+    rank = dist.get_rank(group)
+    src = t.contiguous()
+    if _through_host(t, group):
+        src = src.cpu()
+    received = torch.empty_like(src)
+    works = dist.batch_isend_irecv([
+        dist.P2POp(dist.isend, src, dist.get_global_rank(
+            group, (rank + shift) % size), group),
+        dist.P2POp(dist.irecv, received, dist.get_global_rank(
+            group, (rank - shift) % size), group)])
+    return Rotation(works, src, received, t.device)

@@ -10,9 +10,13 @@ coordinate (its D data ranks, ``data_group``), in the same order, as
 'data'; D * M must equal the world size.  Data rank d holds batch rows
 [d B / D, (d + 1) B / D).  The model ranks hold, under sequence
 parallelism, frames [m T / M, (m + 1) T / M) (``time_group`` names
-their group then), and under tensor parallelism (``tensor_parallel``:
-M > 1 without ``shard_time``) output channels [m C / M, (m + 1) C / M)
-of the sharded parameters (``parallel/tensor.py``).
+their group then), under tensor parallelism (``tensor_parallel``:
+M > 1 without ``shard_time`` or an edge partition) output channels
+[m C / M, (m + 1) C / M) of the sharded parameters
+(``parallel/tensor.py``), and under the edge partition
+(``parallel/edge_partition.py``) slices of the edge list, with, under
+its ``ring`` strategy, joints [m V / M, (m + 1) V / M) (the reference's
+``P(batch, None, None, edge, None)``).
 
 Batches: a node's feeder gives the node's batch (``hosts`` > 1, each
 node a shard of the epoch, as a host of the reference package), or
@@ -95,12 +99,23 @@ class Mesh:
         m, size = self.coords[1], t // self.model
         return slice(m * size, (m + 1) * size)
 
-    def local(self, data, shard_time: bool):
-        """This rank's rows (and, with ``shard_time``, frames) of an
-        (N, C, T, V, M) batch, numpy or torch."""
+    def nodes(self, v: int) -> slice:
+        """This rank's joints of ``v`` under the ring edge partition."""
+        if v % self.model:
+            raise ValueError(f"V={v} does not split over {self.model} "
+                             "node ranks")
+        m, size = self.coords[1], v // self.model
+        return slice(m * size, (m + 1) * size)
+
+    def local(self, data, shard_time: bool, shard_nodes: bool = False):
+        """This rank's rows (and, with ``shard_time``, frames; with
+        ``shard_nodes``, joints) of an (N, C, T, V, M) batch, numpy or
+        torch."""
         out = data[self.batch_rows(data.shape[0])]
         if shard_time:
             out = out[:, :, self.time_frames(data.shape[2])]
+        if shard_nodes:
+            out = out[:, :, :, self.nodes(data.shape[3])]
         return out
 
     def reduce_gradients(self, named_parameters) -> None:

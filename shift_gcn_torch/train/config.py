@@ -9,21 +9,23 @@ strings name this package's modules.  ``model`` names a family of
 
 The parallel modes run one process per GPU (``parallel/``): data
 parallelism, ``mesh_shape: [D, 1]`` (or none: every rank on 'data'),
-sequence parallelism, ``mesh_shape: [D, M]`` with ``shard_time``, and
+sequence parallelism, ``mesh_shape: [D, M]`` with ``shard_time``,
 tensor parallelism, ``mesh_shape: [D, M]`` with M > 1 and no
-``shard_time`` (``parallel/tensor.py``).  Keys this port cannot honor
-yet raise in ``check_supported`` (called by ``load_config`` and the
-``Trainer``; ``parallel.mesh.make_mesh`` holds D * M to the world
-size), naming the key and its ROADMAP item: ``edge_partition``
-(A13c).  ``fourstream``, ``native_loader``,
+``shard_time`` (``parallel/tensor.py``), and the edge partition,
+``edge_partition`` over ``mesh_shape: [D, M]`` with M >= 2 and
+``edge_strategy`` ``gather`` (ST-GCN) or ``ring`` (ring-GNN)
+(``parallel/edge_partition.py``).  Layouts that cannot run raise in
+``check_supported`` (called by ``load_config`` and the ``Trainer``;
+``parallel.mesh.make_mesh`` holds D * M to the world size) with the
+reference trainer's errors.  ``fourstream``, ``native_loader``,
 ``device_guard``, ``lowering`` (merged over ``model_args.lowering``,
 ``ops/lowering.py``), ``compute_dtype`` and ``activation_dtype`` are read
 by the Trainer.  Keys that only tune the reference package's compiler or
 device (``sync_bn``: BN is always synchronized over the ranks, as the
 reference's jit makes it global; ``donate_state``, ``remat``,
 ``use_pallas``,
-``profile_dir``, ``profile_steps``, ``debug_nans``, ``num_worker``,
-``edge_strategy``) and the reference's ``device`` GPU ids change no
+``profile_dir``, ``profile_steps``, ``debug_nans``, ``num_worker``)
+and the reference's ``device`` GPU ids change no
 result here and are read by nothing; ``optimizer``,
 ``nesterov`` and ``weight_decay`` are read by nothing either: the SGD is
 always nesterov with momentum 0.9 and the per-parameter weight-decay
@@ -97,8 +99,9 @@ class ExperimentConfig:
                                             # on the device
     mesh_shape: Optional[List[int]] = None  # [D, M]: data x time ranks
     shard_time: bool = False                # T over the M 'model' ranks
-    edge_partition: bool = False            # (refused: A13c)
-    edge_strategy: str = "gather"
+    edge_partition: bool = False            # edges over the M 'model'
+                                            # ranks
+    edge_strategy: str = "gather"           # 'gather' or 'ring'
     sync_bn: bool = True
     donate_state: bool = True
     remat: bool = False
@@ -124,21 +127,20 @@ class ExperimentConfig:
 
 
 def check_supported(cfg: ExperimentConfig) -> None:
-    """Raise ValueError naming the first key this port cannot honor yet
-    and the ROADMAP item that will, or a parallel layout that cannot
-    run: ``shard_time`` without M >= 2 time ranks or with
-    ``fourstream``, or tensor parallelism over M ranks that do not
-    divide an output width of the model.  (``parallel.mesh.make_mesh``
-    holds D * M to the world size.)"""
-    if cfg.edge_partition:
-        _refuse("edge_partition", cfg, "A13c (edge partition)")
+    """Raise ValueError for a parallel layout that cannot run:
+    ``shard_time`` without M >= 2 time ranks or with ``fourstream``,
+    tensor parallelism over M ranks that do not divide an output width
+    of the model, or an edge partition the reference trainer refuses
+    (``check_edge_partition``).  (``parallel.mesh.make_mesh`` holds
+    D * M to the world size.)"""
     # --mesh_shape with no value clears the mesh
     mesh = [int(a) for a in cfg.mesh_shape or []] or None
     if mesh is not None:
         if len(mesh) != 2 or min(mesh) < 1:
             raise ValueError(f"mesh_shape {mesh!r}: expected [data, model] "
                              "with both >= 1")
-        if mesh[1] > 1 and not cfg.shard_time:
+        # under the edge partition the model ranks hold edges, not channels
+        if mesh[1] > 1 and not cfg.shard_time and not cfg.edge_partition:
             from shift_gcn_torch.parallel import tensor
 
             try:
@@ -154,11 +156,46 @@ def check_supported(cfg: ExperimentConfig) -> None:
         if cfg.fourstream:
             raise ValueError("config key 'shard_time' is not supported with "
                              "fourstream, as in the reference trainer")
+    if cfg.edge_partition:
+        check_edge_partition(cfg, mesh)
 
 
-def _refuse(key: str, cfg: ExperimentConfig, item: str) -> None:
-    raise ValueError(f"config key {key!r} ({getattr(cfg, key)!r}) is not "
-                     f"supported by shift_gcn_torch yet: ROADMAP {item}")
+def check_edge_partition(cfg: ExperimentConfig, mesh) -> None:
+    """The reference trainer's refusals of ``edge_partition``
+    (trainer.py:220-284): with ``fourstream`` or ``shard_time``, without
+    M >= 2 model ranks to carry the edge shards, ``ring`` for a family
+    without node shards, ``gather`` for one without an edge path, and an
+    unknown ``edge_strategy``."""
+    from shift_gcn_torch.models.registry import get_model
+
+    for key in ("fourstream", "shard_time"):
+        if getattr(cfg, key):
+            raise ValueError(
+                f"edge_partition is not supported with {key} (docs/"
+                "DESIGN.md, composition boundaries)")
+    if mesh is None or mesh[1] < 2:
+        raise ValueError(
+            "edge_partition needs mesh_shape [data, model] with model >= 2 "
+            "(the 'model' axis carries the edge shards)")
+    strategies = get_model(cfg.model).edge_strategies
+    if cfg.edge_strategy == "ring":
+        if "ring" not in strategies:
+            raise ValueError(
+                f"edge_strategy='ring' is not supported by model family "
+                f"{cfg.model!r} (it takes no node shards).  Ring "
+                "node-sharding is for graphs too large to replicate: use "
+                "the ring_gnn family (configs/synthetic_ring.yaml); "
+                "skeleton graphs (V<=33) train with edge_strategy='gather' "
+                "(docs/DESIGN.md)")
+    elif cfg.edge_strategy == "gather":
+        if "gather" not in strategies:
+            raise ValueError(
+                f"edge_partition is not supported by model family "
+                f"{cfg.model!r} (it has no path over partitioned edges; "
+                "the stgcn family has)")
+    else:
+        raise ValueError(f"unknown edge_strategy={cfg.edge_strategy!r} "
+                         "(expected 'gather' or 'ring')")
 
 
 def _coerce(value: str, current: Any) -> Any:

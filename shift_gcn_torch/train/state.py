@@ -10,7 +10,8 @@ drop out of the mean (reference: main.py:259, 493-515).
 Under a mesh (``parallel/``) a rank passes its own rows (and frames) to
 ``train_step`` with the mesh: it back-propagates its data shard's loss
 over the M model ranks that hold the same loss (time ranks under
-sequence parallelism, channel ranks under tensor parallelism), so that
+sequence parallelism, channel ranks under tensor parallelism, edge or
+node ranks under the edge partition), so that
 the ranks' parts add up to the sum of the shards' losses
 (``parallel/seqpar.py``); the gradients are reduced over the ranks
 before the SGD step (``Mesh.reduce_gradients``: a tensor-parallel

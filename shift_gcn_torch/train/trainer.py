@@ -37,17 +37,21 @@ reference package does.
 Under a default process group (``cli/train.py`` initializes it under
 torchrun, SLURM or Open MPI) the run is data parallel over
 ``mesh_shape`` [D, 1] (the default: every rank on 'data'), data and
-sequence parallel over [D, M] with ``shard_time``, or data and tensor
-parallel over [D, M] with M > 1 and no ``shard_time`` (``parallel/``),
-as the reference trainer's multi-process layouts (trainer.py:124-160):
+sequence parallel over [D, M] with ``shard_time``, data and tensor
+parallel over [D, M] with M > 1 and no ``shard_time``, or data parallel
+with the graph's edges over the M model ranks under ``edge_partition``
+(``gather``: ST-GCN; ``ring``: the ring-GNN's node shards)
+(``parallel/``), as the reference trainer's multi-process layouts
+(trainer.py:124-160) and its ``_build_steps`` (:210-291):
 
 - every rank builds the model from the same seed and attaches the
-  mesh's collectives (sync BN, the global constraint, the T shards, or
-  the sharded output channels, cut to the rank's slices);
+  mesh's collectives (sync BN, the global constraint, the T shards, the
+  sharded output channels, cut to the rank's slices, or the rank's
+  edge slice or ring buckets, with BN over the data ranks);
 - a node's feeders give its share of the epoch (``hosts`` > 1, when
   several nodes feed D > 1 data ranks), or every rank's feeder gives
-  the whole batch; each rank keeps its rows (and frames) and moves only
-  those to its card;
+  the whole batch; each rank keeps its rows (and frames, or under
+  ``ring`` joints) and moves only those to its card;
 - eval gathers the logits, labels, indices and masks of every data
   rank and the loss sums, so every rank scores the whole split the
   same way; in dataset order;
@@ -84,7 +88,7 @@ from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.registry import get_model
 from shift_gcn_torch.models.shift_gcn import check_shift_range
 from shift_gcn_torch.ops import lowering as lowering_lib
-from shift_gcn_torch.parallel import launch, seqpar, tensor
+from shift_gcn_torch.parallel import edge_partition, launch, seqpar, tensor
 from shift_gcn_torch.parallel.mesh import make_mesh
 from shift_gcn_torch.train import config as config_lib
 from shift_gcn_torch.train import fourstream
@@ -184,10 +188,16 @@ class Trainer:
         if distributed and self.device.type == "cuda":
             torch.cuda.set_device(self.device)
         self.shard_time = bool(cfg.shard_time)
-        # raises unless mesh_shape covers the ranks (one without a group)
+        self.edge_partition = bool(cfg.edge_partition)
+        # the ring's ranks hold joints of every clip
+        self.shard_nodes = (self.edge_partition
+                            and cfg.edge_strategy == "ring")
+        # raises unless mesh_shape covers the ranks (one without a group);
+        # the model ranks hold T shards, edges or channel slices
         mesh = make_mesh(cfg.mesh_shape,
                          launch.node_count() if distributed else 1,
-                         tensor_parallel=not self.shard_time)
+                         tensor_parallel=not (self.shard_time
+                                              or self.edge_partition))
         # the parallel.mesh.Mesh of a multi-process run, else None; a
         # node's feeder gives its shard of the epoch when hosts > 1
         self.mesh = mesh if distributed else None
@@ -247,7 +257,9 @@ class Trainer:
                                            device=self.device)
             self.model.init_weights(torch.Generator().manual_seed(cfg.seed))
             self.optimizer = build_optimizer(self.model, cfg.base_lr)
-        if self.mesh is not None:
+        if self.mesh is not None and self.edge_partition:
+            edge_partition.attach(self.model, self.mesh, cfg.edge_strategy)
+        elif self.mesh is not None:
             # same-seed weights on every rank; the collectives attached
             for model in (self.models.values() if self.fourstream
                           else [self.model]):
@@ -354,11 +366,13 @@ class Trainer:
         optimizer.load_state_dict(osd)
 
     def _local(self, *arrays):
-        """This rank's rows (and frames: data first) of a host batch."""
+        """This rank's rows (and frames or joints: data first) of a host
+        batch."""
         if self.mesh is None:
             return arrays
         rows = self.mesh.batch_rows(len(arrays[0]))
-        return (self.mesh.local(arrays[0], self.shard_time),
+        return (self.mesh.local(arrays[0], self.shard_time,
+                                self.shard_nodes),
                 *(a[rows] for a in arrays[1:]))
 
     def _put_batch(self, data: np.ndarray, label: np.ndarray,

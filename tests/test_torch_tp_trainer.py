@@ -13,8 +13,8 @@ runs of the same config made by rank 0 before and after the group:
 - the one-process run's first checkpoint resumes under [1, 2] and ends
   where the one-process run did.
 
-``check_supported``'s side (TP taken, ``edge_partition`` refused with
-A13c, an uneven width refused) is in test_torch_parallel_launch.py and
+``check_supported``'s side (TP taken, an edge partition without model
+ranks refused, an uneven width refused) is in test_torch_parallel_launch.py and
 test_torch_registry.py."""
 
 import os

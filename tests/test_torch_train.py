@@ -316,13 +316,17 @@ def test_load_config_matches_reference(path):
 
 
 def test_load_config_refuses_other_family_and_unknown_keys():
-    # the other families and the lowering knobs are ported (A11, A12):
-    # only the parallel modes are refused now, and unknown keys
+    # the other families and the lowering knobs are ported (A11, A12),
+    # and the edge partition (A13c): only the layouts the reference
+    # trainer refuses are refused, such as the edge partition of a family
+    # without an edge path, and unknown keys
     assert config.load_config(["--model", "stgcn"]).model == "stgcn"
     assert config.load_config(["--lowering", "{tshift_impl: conv}"]
                               ).lowering == {"tshift_impl": "conv"}
-    with pytest.raises(ValueError, match="'edge_partition'.*A13"):
-        config.load_config(["--model", "stgcn", "--edge_partition", "true"])
+    with pytest.raises(ValueError, match="edge_partition is not supported "
+                       "by model family 'shift_gcn'"):
+        config.load_config(["--model", "shift_gcn", "--mesh_shape", "1",
+                            "4", "--edge_partition", "true"])
     with pytest.raises(KeyError, match="WRONG ARG"):
         config.load_config(["--no_such_key", "1"])
 

@@ -19,7 +19,12 @@ writes against the reference package in their own process.  Jobs:
   tensor-parallel [1, 2] train and eval steps of the Shift-GCN model, of
   the four streams and of ST-GCN, each beside the one-process step
   from the same weights (2 ranks);
-- ``tp22``: the tensor-parallel [2, 2] train and eval steps (4 ranks).
+- ``tp22``: the tensor-parallel [2, 2] train and eval steps (4 ranks);
+- ``edge``: the edge partition's aggregators (``gather`` and ``ring``)
+  with their adjoints, and its train and eval steps: ST-GCN under
+  ``gather`` at [2, 2] and [1, 4], the ring-GNN under ``ring`` at
+  [1, 4], with rank 0's one-process steps from the same weights (4
+  ranks).
 """
 
 import os
@@ -39,8 +44,9 @@ from shift_gcn_torch.models.shift_gcn import (  # noqa: E402
     Model, config_from_reference_args)
 from shift_gcn_torch.ops import temporal_shift as ts  # noqa: E402
 from shift_gcn_torch.ops.batchnorm import batch_norm_train  # noqa: E402
-from shift_gcn_torch.models import stgcn  # noqa: E402
-from shift_gcn_torch.parallel import comm, halo, seqpar, tensor  # noqa: E402
+from shift_gcn_torch.models import ring_gnn, stgcn  # noqa: E402
+from shift_gcn_torch.parallel import (  # noqa: E402
+    comm, edge_partition, halo, seqpar, tensor)
 from shift_gcn_torch.parallel.mesh import make_mesh  # noqa: E402
 from shift_gcn_torch.train import fourstream, optim, state  # noqa: E402
 from shift_gcn_torch.utils.checkpoint import (  # noqa: E402
@@ -317,8 +323,79 @@ def job_tp22(inp):
         m["args"], m["params"], m["bn_state"]))}
 
 
+def edge_aggregator_case(c, mesh):
+    """Both standalone aggregators on the whole x; the gather's adjoint
+    under a cotangent that differs by rank, and ``ring_aggregate``'s on
+    this rank's padded node block under its block of one cotangent."""
+    x = torch.from_numpy(c["x"])
+    cot = torch.from_numpy(c["cot"])
+    xg = x.clone().requires_grad_(True)
+    out = edge_partition.make_sharded_aggregator(
+        c["edges"], c["v"], mesh, "gather")(xg)
+    (out * cot[mesh.coords[1]]).sum().backward()
+    ring = edge_partition.make_sharded_aggregator(c["edges"], c["v"], mesh,
+                                                  "ring")(x)
+    steps, v_pad, v_loc = edge_partition.partition_edges_ring(
+        c["edges"], mesh.model, c["v"])
+    m = mesh.coords[1]
+    local = [{k: torch.from_numpy(a[m]) for k, a in step.items()}
+             for step in steps]
+    rows = slice(m * v_loc, (m + 1) * v_loc)
+    pad = (0, 0, 0, v_pad - c["v"])
+    block = torch.nn.functional.pad(x, pad)[:, rows].clone()
+    block.requires_grad_(True)
+    got = edge_partition.ring_aggregate(block, local, mesh.model_group)
+    (got * torch.nn.functional.pad(cot.sum(0), pad)[:, rows]).sum(
+        ).backward()
+    return {"gather": out.detach().numpy(), "gather_dx": xg.grad.numpy(),
+            "ring": ring.numpy(), "ring_block": got.detach().numpy(),
+            "ring_dx": block.grad.numpy()}
+
+
+def edge_model_case(c, mesh, build, strategy):
+    """The edge-partitioned eval step from the loaded weights, then one
+    train step."""
+    model = edge_partition.attach(build(), mesh, strategy)
+    logits, loss_sum, n = edge_partition.eval_step(model, _batch(c, "mask"),
+                                                   mesh)
+    opt = optim.build_optimizer(model, c["lr"])
+    loss, acc = edge_partition.train_step(model, opt, _batch(c), c["lr"],
+                                          mesh)
+    return {"loss": float(loss), "acc": float(acc), "logits": logits,
+            "loss_sum": loss_sum, "n": n,
+            "grads": {k: p.grad.numpy().copy()
+                      for k, p in model.named_parameters()},
+            "state": {k: v.numpy() for k, v in model.state_dict().items()}}
+
+
+def job_edge(inp):
+    s, r = inp["stgcn"], inp["ring"]
+
+    def st_gcn():
+        model = stgcn.Model(stgcn.config_from_args(s["args"]), device="cpu")
+        model.load_state_dict(state_dict_from_arrays(s["params"],
+                                                     s["bn_state"]))
+        return model
+
+    def ring():
+        model = ring_gnn.Model(ring_gnn.config_from_args(r["args"]),
+                               device="cpu")
+        model.load_state_dict(state_dict_from_arrays(r["params"], {}))
+        return model
+
+    m14, m22 = make_mesh([1, 4]), make_mesh([2, 2])
+    out = {"agg": edge_aggregator_case(inp["agg"], m14),
+           "stgcn22": edge_model_case(s, m22, st_gcn, "gather"),
+           "stgcn14": edge_model_case(s, m14, st_gcn, "gather"),
+           "ring14": edge_model_case(r, m14, ring, "ring")}
+    if m14.rank == 0:
+        out["single"] = {"stgcn": one_process_step(st_gcn(), s, _batch(s)),
+                         "ring": one_process_step(ring(), r, _batch(r))}
+    return out
+
+
 JOBS = {"ops": job_ops, "steps": job_steps, "trainer": job_trainer,
-        "tp": job_tp, "tp22": job_tp22}
+        "tp": job_tp, "tp22": job_tp22, "edge": job_edge}
 
 
 def free_port():
