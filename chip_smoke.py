@@ -195,7 +195,29 @@ Phases, in order; any failure exits non-zero:
    sums' all-reduce with an identity backward; the ring's cotangents
    sent the forward's way), which the gates must catch.  Prints the
    step times and peak memory per rank (ranks sharing one card, not a
-   scaling figure).
+   scaling figure);
+21. per-unit recomputation (``remat``) and the Trainer's trace and NaN
+   check: (a) one step of ``configs/mediapipe/train_joint.yaml``'s model
+   (64 clips x T=300) in fp32 and in bf16 and (b) one NTU-60 fp32 step
+   (batch 64), each from one seeded state and batch without and with
+   ``remat``: the loss and every parameter, BN buffer and momentum
+   buffer after SGD bit-equal but those of NONREPEATING (cuDNN's
+   stride-2 backward-filter, which adds in no fixed order: within
+   STEP_GRAD_TOL of scale), and every one bit-equal again under
+   ``cudnn.deterministic``; the launches PER_STEP and REMAT_STEP (K1
+   40 and K4 20 a step), the peak memory with remat at most half the
+   peak without; each step's peak memory and time printed beside
+   REMAT_PREDICTION; (c) ``Trainer.start()`` on ``train_joint.yaml``
+   with ``remat``, ``profile_dir`` and ``profile_steps: 2`` for one
+   epoch of 4 steps with eval and save: the launches, one trace file of
+   two ``ProfilerStep`` spans naming the five kernels' ``__global__``
+   functions (no more than the two steps' 80 K1 launches), each one's
+   device time printed, one log line; (d) ``debug_nans: true``: the run trains, and a batch with one
+   planted NaN raises ``FloatingPointError`` naming ``data_bn``; (e)
+   inside phase 18c's gloo ranks, the fp32 [2, 2] step again with
+   ``remat``: loss and every gradient bit-equal to the same rank's step
+   without it (NONREPEATING's within STEP_GRAD_TOL of scale),
+   REMAT_STEP launches.
 
 The last four lines are a JSON object with one entry per kernel, a
 summary of the end-to-end figures, the card's name and power limit, and
@@ -207,6 +229,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import pickle
@@ -280,6 +303,12 @@ TRAIN_CLIPS, VAL_CLIPS = 512, 128
 PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
             "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
+# a train step with ``remat`` (phase 21): each unit's forward runs again
+# in the backward, K1 and K4 with it; the backward kernels as PER_STEP.
+# The recomputation's early stop ends it at a unit's last saved tensor,
+# the output of its final ReLU, after both K1 launches and K4: it trims
+# no launch
+REMAT_STEP = dict(PER_STEP, temporal_shift=40, shift_gcn=20)
 # live serving (phases 12, 13): a landmark track of 3 windows streamed at
 # hop == the offline stride, then at a tenth of a window for the latency;
 # an artifact scores ARTIFACT_CLIPS clips in batches of N_WINDOWS, the
@@ -2781,10 +2810,11 @@ def planted(fault: str):
 
 
 def parallel_step(settings: dict, t: int, mesh=None, shard_time=False,
-                  timed: bool = True):
+                  timed: bool = True, remat: bool = False):
     """One fp32 step of the full-width MediaPipe model from the seeded init
     on the seeded batch of ``settings["batch"]`` clips, padded with empty
-    frames to ``t``: on this rank's part under ``mesh``, else whole.
+    frames to ``t``: on this rank's part under ``mesh``, else whole; each
+    unit recomputed in the backward with ``remat``.
     Returns the loss; the gradients: the parameters' (a tensor-parallel
     rank's slices gathered over the model ranks), the input's ("input",
     this rank's rows and frames; under tensor parallelism the model
@@ -2806,7 +2836,7 @@ def parallel_step(settings: dict, t: int, mesh=None, shard_time=False,
         data.shape[:2] + (t - data.shape[2],) + data.shape[3:],
         np.float32)], axis=2)
     config = ModelConfig(num_class=2, num_point=V, num_person=1,
-                         graph="mediapipe_pose")
+                         graph="mediapipe_pose", remat=remat)
     model = Model(config, device=dev).init_weights(
         torch.Generator().manual_seed(settings["seed"]))
     if mesh is not None:
@@ -3045,6 +3075,12 @@ def rank_seqpar(settings: dict, workdir: str):
     summary.update(loss=loss, step_launches=step_launches, step_ms=ms,
                    peak_gib=peak)
     arrays = {"state": model_state, "grads": grads}
+    # 21e: the same step with each unit recomputed in the backward, its
+    # halo exchanges and sync-BN all-reduces issued again there
+    (summary["loss:remat"], arrays["grads:remat"],
+     summary["launches:remat"]) = parallel_step(
+        settings, settings["t_pad"], mesh, shard_time=True, timed=False,
+        remat=True)[:3]
     for fault in settings.get("faults", ()):
         with planted(fault):
             summary[f"loss:{fault}"], arrays[f"grads:{fault}"] = \
@@ -3314,9 +3350,39 @@ def run_parallel(rng, dev, workdir: str, card: str, seed: int) -> dict:
               f"{[r for r, (_, b) in enumerate(per_rank) if b]} of {world};"
               f" {readings_text(worst[0])}; broken: "
               f"{'; '.join(worst[1])} | {card}")
+    # 21e, read here and printed with phase 21
+    loose = 0.0
+    for line, res in zip(lines, results):
+        differ = []
+        for name, want in res["grads"].items():
+            got = res["grads:remat"][name]
+            if np.array_equal(got, want):
+                continue
+            gap = nonrepeating_gap(name, torch.from_numpy(got),
+                                   torch.from_numpy(want),
+                                   np.abs(want).max())
+            if gap is None or not gap <= STEP_GRAD_TOL:
+                differ.append(name)
+            else:
+                loose = max(loose, gap)
+        if line["loss:remat"] != line["loss"] or differ:
+            fail(f"21e rank {line['rank']}: the step with remat is not "
+                 f"the step without it: loss {line['loss:remat']} vs "
+                 f"{line['loss']}, gradients differing {differ[:5]}")
+        if line["launches:remat"] != REMAT_STEP:
+            fail(f"21e rank {line['rank']} launches "
+                 f"{line['launches:remat']} != {REMAT_STEP}")
+    remat = (f"21e: one fp32 step, {N_WINDOWS} clips x T={T_PAD}, at mesh "
+             f"{list(SEQPAR_MESH)} in phase 18c's {world} gloo ranks with "
+             f"remat: on every rank the loss, every parameter's gradient "
+             f"(cuDNN's stride-2 backward-filter within {loose:.3g} of "
+             f"scale), the input's gradient and every raw position "
+             f"gradient bit-equal to the same rank's step without it "
+             f"(losses {[line['loss'] for line in lines]}); launches per "
+             f"rank {lines[0]['launches:remat']} | {card}")
     return {"dp_ms": [line["step_ms"] for line in dp_lines],
             "seqpar_ms": [line["step_ms"] for line in lines],
-            "one_ms": (ref_ms, ref_ms_dp)}
+            "one_ms": (ref_ms, ref_ms_dp), "remat": remat}
 
 
 # ---------------------------------------------------------------------------
@@ -4101,6 +4167,277 @@ def run_edge_partition(rng, dev, workdir: str, card: str, seed: int,
             "ring_one_ms": ring_ms}
 
 
+# ---------------------------------------------------------------------------
+# Per-unit recomputation, the trace and the NaN check (phase 21)
+# ---------------------------------------------------------------------------
+
+REMAT_TRAINER_STEPS = 4  # Trainer steps of 21c
+REMAT_TRACE_STEPS = 2    # 21c's profile_steps
+# stated before the first run on the card (root PERF.md §6): the peak
+# of one train_joint.yaml step (64 clips x T=300) in GiB and its ms, with
+# and without remat, and NTU-60's fp32 peak; a cut smaller than half means
+# the recomputation keeps activations it should drop, and fails
+REMAT_PREDICTION = {"bfloat16": "24.10 -> 3-6 GiB, 181.1 -> 225-255 ms",
+                    "float32": "192.3 -> 240-270 ms",
+                    "NTU-60": "39.7 -> 6-10 GiB"}
+# the five kernels' groups of PROFILE_GROUPS, by the names the trace gives
+# their __global__ functions
+TRACE_KERNELS = PROFILE_GROUPS[:5]
+# weights whose gradient does not repeat its bits from run to run on the
+# card: cuDNN's backward-filter algorithm for the stride-2 residual 1x1
+# convolutions (l5, l8) adds in no fixed order unless cudnn.deterministic
+# is set (two fp32 steps without remat differ there by ~1e-7, every other
+# tensor bit-equal; with cudnn.deterministic every tensor repeats:
+# scripts/step_repeatability.py).  Phase 21 holds these to STEP_GRAD_TOL
+# of scale, and every tensor bit-equal under cudnn.deterministic
+NONREPEATING = ("residual.conv.weight",)
+
+
+def nonrepeating_gap(name: str, got, want, scale) -> float:
+    """A NONREPEATING tensor's max |got - want| over ``scale``, its
+    gradient's scale (the update's for a parameter); None for another
+    tensor."""
+    if not name.split(":")[-1].endswith(NONREPEATING):
+        return None
+    gap = float((got.double() - want.double()).abs().max())
+    return gap / max(float(scale), 1e-30)
+
+
+def remat_step(config, batch, lr: float, dev, seed: int,
+               timed: bool = True):
+    """One train step of ``config``'s model from the seeded init on
+    ``batch``: (loss, every parameter, buffer and momentum buffer after
+    SGD, the step's launches, its peak memory in GiB, and the ms of a
+    step by CUDA events, timed on after it unless not ``timed``)."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.models.shift_gcn import Model
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+
+    model = Model(config).init_weights(torch.Generator().manual_seed(seed))
+    opt = build_optimizer(model, lr)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    loss = train_step(model, opt, batch, lr)[0].clone()
+    torch.cuda.synchronize(dev)
+    launches = dict(kernels.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    after = {k: v.clone() for k, v in model.state_dict().items()}
+    after.update({f"momentum:{n}": opt.state[p]["momentum_buffer"].clone()
+                  for n, p in model.named_parameters()})
+    ms = (time_ms(lambda: train_step(model, opt, batch, lr), iters=2,
+                  reps=3) if timed else None)
+    del model, opt
+    torch.cuda.empty_cache()
+    return loss, after, launches, peak, ms
+
+
+def remat_pair(config, batch, lr: float, dev, seed: int, label: str,
+               card: str) -> dict:
+    """21a / 21b: the step of ``config`` without and with ``remat`` from
+    one seeded state and batch: the loss and every tensor of the state
+    after SGD bit-equal but the NONREPEATING ones (STEP_GRAD_TOL of
+    scale), and every tensor bit-equal under cudnn.deterministic; the
+    launches PER_STEP and REMAT_STEP; the peak with remat at most half
+    the peak without.  Returns the peaks and times."""
+    runs = {remat: remat_step(dataclasses.replace(config, remat=remat),
+                              batch, lr, dev, seed)
+            for remat in (False, True)}
+    (loss0, after0, launches0, peak0, ms0) = runs[False]
+    (loss1, after1, launches1, peak1, ms1) = runs[True]
+    differ = [k for k, v in after0.items() if not torch.equal(after1[k], v)]
+    loose = {}
+    for k in differ:
+        name = k.split(":")[-1]
+        buf = after0[f"momentum:{name}"] if f"momentum:{name}" in after0 \
+            else None
+        # a parameter moves by lr (1 + momentum) times its first gradient
+        scale = None if buf is None else float(buf.abs().max()) * (
+            1.0 if k.startswith("momentum:") else lr * 1.9)
+        gap = (None if scale is None
+               else nonrepeating_gap(k, after1[k], after0[k], scale))
+        if gap is None or not gap <= STEP_GRAD_TOL:
+            fail(f"21 {label}: the step with remat is not the step without "
+                 f"it at {k} ({gap if gap is not None else 'bits'} of "
+                 f"scale; differing: {differ[:6]})")
+        loose[k] = gap
+    if not torch.equal(loss0, loss1):
+        fail(f"21 {label}: loss {float(loss1)!r} with remat vs "
+             f"{float(loss0)!r}")
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        exact = [remat_step(dataclasses.replace(config, remat=remat), batch,
+                            lr, dev, seed, timed=False)
+                 for remat in (False, True)]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    differ = [k for k, v in exact[0][1].items()
+              if not torch.equal(exact[1][1][k], v)]
+    if differ or not torch.equal(exact[0][0], exact[1][0]):
+        fail(f"21 {label}: under cudnn.deterministic the step with remat "
+             f"differs from the one without at {differ[:6]}")
+    if launches0 != PER_STEP or launches1 != REMAT_STEP:
+        fail(f"21 {label}: launches {launches0} / with remat {launches1} "
+             f"!= {PER_STEP} / {REMAT_STEP}")
+    if not peak1 <= 0.5 * peak0:
+        fail(f"21 {label}: peak {peak1:.2f} GiB with remat against "
+             f"{peak0:.2f} without: the recomputation keeps activations")
+    print(f"[remat] {label}: one step from one seeded state and batch, "
+          f"without / with remat: loss {float(loss0):.7f} bit-equal; of "
+          f"the {len(after0)} parameters, buffers and momentum buffers "
+          f"after SGD {len(after0) - len(loose)} bit-equal and "
+          f"{len(loose)} of cuDNN's stride-2 backward-filter (not "
+          f"repeatable run to run) within "
+          f"{max(loose.values(), default=0.0):.3g} of scale (gate "
+          f"{STEP_GRAD_TOL:g}); under cudnn.deterministic all "
+          f"{len(after0)} bit-equal; launches {launches0} / {launches1}; "
+          f"peak {peak0:.3f} -> {peak1:.3f} GiB, step {ms0:.2f} -> "
+          f"{ms1:.2f} ms (CUDA events; predicted "
+          f"{REMAT_PREDICTION.get(label.split()[-1], 'n/a')}) | {card}")
+    return {"peak": (peak0, peak1), "ms": (ms0, ms1)}
+
+
+def trace_kernels(trace_dir: str):
+    """The one trace file under ``trace_dir``: its name, its ProfilerStep
+    spans, and per kernel of TRACE_KERNELS (the events of its functions,
+    their device ms)."""
+    files = os.listdir(trace_dir)
+    if len(files) != 1 or not files[0].startswith("rank0."):
+        fail(f"21c: trace files {files}, expected one rank0.*")
+    with open(os.path.join(trace_dir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+    # a step's span is on the host and, on a card, again on the device
+    steps = sorted({e["name"] for e in events
+                    if str(e.get("name", "")).startswith("ProfilerStep#")})
+    found = {}
+    for group, marks in TRACE_KERNELS:
+        hits = [e for e in events if e.get("cat") == "kernel"
+                and any(m in e.get("name", "") for m in marks)]
+        found[group] = (len(hits),
+                        sum(e.get("dur", 0.0) for e in hits) / 1e3)
+    return files[0], steps, found
+
+
+def run_remat(rng, dev, workdir: str, card: str, seed: int) -> dict:
+    """Phase 21 (21e runs inside phase 18): 21a/21b the step with and
+    without remat, train_joint.yaml in fp32 and bf16 and NTU-60 in fp32;
+    21c ``Trainer.start()`` with remat and a trace of its first steps;
+    21d ``debug_nans`` catching a planted NaN.  Returns the figures for
+    the summary."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.models.shift_gcn import config_from_reference_args
+    from shift_gcn_torch.train.config import load_config
+    from shift_gcn_torch.train.trainer import Trainer
+
+    out = {}
+    base = load_config(["--config", TRAIN_CONFIG])
+    config = config_from_reference_args(base.model_args)
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    for dtype in ("float32", "bfloat16"):
+        out[dtype] = remat_pair(
+            dataclasses.replace(config, activation_dtype=None if dtype ==
+                                "float32" else dtype), batch, base.base_lr,
+            dev, seed, f"21a {TRAIN_CONFIG} {dtype}", card)
+    ntu = load_config(["--config", NTU60_CONFIG])
+    config = config_from_reference_args(ntu.model_args)
+    data, labels = ntu_clips(rng, ntu.batch_size, T_WINDOW,
+                             config.num_point, config.num_person, 60)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    out["NTU-60"] = remat_pair(config, batch, ntu.base_lr, dev, seed,
+                               f"21b {NTU60_CONFIG} NTU-60", card)
+    del batch
+    torch.cuda.empty_cache()
+
+    # 21c: the Trainer with remat, its first steps traced
+    feeder_args = {split: write_split(workdir, split, *synthetic_batch(
+        rng, n, T_WINDOW)) for split, n in (
+            ("train", REMAT_TRAINER_STEPS * N_WINDOWS), ("val", N_WINDOWS))}
+    trace_dir = os.path.join(workdir, "trace")
+    trainer = Trainer(one_epoch_config(
+        TRAIN_CONFIG, workdir, feeder_args, "--remat", "true",
+        "--profile_dir", trace_dir, "--profile_steps",
+        str(REMAT_TRACE_STEPS)))
+    if not trainer.model.config.remat:
+        fail("21c: the Trainer's model does not recompute")
+    epochs = record_epochs(trainer)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    expect = {k: REMAT_STEP[k] * REMAT_TRAINER_STEPS
+              + PER_EVAL_FORWARD.get(k, 0) for k in REMAT_STEP}
+    losses = epochs[0]["losses"]
+    if launches != expect or len(losses) != REMAT_TRAINER_STEPS or (
+            not np.isfinite(losses).all()):
+        fail(f"21c: launches {launches} != {expect}, or losses {losses}")
+    with open(os.path.join(trainer.work_dir, "log.txt")) as f:
+        logged = sum("Profiler trace written to" in line for line in f)
+    name, steps, found = trace_kernels(trace_dir)
+    if logged != 1 or steps != [f"ProfilerStep#{i}"
+                                for i in range(REMAT_TRACE_STEPS)]:
+        fail(f"21c: {logged} trace log lines, steps {steps}")
+    missing = [g for g, (n, _) in found.items() if n == 0]
+    if missing:
+        fail(f"21c: the trace names no kernel of {missing}")
+    # K1 is one function, one event a launch: no more than the traced
+    # steps launch (after phases 1-20 the trace has held 39 of the 40 K4
+    # launches, phase 21 alone all 40: a missed event is not a fault of
+    # the port)
+    k1 = found[TRACE_KERNELS[0][0]][0]
+    if not k1 <= REMAT_TRACE_STEPS * REMAT_STEP["temporal_shift"]:
+        fail(f"21c: {k1} K1 launches in the trace of {REMAT_TRACE_STEPS} "
+             "steps")
+    print(f"[remat] 21c: Trainer.start() on {TRAIN_CONFIG} with remat, "
+          f"profile_dir and profile_steps {REMAT_TRACE_STEPS}: "
+          f"{REMAT_TRAINER_STEPS} steps + eval + save in {wall:.1f} s, "
+          f"losses {[round(v, 4) for v in losses]}, launches {launches}; "
+          f"trace {name} of {steps}: "
+          + ", ".join(f"{g} x{n} {ms:.3f} ms" for g, (n, ms)
+                      in found.items())
+          + f" of device time | {card}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    # 21d: debug_nans names the module a planted NaN reaches first
+    ddir = os.path.join(workdir, "nans")
+    os.makedirs(ddir)
+    feeder_args = {split: write_split(ddir, split, *synthetic_batch(
+        rng, n, T_WINDOW)) for split, n in (("train", 2 * N_WINDOWS),
+                                            ("val", N_WINDOWS))}
+    trainer = Trainer(one_epoch_config(TRAIN_CONFIG, ddir, feeder_args,
+                                       "--debug_nans", "true"))
+    epochs = record_epochs(trainer)
+    trainer.start()
+    if not np.isfinite(epochs[0]["losses"]).all():
+        fail(f"21d: the clean run's losses {epochs[0]['losses']}")
+    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    data[1, 0, T_WINDOW // 2, 3, 0] = np.nan
+    try:
+        trainer._train_step({"data": torch.from_numpy(data).to(dev),
+                             "label": torch.from_numpy(labels).to(dev)},
+                            base.base_lr)
+        fail("21d: the planted NaN raised nothing")
+    except FloatingPointError as err:
+        if "data_bn" not in str(err):
+            fail(f"21d: the planted NaN raised {err!r}, not at data_bn")
+        caught = str(err)
+    print(f"[remat] 21d: debug_nans on {TRAIN_CONFIG}: the clean run trains "
+          f"(losses {[round(v, 4) for v in epochs[0]['losses']]}, "
+          f"{epochs[0]['clips_per_sec']:.1f} clips/s with the hooks), one "
+          f"NaN planted in a batch raises FloatingPointError: {caught} | "
+          f"{card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
              "tp22": rank_tp22, "edge": rank_edge, "ring": rank_ring}
 
@@ -4399,6 +4736,11 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         edge = run_edge_partition(rng, dev, workdir, card, args.seed)
 
+    # 21. per-unit recomputation, the trace, the NaN check -----------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        remat = run_remat(rng, dev, workdir, card, args.seed)
+    print(f"[remat] {par['remat']}")
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -4420,7 +4762,7 @@ def main() -> None:
           f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
           "the Trainer run, the fused kernel's library_ms the sum of two "
           "calls, K6's that of index_select x2 + bmm + three reductions; "
-          "summary: phases 6, 8, 9, 10, 12, 13, 14, 16-20")
+          "summary: phases 6, 8, 9, 10, 12, 13, 14, 16-21")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -4455,7 +4797,10 @@ def main() -> None:
           + "/".join(f"{v:.4g}" for v in edge["edge22_ms"])
           + f" vs {edge['one_ms']:.4g}; ring [1,8] "
           + "/".join(f"{v:.3g}" for v in edge["ring_ms"])
-          + f" vs {edge['ring_one_ms']:.3g}")
+          + f" vs {edge['ring_one_ms']:.3g}; remat GiB/ms without->with "
+          + ", ".join(f"{k} {r['peak'][0]:.3g}->{r['peak'][1]:.3g}/"
+                      f"{r['ms'][0]:.4g}->{r['ms'][1]:.4g}"
+                      for k, r in remat.items()))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

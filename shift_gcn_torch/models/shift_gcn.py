@@ -38,20 +38,30 @@ Under tensor parallelism (``parallel/tensor.py``) it sets each
 ``ShiftGCN``'s and ``ShiftTCN``'s ``mesh`` to a tensor-parallel mesh:
 K4 and the temporal 1x1 then run on the rank's slice of their output
 channels, and the slices are gathered over the model ranks.
+
+``ModelConfig.remat`` (the reference package's per-block checkpoint):
+in a training forward with grad enabled each ``TCNGCNUnit`` runs under
+non-reentrant ``torch.utils.checkpoint``, which keeps the unit's input
+and drops its activations; the backward runs the unit again (its K1 and
+K4 launches, and under a mesh its collectives, on every rank in the same
+order), with BN's running statistics frozen (``ops/batchnorm.py``
+``frozen_statistics``).  Eval, serving and export run as without it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.ops import shift_gcn_kernel, temporal_shift
-from shift_gcn_torch.ops.batchnorm import BatchNorm
+from shift_gcn_torch.ops.batchnorm import BatchNorm, frozen_statistics
 from shift_gcn_torch.ops.conv import Conv, pointwise_conv, temporal_conv
 from shift_gcn_torch.ops.lowering import Lowering
 from shift_gcn_torch.ops.lowering import from_dict as lowering_from_dict
@@ -107,6 +117,9 @@ class ModelConfig:
     # lowering knobs (ops/lowering.py); None: the defaults, with the SGT_*
     # environment overrides applied when the model is built
     lowering: Optional[Lowering] = None
+    # recompute each unit in the backward of a training step: one more
+    # forward for the activation memory of one unit at a time
+    remat: bool = False
 
     @property
     def dtype(self) -> Optional[torch.dtype]:
@@ -358,8 +371,14 @@ class Model(nn.Module):
         h = h.reshape(n, t, m, v, c).permute(0, 2, 1, 3, 4)
         h = h.reshape(n * m, t, v, c)
         h = h.to(self.config.act_dtype or h.dtype).contiguous()
+        remat = (self.config.remat and self.training
+                 and torch.is_grad_enabled())
         for i in range(len(self.config.blocks)):
-            h = getattr(self, f"l{i + 1}")(h)
+            unit = getattr(self, f"l{i + 1}")
+            h = (checkpoint(unit, h, use_reentrant=False,
+                            preserve_rng_state=False,
+                            context_fn=_recompute_contexts)
+                 if remat else unit(h))
         # mean over (T', V) then persons, in fp32 whatever the activations
         feat = h.shape[-1]
         h = h.float().reshape(n, m, -1, feat).mean(dim=2).mean(dim=1)
@@ -367,6 +386,12 @@ class Model(nn.Module):
             # equal T' shards: the global mean is the mean of shard means
             h = comm.all_reduce_mean(h, self.mesh.time_group)
         return h @ self.fc.weight.t() + self.fc.bias
+
+
+def _recompute_contexts():
+    """(the first pass's context, the recomputation's): BN updates its
+    running statistics in the first pass only."""
+    return contextlib.nullcontext(), frozen_statistics()
 
 
 def check_shift_range(named_tensors,

@@ -32,14 +32,38 @@ variance is taken, the count for the unbiased running variance is
 multiplied by the group size, and the backward averages the statistics'
 cotangents over the group (``parallel.comm.all_reduce_mean``): the
 reference's ``_batch_stats`` with ``pmean`` over ``axis_name``.
+
+Recomputation (``ModelConfig.remat``): inside ``frozen_statistics`` a
+train-mode BN normalizes by its batch statistics as before (their
+all-reduce included) and updates no running statistic, so a block run
+again in the backward leaves the first pass's state, as the reference
+package's per-block checkpoint returns it.  The flag is per thread: it
+is set by the recomputation's own context, on the thread that
+recomputes.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 from torch import nn
 
 from shift_gcn_torch.parallel import comm
+
+_local = threading.local()
+
+
+@contextlib.contextmanager
+def frozen_statistics():
+    """Train-mode BN inside updates no running statistic."""
+    saved = getattr(_local, "frozen", False)
+    _local.frozen = True
+    try:
+        yield
+    finally:
+        _local.frozen = saved
 
 
 def stat_dtype(dtype: torch.dtype) -> torch.dtype:
@@ -84,10 +108,10 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
                      num_batches_tracked: torch.Tensor, *,
                      feature_dims: int = 1, momentum: float = 0.1,
                      eps: float = 1e-5, lp: bool = False,
-                     group=None) -> torch.Tensor:
+                     group=None, update: bool = True) -> torch.Tensor:
     """Normalize x by its batch statistics over every axis but the
     trailing ``feature_dims`` (and over the ranks of ``group``), and
-    update the running statistics in place."""
+    update the running statistics in place unless ``update`` is off."""
     dims = tuple(range(x.dim() - feature_dims))
     shape = x.shape[x.dim() - feature_dims:]
     x32 = x.to(stat_dtype(x.dtype))
@@ -101,13 +125,14 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor,
         n *= torch.distributed.get_world_size(group)
     mean, mean_sq = stats.unbind(0)
     var = mean_sq - mean * mean  # biased
-    with torch.no_grad():
-        unbiased = var * (n / max(n - 1, 1))
-        running_mean.copy_((1 - momentum) * running_mean
-                           + momentum * mean.reshape(-1))
-        running_var.copy_((1 - momentum) * running_var
-                          + momentum * unbiased.reshape(-1))
-        num_batches_tracked.add_(1)
+    if update:
+        with torch.no_grad():
+            unbiased = var * (n / max(n - 1, 1))
+            running_mean.copy_((1 - momentum) * running_mean
+                               + momentum * mean.reshape(-1))
+            running_var.copy_((1 - momentum) * running_var
+                              + momentum * unbiased.reshape(-1))
+            num_batches_tracked.add_(1)
     return _normalize(x, mean, torch.rsqrt(var + eps), weight, bias, shape,
                       lp, x32)
 
@@ -138,7 +163,8 @@ class BatchNorm(nn.Module):
                 x, self.weight, self.bias, self.running_mean,
                 self.running_var, self.num_batches_tracked,
                 feature_dims=self.feature_dims, lp=self.lp_train,
-                group=self.group)
+                group=self.group,
+                update=not getattr(_local, "frozen", False))
         return batch_norm(x, self.weight, self.bias, self.running_mean,
                           self.running_var, feature_dims=self.feature_dims,
                           lp=self.lp_eval)

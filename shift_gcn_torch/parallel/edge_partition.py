@@ -47,6 +47,7 @@ import torch
 
 from shift_gcn_torch.ops.aggregate import edge_aggregate
 from shift_gcn_torch.parallel import comm
+from shift_gcn_torch.utils.device import resolve_device
 
 STRATEGIES = ("gather", "ring")
 
@@ -298,13 +299,15 @@ def eval_step(model: torch.nn.Module, batch: Dict[str, torch.Tensor],
 
 
 def make_sharded_aggregator(edges: Dict[str, np.ndarray], num_nodes: int,
-                            mesh, strategy: str = "gather", device="cpu"):
+                            mesh, strategy: str = "gather", device="cuda"):
     """A (B, V, C) -> (B, V, C) aggregator with the edge list partitioned
     over the mesh's model ranks (every rank of the group calls it on the
     same x): ``gather`` sums the ranks' partial sums; ``ring`` pads V to
     a multiple of the ranks, aggregates this rank's node block around
     the ring and gathers the blocks (the gather is not differentiable:
-    ``ring_aggregate`` is the differentiable op)."""
+    ``ring_aggregate`` is the differentiable op).  Its edge arrays live
+    on ``device``: the card unless the caller passes ``device="cpu"``."""
+    device = resolve_device(device)
     if strategy == "ring":
         steps, v_pad, v_loc = partition_edges_ring(edges, mesh.model,
                                                    num_nodes)

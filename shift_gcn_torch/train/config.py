@@ -19,17 +19,18 @@ tensor parallelism, ``mesh_shape: [D, M]`` with M > 1 and no
 ``parallel.mesh.make_mesh`` holds D * M to the world size) with the
 reference trainer's errors.  ``fourstream``, ``native_loader``,
 ``device_guard``, ``lowering`` (merged over ``model_args.lowering``,
-``ops/lowering.py``), ``compute_dtype`` and ``activation_dtype`` are read
-by the Trainer.  Keys that only tune the reference package's compiler or
-device (``sync_bn``: BN is always synchronized over the ranks, as the
-reference's jit makes it global; ``donate_state``, ``remat``,
-``use_pallas``,
-``profile_dir``, ``profile_steps``, ``debug_nans``, ``num_worker``)
-and the reference's ``device`` GPU ids change no
-result here and are read by nothing; ``optimizer``,
-``nesterov`` and ``weight_decay`` are read by nothing either: the SGD is
-always nesterov with momentum 0.9 and the per-parameter weight-decay
-table (``train/optim.py``), as in the reference package's trainer.
+``ops/lowering.py``), ``compute_dtype``, ``activation_dtype``,
+``remat`` (per-unit recomputation in the backward), ``profile_dir`` /
+``profile_steps`` (a ``torch.profiler`` trace of the first steps) and
+``debug_nans`` are read by the Trainer.  Keys that only tune the
+reference package's compiler or device (``sync_bn``: BN is always
+synchronized over the ranks, as the reference's jit makes it global;
+``donate_state``, ``use_pallas``, ``num_worker``) and the reference's
+``device`` GPU ids change no result here and are read by nothing;
+``optimizer``, ``nesterov`` and ``weight_decay`` are read by nothing
+either: the SGD is always nesterov with momentum 0.9 and the
+per-parameter weight-decay table (``train/optim.py``), as in the
+reference package's trainer.
 """
 
 from __future__ import annotations

@@ -21,6 +21,20 @@ check at every save and eval, and the device guard after every train
 epoch (``utils/device_guard.py``).  Checkpoints are the reference's torch
 resume dicts (``utils/checkpoint.py``).
 
+``remat`` reaches the model config where the family's config has that
+field (Shift-GCN's; four-stream training gives it to each stream's
+model): each unit is recomputed in the backward.  ``profile_dir``
+traces the first ``profile_steps`` steps of the run's first epoch with
+``torch.profiler`` (CPU activity, and CUDA activity on a card) into a
+TensorBoard directory, one ``rank<r>.<time>.pt.trace.json`` a rank, each
+step a ``ProfilerStep#<i>`` span (the reference package writes its
+profiler's trace there).  ``debug_nans`` (the reference package's NaN
+debugging mode) raises ``FloatingPointError`` at the first module
+whose forward output holds a NaN, by a forward hook on every module, and
+at the first backward function that returns one
+(``torch.autograd.detect_anomaly``); off, nothing is registered and no
+step waits for the device.
+
 ``fourstream: true`` trains the joint, bone, joint-motion and
 bone-motion models in one run from the joint data (``train/fourstream.py``):
 per-stream and ensemble score pickles, one four-stream checkpoint.
@@ -76,7 +90,7 @@ import pickle
 import shutil
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import ExitStack
+from contextlib import ExitStack, contextmanager
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -178,6 +192,39 @@ class BatchTransfer:
         return tensors
 
 
+def watch_nans(model: torch.nn.Module, prefix: str = "") -> None:
+    """A forward hook on every module of ``model`` that raises
+    ``FloatingPointError`` naming the module (``prefix`` before its
+    name) when its output holds a NaN."""
+    for name, module in model.named_modules():
+        label = ".".join(p for p in (prefix, name) if p) or "model"
+
+        def hook(module, inputs, output, label=label):
+            outputs = output if isinstance(output, (tuple, list)) else [
+                output]
+            for out in outputs:
+                if (torch.is_tensor(out) and out.is_floating_point()
+                        and bool(torch.isnan(out).any())):
+                    raise FloatingPointError(
+                        f"NaN in the forward output of {label} "
+                        f"({type(module).__name__})")
+
+        module.register_forward_hook(hook)
+
+
+@contextmanager
+def nan_check():
+    """Autograd's anomaly mode with the NaN check: a backward function
+    that returns a NaN raises ``FloatingPointError`` naming it."""
+    try:
+        with torch.autograd.detect_anomaly(check_nan=True):
+            yield
+    except RuntimeError as err:
+        if "nan values" not in str(err):
+            raise
+        raise FloatingPointError(str(err)) from err
+
+
 class Trainer:
     def __init__(self, cfg: config_lib.ExperimentConfig, device="cuda"):
         distributed = dist.is_available() and dist.is_initialized()
@@ -257,6 +304,10 @@ class Trainer:
                                            device=self.device)
             self.model.init_weights(torch.Generator().manual_seed(cfg.seed))
             self.optimizer = build_optimizer(self.model, cfg.base_lr)
+        if cfg.debug_nans:
+            for prefix, model in (self.models.items() if self.fourstream
+                                  else [("", self.model)]):
+                watch_nans(model, prefix)
         if self.mesh is not None and self.edge_partition:
             edge_partition.attach(self.model, self.mesh, cfg.edge_strategy)
         elif self.mesh is not None:
@@ -294,6 +345,8 @@ class Trainer:
             overrides["compute_dtype"] = cfg.compute_dtype
         if cfg.activation_dtype and "activation_dtype" in fields:
             overrides["activation_dtype"] = cfg.activation_dtype
+        if cfg.remat and "remat" in fields:
+            overrides["remat"] = True
         if "lowering" in fields:
             overrides["lowering"] = low
             cfg.lowering = lowering_lib.as_dict(low)
@@ -498,6 +551,13 @@ class Trainer:
     def _train_step(self, batch: Dict[str, torch.Tensor],
                     lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
         """One step: (loss, acc) device tensors, (4,) under fourstream."""
+        if self.cfg.debug_nans:
+            with nan_check():
+                return self._step(batch, lr)
+        return self._step(batch, lr)
+
+    def _step(self, batch: Dict[str, torch.Tensor],
+              lr: float) -> Tuple[torch.Tensor, torch.Tensor]:
         if self.fourstream:
             return fourstream.train_step(self.models, self.optimizers, batch,
                                          lr, self.parents, mesh=self.mesh)
@@ -507,7 +567,9 @@ class Trainer:
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch; the prefetch thread batches step b+1 and starts its
         copy while step b runs (reference package trainer.py:555-588).
-        The ``dataloader`` time is the wait for that thread's batch."""
+        The ``dataloader`` time is the wait for that thread's batch.  The
+        run's first epoch is traced through step ``profile_steps`` under
+        ``profile_dir``."""
         cfg = self.cfg
         self.logger.log(f"Training epoch: {epoch + 1}")
         lr = step_decay_lr(epoch, cfg.base_lr, cfg.step, cfg.warm_up_epoch)
@@ -524,6 +586,9 @@ class Trainer:
         # per-step metrics stay on the device until the epoch ends: reading
         # one would wait for the device every step
         losses, accs = [], []
+        profiler = (self._start_profiler()
+                    if cfg.profile_dir and epoch == self.start_epoch
+                    else None)
         t0 = time.time()
         with ThreadPoolExecutor(max_workers=1) as pool:
             pending = pool.submit(fetch_next)
@@ -540,6 +605,12 @@ class Trainer:
                                              lr)
                 losses.append(loss)
                 accs.append(acc)
+                if profiler is not None:
+                    if b + 1 < cfg.profile_steps:
+                        profiler.step()
+                    else:
+                        self._write_trace(profiler)
+                        profiler = None
                 self.global_step += 1
                 if self.global_step % cfg.log_interval == 0:
                     streams = loss.reshape(-1).tolist()
@@ -551,6 +622,8 @@ class Trainer:
                                     f"lr:{lr:.6f}{extra}")
                 timer["model"] += time.time() - now
                 b += 1
+        if profiler is not None:  # an epoch shorter than profile_steps
+            self._write_trace(profiler)
         mark = time.time()
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
@@ -578,6 +651,33 @@ class Trainer:
         if self.fourstream and per_step is not None:
             stats["stream_losses"] = per_step.tolist()
         return stats
+
+    def _start_profiler(self):
+        from torch.profiler import (ProfilerAction, ProfilerActivity,
+                                    profile, tensorboard_trace_handler)
+
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        rank = 0 if self.mesh is None else self.mesh.rank
+        profiler = profile(
+            activities=activities,
+            # a schedule, so that each step() closes a ProfilerStep span;
+            # stop() writes the trace
+            schedule=lambda step: ProfilerAction.RECORD,
+            on_trace_ready=tensorboard_trace_handler(
+                self.cfg.profile_dir, worker_name=f"rank{rank}"))
+        profiler.start()
+        return profiler
+
+    def _write_trace(self, profiler) -> None:
+        """Stop ``profiler`` once the device has finished the traced
+        steps, which writes the trace."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        profiler.stop()
+        self.logger.log(
+            f"\tProfiler trace written to {self.cfg.profile_dir}")
 
     def _guard_device(self, epoch_stats: Dict[str, float]) -> None:
         """After a train epoch: an implausibly fast epoch or a non-finite

@@ -226,17 +226,20 @@ def test_parallel_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
     """Phase 18 on the CPU: a gloo group of one rank for 18a, the kernel
     checks at the ranks' launch shapes, then the rank processes of 18b
     ([2, 1]) and 18c ([2, 2], T=64 padded to 72), full width at 4 clips,
-    with 18c's planted faults caught by its gates; only the launch counts
-    fail (the plain versions launch nothing): 18a's, and each rank's of
-    18b and 18c."""
+    with 18c's planted faults caught by its gates, and 18c's step with
+    remat (phase 21e) bit-equal to the step without it; only the launch
+    counts fail (the plain versions launch nothing): 18a's, and each
+    rank's of 18b, 18c and 21e."""
     monkeypatch.setattr(chip_smoke, "T_WINDOW", 64)
     monkeypatch.setattr(chip_smoke, "T_PAD", 72)
     out = chip_smoke.run_parallel(np.random.default_rng(0),
                                   torch.device("cpu"), str(tmp_path),
                                   "card", 0)
-    assert len(training_rehearsal) == 7, training_rehearsal
+    assert len(training_rehearsal) == 11, training_rehearsal
     assert all("launch" in msg for msg in training_rehearsal)
+    assert sum("21e" in msg for msg in training_rehearsal) == 4
     assert len(out["dp_ms"]) == 2 and len(out["seqpar_ms"]) == 4
+    assert "bit-equal to the same rank's step without it" in out["remat"]
     printed = capsys.readouterr().out
     assert "in a gloo group of one rank: losses" in printed
     assert "bit-equal to the run without a group" in printed

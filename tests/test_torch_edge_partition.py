@@ -26,6 +26,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 import jax
 import jax.numpy as jnp
@@ -39,6 +40,7 @@ from shift_gcn_tpu.train import state as jax_state
 from shift_gcn_tpu.train.optim import build_weight_decay_tree, init_sgd
 from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.parallel import edge_partition
+from shift_gcn_torch.parallel.mesh import Mesh
 from shift_gcn_torch.train import config
 from shift_gcn_torch.utils.checkpoint import state_dict_from_arrays
 from torch_parallel_helpers import jax_mesh
@@ -338,3 +340,15 @@ def test_edge_layouts_are_taken_and_not_tensor_parallel():
             "edge_strategy": "ring", "mesh_shape": [1, 8]}):
         config.check_supported(dataclasses.replace(
             config.ExperimentConfig(**BASE), **overrides))
+
+
+def test_sharded_aggregator_needs_cuda_unless_asked():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the CUDA default is valid here")
+    edges = get_graph("mediapipe_pose").coo()
+    mesh = Mesh(1, 2)
+    for strategy in ("gather", "ring"):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            edge_partition.make_sharded_aggregator(edges, 33, mesh, strategy)
+        assert callable(edge_partition.make_sharded_aggregator(
+            edges, 33, mesh, strategy, device="cpu"))

@@ -5,7 +5,8 @@ reference package's on a (2, 1) and a (1, 2) mesh of its virtual CPU
 devices, from the same weights and batch: the loss, every true gradient,
 the ypos constraint steps (bit-equal), the parameters after SGD and the
 BN running statistics (tolerances in torch_parallel_helpers.py), and the
-eval logits, loss sum and count; every rank's results alike."""
+eval logits, loss sum and count; every rank's results alike.  The [2, 1]
+and [1, 2] steps with ``remat`` equal those without it bit for bit."""
 
 import numpy as np
 import pytest
@@ -88,6 +89,21 @@ def test_seqpar_1x2_steps_match_reference(steps_run):
     inputs, outs = steps_run
     check_seqpar_step(inputs["model"], [o["seqpar12"] for o in outs],
                       (1, 2))
+
+
+@pytest.mark.parametrize("case", ["dp21", "seqpar12"])
+def test_remat_steps_equal_plain(steps_run, case):
+    # per-unit recomputation, its collectives (sync BN, the halo exchange)
+    # issued again in the backward on every rank: the same bits
+    _, outs = steps_run
+    for out in outs:
+        plain, remat = out[case], out[f"{case}_remat"]
+        assert remat["loss"] == plain["loss"]
+        for part in ("grads", "state", "momentum"):
+            assert remat[part].keys() == plain[part].keys()
+            for name, want in plain[part].items():
+                np.testing.assert_array_equal(remat[part][name], want,
+                                              err_msg=f"{part} {name}")
 
 
 def test_fourstream_dp_2x1_step_matches_reference(steps_run):

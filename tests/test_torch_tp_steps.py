@@ -13,6 +13,7 @@ weights and batch:
   constraint steps (bit-equal), the parameters and the momentum after
   SGD and the BN running statistics, within the tolerances of
   tests/torch_parallel_helpers.py; the eval logits, loss sum and count;
+- the [1, 2] step with ``remat`` bit-equal to the step without it;
 - a four-stream [1, 2] step (``param_spec`` on the stream-stacked
   trees) and an ST-GCN [1, 2] step (no sharded parameter: fully
   replicated) against their one-process steps;
@@ -161,6 +162,20 @@ def test_tp_steps_match_reference(tp_run, shape):
         assert abs(out["loss_sum"] - float(loss_sum)) <= 1e-5 * max(
             1.0, abs(float(loss_sum)))
         assert out["n"] == float(n) == 3.0
+
+
+def test_tp_remat_step_equals_plain(tp_run):
+    # the recomputed units gather their channel slices again in the
+    # backward: the same bits
+    _, outs, _ = tp_run
+    for out in outs:
+        plain, remat = out["tp12"], out["tp12_remat"]
+        assert remat["loss"] == plain["loss"]
+        for part in ("grads", "state", "momentum"):
+            assert remat[part].keys() == plain[part].keys()
+            for name, want in plain[part].items():
+                np.testing.assert_array_equal(remat[part][name], want,
+                                              err_msg=f"{part} {name}")
 
 
 def test_fourstream_tp_1x2_step_matches_reference(tp_run):

@@ -83,11 +83,12 @@ def _flat(tree):
             if not k.endswith(("shift_in", "shift_out"))}
 
 
-def _lockstep(act_dtype, lrs, seed):
+def _lockstep(act_dtype, lrs, seed, remat=False):
     """Run the reference step and the port's train_step from the same
-    weights on the same batches; yields per step (reference loss, port
-    loss, reference grads, port grads, reference state, port model)."""
-    cfg = _jax_config(activation_dtype=act_dtype)
+    weights on the same batches, both with per-block recomputation when
+    ``remat``; yields per step (reference loss, port loss, reference
+    grads, port grads, reference state, port model)."""
+    cfg = _jax_config(activation_dtype=act_dtype, remat=remat)
     ts = jax_state.create_train_state(jax.random.key(seed), cfg)
     params = jax.tree_util.tree_map(np.asarray, ts.params)
     bn_state = jax.tree_util.tree_map(np.asarray, ts.bn_state)
@@ -107,7 +108,7 @@ def _lockstep(act_dtype, lrs, seed):
                            opt_state=new_opt), loss, grads
 
     port_cfg = dataclasses.replace(config_from_reference_args(ARGS),
-                                   activation_dtype=act_dtype)
+                                   activation_dtype=act_dtype, remat=remat)
     model = Model(port_cfg, device="cpu")
     model.load_state_dict(state_dict_from_arrays(params, bn_state))
     opt = optim.build_optimizer(model, lrs[0])

@@ -12,13 +12,14 @@ writes against the reference package in their own process.  Jobs:
   constraint, sync BN, and the [2, 2] sequence-parallel train and eval
   steps (4 ranks);
 - ``steps``: the data-parallel [2, 1] and sequence-parallel [1, 2] train
-  and eval steps, and the four-stream data-parallel step (2 ranks);
+  and eval steps, each also with ``remat``, and the four-stream
+  data-parallel step (2 ranks);
 - ``trainer``: ``cli.train.main`` under the launcher's environment, with
   each epoch's statistics and the final weights recorded (2 ranks);
 - ``tp``: the channel gather's forward and adjoint, and the
-  tensor-parallel [1, 2] train and eval steps of the Shift-GCN model, of
-  the four streams and of ST-GCN, each beside the one-process step
-  from the same weights (2 ranks);
+  tensor-parallel [1, 2] train and eval steps of the Shift-GCN model
+  (also with ``remat``), of the four streams and of ST-GCN, each beside
+  the one-process step from the same weights (2 ranks);
 - ``tp22``: the tensor-parallel [2, 2] train and eval steps (4 ranks);
 - ``edge``: the edge partition's aggregators (``gather`` and ``ring``)
   with their adjoints, and its train and eval steps: ST-GCN under
@@ -27,6 +28,7 @@ writes against the reference package in their own process.  Jobs:
   ranks).
 """
 
+import dataclasses
 import os
 import pickle
 import socket
@@ -114,8 +116,9 @@ def bn_case(c, mesh):
             "rv": rv.numpy(), "nbt": int(nbt)}
 
 
-def _model(args, params, bn_state):
-    model = Model(config_from_reference_args(args), device="cpu")
+def _model(args, params, bn_state, remat=False):
+    model = Model(dataclasses.replace(config_from_reference_args(args),
+                                      remat=remat), device="cpu")
     model.load_state_dict(state_dict_from_arrays(params, bn_state))
     return model
 
@@ -128,11 +131,11 @@ def _batch(c, *keys):
     return out
 
 
-def model_case(c, shape, shard_time):
+def model_case(c, shape, shard_time, remat=False):
     """Eval step from the loaded weights, then one train step."""
     mesh = make_mesh(shape)
-    model = seqpar.attach(_model(c["args"], c["params"], c["bn_state"]),
-                          mesh, shard_time)
+    model = seqpar.attach(_model(c["args"], c["params"], c["bn_state"],
+                                 remat), mesh, shard_time)
     logits, loss_sum, n = seqpar.eval_step(model, _batch(c, "mask"), mesh,
                                            shard_time)
     opt = optim.build_optimizer(model, c["lr"])
@@ -142,7 +145,9 @@ def model_case(c, shape, shard_time):
             "logits": logits, "loss_sum": loss_sum, "n": n,
             "grads": {k: p.grad.numpy().copy()
                       for k, p in model.named_parameters()},
-            "state": {k: v.numpy() for k, v in model.state_dict().items()}}
+            "state": {k: v.numpy() for k, v in model.state_dict().items()},
+            "momentum": {k: opt.state[p]["momentum_buffer"].numpy()
+                         for k, p in model.named_parameters()}}
 
 
 def fourstream_case(c, shape=(2, 1), tensor_parallel=False):
@@ -190,11 +195,12 @@ def one_process_step(model, c, batch):
         "state": {k: v.numpy() for k, v in model.state_dict().items()}}
 
 
-def tp_case(c, shape, build):
+def tp_case(c, shape, build, single=True):
     """The tensor-parallel eval step and one train step at ``shape`` of the
     model ``build()`` gives, with the local shapes of its sharded
     parameters and, in the full layout, its gradients, state and
-    momentum; and the one-process train step of another ``build()``."""
+    momentum; and, with ``single``, the one-process train step of
+    another ``build()``."""
     mesh = make_mesh(shape, tensor_parallel=True)
     model = seqpar.attach(build(), mesh)
     shapes = {k: tuple(p.shape) for k, p in model.named_parameters()
@@ -211,7 +217,7 @@ def tp_case(c, shape, build):
             "momentum": {names[i]: v["momentum_buffer"].cpu().numpy()
                          for i, v in entry["optimizer_state_dict"][
                              "state"].items()},
-            "single": one_process_step(build(), c, _batch(c))}
+            "single": single and one_process_step(build(), c, _batch(c))}
 
 
 def gather_case(c, mesh):
@@ -242,6 +248,8 @@ def job_ops(inp):
 def job_steps(inp):
     return {"dp21": model_case(inp["model"], [2, 1], False),
             "seqpar12": model_case(inp["model"], [1, 2], True),
+            "dp21_remat": model_case(inp["model"], [2, 1], False, True),
+            "seqpar12_remat": model_case(inp["model"], [1, 2], True, True),
             "fourstream": fourstream_case(inp["fourstream"])}
 
 
@@ -313,6 +321,9 @@ def job_tp(inp):
 
     return {"gather": gather_case(inp["gather"], make_mesh([1, 2], True)),
             "tp12": tp_case(m, [1, 2], shift_gcn),
+            "tp12_remat": tp_case(m, [1, 2], lambda: _model(
+                m["args"], m["params"], m["bn_state"], remat=True),
+                single=False),
             "fourstream": fourstream_case(inp["fourstream"], (1, 2), True),
             "stgcn": tp_case(s, [1, 2], st_gcn)}
 
@@ -331,10 +342,10 @@ def edge_aggregator_case(c, mesh):
     cot = torch.from_numpy(c["cot"])
     xg = x.clone().requires_grad_(True)
     out = edge_partition.make_sharded_aggregator(
-        c["edges"], c["v"], mesh, "gather")(xg)
+        c["edges"], c["v"], mesh, "gather", device="cpu")(xg)
     (out * cot[mesh.coords[1]]).sum().backward()
     ring = edge_partition.make_sharded_aggregator(c["edges"], c["v"], mesh,
-                                                  "ring")(x)
+                                                  "ring", device="cpu")(x)
     steps, v_pad, v_loc = edge_partition.partition_edges_ring(
         c["edges"], mesh.model, c["v"])
     m = mesh.coords[1]
