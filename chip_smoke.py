@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 2. build: compiles every kernel of ``shift_gcn_torch/csrc`` (one nvcc per
    source, in parallel) and prints the seconds it took, and, where the
    toolkit has ``cuobjdump``, the tensor-core (HMMA) instructions and the
-   registers of each K4/K5/K6 function of the built library;
+   registers of each K4/K5/K6 function of the built library (K4 and K5
+   with whole-frame and wide tiles);
 3. temporal shift kernel (K1) bit-equal to its plain PyTorch version
    (max|err| 0), fp32 and bf16, at every (T, C, stride) one forward of
    the serving model launches it with (64 windows, V=33), at shifts
@@ -217,10 +218,31 @@ Phases, in order; any failure exits non-zero:
    inside phase 18c's gloo ranks, the fp32 [2, 2] step again with
    ``remat``: loss and every gradient bit-equal to the same rank's step
    without it (NONREPEATING's within STEP_GRAD_TOL of scale),
-   REMAT_STEP launches.
+   REMAT_STEP launches;
+22. custom topologies and any joint count: (a) a 543-joint topology
+   (MediaPipe Holistic's landmark count) and a 256-joint one, seeded
+   trees, registered through ``graphs.register_graph`` and resolved by
+   name; (b) at V = 145, 256 and 543, past K4/K5's 144-row frame tile,
+   every kernel against its plain version at each launch shape of the
+   default backbone with 8 clips, fp32 and bf16: K1 bit-equal and the
+   fused K2+K3 within phase 7's gates at shifts far outside any staged
+   window, K4 and K5 within phase 4's gates and K6 within phase 7's at
+   d0 = 0 and d0 = D, K6 bit-equal across two launches, with phases 3
+   and 7's odd and unaligned cases; (c) one fp32 train step at V=543 (4
+   clips) on the kernel path against the plain backward, as phase 8; (d)
+   ``Trainer.start()`` on ``configs/mediapipe/train_joint.yaml`` with
+   its graph replaced by the registered 543-joint one, the default
+   backbone, bf16, at the largest batch of WIDE_BATCHES whose step fits,
+   4 steps with eval and save, the launches the per-step counts x 4 plus
+   an eval forward, the step's time and the peak memory printed; (e)
+   each kernel's time at V=543 over a step's launches at that batch,
+   beside its bound, plain version and library call; (f) K4, K5 and K6
+   at V = 25 and 33 bit-equal to the parent commit's build, through the
+   digests in V144_DIGESTS.
 
-The last four lines are a JSON object with one entry per kernel, a
-summary of the end-to-end figures, the card's name and power limit, and
+The last four lines are a JSON object with one entry per kernel (and,
+in each, its figures at V=543 from phase 22), a summary of the
+end-to-end figures, the card's name and power limit, and
 ``{"ok": true, "device": {...}}``.  There is no CPU path:
 without CUDA the script fails.
 """
@@ -459,19 +481,19 @@ def forward_shapes(config, t: int):
     return k1, k4
 
 
-def k1_cost_ms(n, t_in, c, stride, itemsize=4):
+def k1_cost_ms(n, t_in, c, stride, itemsize=4, v=V):
     """(bytes time, operations time) of one launch: each input read once,
     each output written once; 3 fp32 flops per output."""
-    out = n * (t_in // stride) * V * c
-    moved = (n * t_in * V * c + out) * itemsize + c * 4
+    out = n * (t_in // stride) * v * c
+    moved = (n * t_in * v * c + out) * itemsize + c * 4
     return moved / HBM_BYTES_PER_S * 1e3, 3.0 * out / FP32_SIMT_FLOPS * 1e3
 
 
-def k4_cost_ms(r, c, d, itemsize=4):
+def k4_cost_ms(r, c, d, itemsize=4, v=V):
     """(bytes time, operations time) of one launch, the operations on the
     tensor cores at the 3xTF32 rate."""
-    moved = (r * V * c + r * V * d) * itemsize + (V * c + c * d + d) * 4
-    flops = 2.0 * r * V * c * d
+    moved = (r * v * c + r * v * d) * itemsize + (v * c + c * d + d) * 4
+    flops = 2.0 * r * v * c * d
     return moved / HBM_BYTES_PER_S * 1e3, flops / TF32_3X_FLOPS * 1e3
 
 
@@ -499,9 +521,12 @@ def sass_report(path: str):
         dtype = "bf16" if "bfloat16" in mangled else "fp32"
         if "wgrad_partial_kernel" in mangled:
             return f"K6 {dtype}"
-        kind = "K5" if "Lb1E" in mangled else "K4"
+        # the template's bool arguments: kDx (K5), then kWide
+        flags = re.findall(r"Lb([01])E", mangled)
+        kind = "K5" if flags[:1] == ["1"] else "K4"
+        wide = " wide" if flags[1:2] == ["1"] else ""
         tile = re.search(r"Li(\d+)E", mangled)
-        return f"{kind} {dtype} {tile.group(1) if tile else '?'}-col"
+        return f"{kind} {dtype} {tile.group(1) if tile else '?'}-col{wide}"
 
     def tensor_kernel(fn):
         return "shift_gcn_mma_kernel" in fn or "wgrad_partial_kernel" in fn
@@ -707,21 +732,21 @@ def train_shapes(config, t: int):
     return forward_shapes(config, t)
 
 
-def k23_cost_ms(n, t_in, c, stride, itemsize=4):
+def k23_cost_ms(n, t_in, c, stride, itemsize=4, v=V):
     """The fused K2+K3: read x and the cotangent, write grad_input and C
     floats; 6 flops per input element (1 - f, two products and a sum for
     dx; b - a and a multiply-add for gy_raw)."""
-    x = n * t_in * V * c
-    moved = (2 * x + n * (t_in // stride) * V * c) * itemsize + 2 * c * 4
+    x = n * t_in * v * c
+    moved = (2 * x + n * (t_in // stride) * v * c) * itemsize + 2 * c * 4
     return moved / HBM_BYTES_PER_S * 1e3, 6.0 * x / FP32_SIMT_FLOPS * 1e3
 
 
-def k6_cost_ms(r, c, d, itemsize=4, flops_per_s=TF32_3X_FLOPS):
+def k6_cost_ms(r, c, d, itemsize=4, flops_per_s=TF32_3X_FLOPS, v=V):
     """K6: read x, the cotangent, gate and W once, write dgate, dW and
     dbias once; 2*R*V*C*D flops at ``flops_per_s`` (fp32-accurate
     products: the 3xTF32 rate; of bf16 inputs: exact at the bf16 rate)."""
-    moved = (r * V * c + r * V * d) * itemsize + (2 * (V * c + c * d) + d) * 4
-    flops = 2.0 * r * V * c * d
+    moved = (r * v * c + r * v * d) * itemsize + (2 * (v * c + c * d) + d) * 4
+    flops = 2.0 * r * v * c * d
     return moved / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
 
 
@@ -856,8 +881,9 @@ def check_backward_kernels(config, gen, rng, dev):
     """Phase 7: each backward kernel vs its plain version at every launch
     shape of one train step, fp32 and bf16; the fused K2+K3 also with
     shifts far outside its staged window, with 1-element lanes and at
-    V=144 (K4's largest), where fewer frames fit in shared memory; K6 also
-    at V=144, where a block takes a group of the joints.  Returns the fp32
+    V=144 (K4's largest whole-frame tile), where fewer frames fit in
+    shared memory; K6 also at V=144, where a block takes a group of the
+    joints (phase 22 goes past it).  Returns the fp32
     max |err| per kernel (the fused one's over dx and gy_raw)."""
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
@@ -951,19 +977,20 @@ def check_backward_kernels(config, gen, rng, dev):
     return errs
 
 
-def synthetic_batch(rng, n: int, t: int):
-    """(N, 3, T, 33, 1) clips with a two-class signal, and labels."""
+def synthetic_batch(rng, n: int, t: int, v: int = V):
+    """(N, 3, T, V, 1) clips with a two-class signal, and labels."""
     labels = rng.integers(0, 2, n)
-    data = rng.standard_normal((n, 3, t, V, 1)).astype(np.float32) * 0.1
+    data = rng.standard_normal((n, 3, t, v, 1)).astype(np.float32) * 0.1
     data[:, 0] += (labels * 0.3)[:, None, None, None].astype(np.float32)
     return data, labels
 
 
 def check_train_step(config, rng, dev, seed: int, prepare=None,
-                     label: str = "fp32"):
+                     label: str = "fp32", clips: int = N_WINDOWS):
     """Phase 8: one fp32 train step's loss and gradients, kernel path vs
-    plain path, from the same seeded state and batch; ``prepare(model)``
-    edits the seeded state first (phase 15: the shift positions)."""
+    plain path, from the same seeded state and a batch of ``clips``;
+    ``prepare(model)`` edits the seeded state first (phase 15: the shift
+    positions)."""
     from shift_gcn_torch.models.shift_gcn import Model
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
@@ -975,7 +1002,7 @@ def check_train_step(config, rng, dev, seed: int, prepare=None,
         with torch.no_grad():
             prepare(model)
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    data, labels = synthetic_batch(rng, N_WINDOWS, T_WINDOW)
+    data, labels = synthetic_batch(rng, clips, T_WINDOW, config.num_point)
     x = torch.from_numpy(data).to(dev)
     y = torch.from_numpy(labels).to(dev)
 
@@ -1086,7 +1113,7 @@ def check_train_step(config, rng, dev, seed: int, prepare=None,
             fail("a ypos step differs on a channel clear of a tie")
         ties += int((~clear).sum())
         differ += int((~same).sum())
-    print(f"[step] {label} train step, {N_WINDOWS} clips x T={T_WINDOW}: loss "
+    print(f"[step] {label} train step, {clips} clips x T={T_WINDOW}: loss "
           f"{loss:.7f} vs {loss_p:.7f} plain backward, {loss_full:.7f} "
           f"plain; true gradients vs the plain backward max |diff|/scale "
           f"{worst:.3g} (tol {STEP_GRAD_TOL:g}); biases ahead of a train BN "
@@ -4438,6 +4465,485 @@ def run_remat(rng, dev, workdir: str, card: str, seed: int) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Custom topologies and any joint count (phase 22)
+# ---------------------------------------------------------------------------
+
+# MediaPipe Holistic's landmarks: 33 pose, 468 face, 2 x 21 hand
+HOLISTIC_V = 543
+# 22a's registered topologies: (name, joints), seeded trees
+TREE_GRAPHS = (("holistic_tree", HOLISTIC_V), ("tree256", 256))
+WIDE_JOINTS = (145, 256, HOLISTIC_V)  # past K4/K5's 144-row frame tile
+WIDE_CLIPS = 8           # 22b's clips a launch shape (x T)
+WIDE_STEP_CLIPS = 4      # 22c's fp32 step
+WIDE_STEPS = 4           # Trainer steps of 22d
+# 22d: the largest batch of these whose bf16 step's peak stays under
+# WIDE_MEMORY_SHARE of the card's memory (room for the Trainer's
+# prefetched batch and eval beside the step)
+WIDE_BATCHES = (16, 12, 8)
+WIDE_MEMORY_SHARE = 0.85
+# 22d's estimate, written before the first run on the card: the bf16
+# step at 64 clips of 33 joints peaked at 24 GiB (phase 21); scaled by
+# 543 / 33 and 8 / 64
+WIDE_PREDICTION = "batch 8: ~49 GiB without remat"
+# 22f: K4, K5 and K6 at V = 25 and 33 (whole-frame tiles), each unit's
+# (T, C, D) at V144_CLIPS clips, fp32 and bf16, at each of V144_D0, on
+# seeded inputs; their digests from the parent commit's build of
+# csrc/shift_gcn.cu, written by scripts/shift_gcn_bitcheck.py
+V144_JOINTS = (25, 33)
+V144_CLIPS = 4
+V144_D0 = (0, 32)
+V144_DIGESTS = "scripts/shift_gcn_v144_digests.json"
+
+
+def tree_graph(name: str, v: int, seed: int):
+    """A SkeletonGraph over v joints from ``seed``: a tree rooted at joint
+    0, each other joint hanging from a random earlier one, so that every
+    joint has a bone."""
+    from shift_gcn_torch.graphs import SkeletonGraph
+
+    rng = np.random.default_rng(seed)
+    parents = [0] + [int(rng.integers(0, i)) for i in range(1, v)]
+    edges = tuple((i, parents[i]) for i in range(1, v))
+    return SkeletonGraph(name=name, num_nodes=v, inward=edges,
+                         bone_pairs=((0, 0),) + edges, center_joint=(0,),
+                         zaxis=(0, 1), xaxis=(1, 2))
+
+
+def backbone_shapes():
+    """The default backbone's K4 launch shapes (T, C, D) at T_WINDOW, one
+    each."""
+    from shift_gcn_torch.models.shift_gcn import ModelConfig
+
+    return sorted(set(forward_shapes(ModelConfig(num_class=2),
+                                     T_WINDOW)[1]))
+
+
+def new_kernels(x, g, gate, w, b, d0=0):
+    """(K4 out, K5 dx, K6 (dgate, dW, dbias)) of this checkout."""
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+
+    return (sk.shift_gcn_forward(x, gate, w, b, d0),
+            sk.shift_gcn_dx(g, gate, w, d0),
+            sk.shift_gcn_wgrad(x, g, gate, w, d0))
+
+
+def flat_outputs(outs) -> dict:
+    out, dx, (dgate, dw, dbias) = outs
+    return {"K4": out, "K5": dx, "K6 dgate": dgate, "K6 dW": dw,
+            "K6 dbias": dbias}
+
+
+def v144_digests(run, dev) -> dict:
+    """{case and output: sha256 of its bytes} of ``run(x, g, gate, w, b,
+    d0)`` (``new_kernels``' outputs) at 22f's cases, inputs drawn with
+    numpy from one seed."""
+    import hashlib
+
+    def digest(t: torch.Tensor) -> str:
+        raw = t.detach().contiguous().cpu().view(torch.uint8).numpy()
+        return hashlib.sha256(raw.tobytes()).hexdigest()[:32]
+
+    rng = np.random.default_rng(144)
+    digests = {}
+    for v in V144_JOINTS:
+        for t, c, d in backbone_shapes():
+            r = V144_CLIPS * t
+            f32 = np.float32
+            x, g, gate, w, b = (torch.from_numpy(a).to(dev) for a in (
+                rng.standard_normal((r, v, c), f32),
+                rng.standard_normal((r, v, d), f32),
+                np.tanh(rng.standard_normal((v, c), f32)) + f32(1),
+                rng.standard_normal((c, d), f32) * f32(d ** -0.5),
+                rng.standard_normal(d, f32) * f32(0.1)))
+            for dtype in (torch.float32, torch.bfloat16):
+                for d0 in V144_D0:
+                    outs = flat_outputs(run(x.to(dtype), g.to(dtype), gate,
+                                            w, b, d0))
+                    for name, out in outs.items():
+                        digests[f"V={v} T={t} C={c} D={d} {str(dtype)[6:]} "
+                                f"d0={d0} {name}"] = digest(out)
+    torch.cuda.synchronize()
+    return digests
+
+
+def check_wide_kernels(v: int, gen, rng, dev) -> dict:
+    """22b: every kernel against its plain version at V=v, fp32 and bf16,
+    at each launch shape of the default backbone with WIDE_CLIPS clips:
+    K1 bit-equal and the fused K2+K3 within phase 7's gates, at ypos
+    U(-7, 7) with +-20.3 and +-7.4 (taps far outside any staged window);
+    K4 and K5 within phase 4's gates (2e-5 of scale, 2^-7 in bf16) and K6
+    within phase 7's, each at d0 = 0 and d0 = D (a rank's slice of a layer
+    twice as wide), K6 bit-equal across two launches; and phases 3 and
+    7's odd cases: C=130 with an odd T (1-element lanes), an input one
+    element into its storage (unaligned), and for K4-K6 C=130, D=70.
+    Returns the fp32 max |err| per kernel."""
+    from shift_gcn_torch.models.shift_gcn import ModelConfig
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    n = WIDE_CLIPS
+    k1_shapes = sorted(set(forward_shapes(
+        ModelConfig(num_class=2, num_point=v), T_WINDOW)[0]))
+    k1_cases = [(shape, "far") for shape in k1_shapes] + [
+        ((T_WINDOW // 4, 130, 2), "C=130"),
+        ((T_WINDOW // 4, 128, 1), "unaligned")]
+    k4_cases = [(shape, "aligned") for shape in backbone_shapes()] + [
+        ((T_WINDOW // 4, 130, 70), "odd"),
+        ((T_WINDOW // 4, 64, 128), "unaligned")]
+
+    def unaligned(t: torch.Tensor) -> torch.Tensor:
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+        buf[1:].copy_(t.view(-1))
+        return buf[1:].view(t.shape)
+
+    errs = {name: 0.0 for name in KERNEL_ROWS}
+    for dtype in (torch.float32, torch.bfloat16):
+        name = f"V={v} {str(dtype)[6:]}"
+        worst = {k: 0.0 for k in KERNEL_ROWS}
+        for (t, c, stride), kind in k1_cases:
+            x = torch.randn(n, t, v, c, generator=gen, device=dev).to(dtype)
+            g = torch.randn(n, t // stride, v, c, generator=gen,
+                            device=dev).to(dtype)
+            if kind == "unaligned":
+                x, g = unaligned(x), unaligned(g)
+            ypos = torch.from_numpy(shift_positions(rng, c, "far")).to(dev)
+            got = ts.temporal_shift(x, ypos, stride)
+            want = ts.temporal_shift_reference(x, ypos, stride)
+            torch.cuda.synchronize()
+            err, _ = max_err(got, want)
+            if not torch.equal(got, want):
+                fail(f"22b K1 {name} T={t} C={c} s={stride} {kind}: max|err| "
+                     f"{err:.3g}, not bit-equal")
+            worst["temporal_shift"] = max(worst["temporal_shift"], err)
+            dx_err, gy_err, _ = check_fused_backward(
+                x, g, ypos, stride, f"22b {name} T={t} C={c} s={stride} "
+                f"{kind}")
+            worst["temporal_shift_backward"] = max(
+                worst["temporal_shift_backward"], dx_err, gy_err)
+            del x, g, got, want
+        tol = 2e-5 if dtype == torch.float32 else 2 ** -7
+        for (t, c, d), kind in k4_cases:
+            r = n * t
+            x = torch.randn(r, v, c, generator=gen, device=dev).to(dtype)
+            g = torch.randn(r, v, d, generator=gen, device=dev).to(dtype)
+            if kind == "unaligned":
+                x, g = unaligned(x), unaligned(g)
+            gate = torch.tanh(torch.randn(v, c, generator=gen,
+                                          device=dev)) + 1.0
+            w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+            b = torch.randn(d, generator=gen, device=dev) * 0.1
+            for d0 in (0, d):
+                label = f"22b {name} T={t} C={c} D={d} d0={d0} {kind}"
+                for kernel, got, want in (
+                        ("shift_gcn", sk.shift_gcn_forward(x, gate, w, b, d0),
+                         ss.shift_gcn_transform(x, gate, w, b, d0)),
+                        ("shift_gcn_dx", sk.shift_gcn_dx(g, gate, w, d0),
+                         ss.shift_gcn_dx_reference(g, gate, w, d0))):
+                    err, scale = max_err(got, want)
+                    if not err <= tol * scale:
+                        fail(f"{label} {kernel}: max|err| {err:.3g} > "
+                             f"{tol * scale:.3g}")
+                    worst[kernel] = max(worst[kernel], err)
+                err, _ = check_wgrad(x, g, gate, w, label, d0)
+                worst["shift_gcn_wgrad"] = max(worst["shift_gcn_wgrad"], err)
+            del x, g
+        torch.cuda.empty_cache()
+        print(f"[wide] 22b V={v} {str(dtype)[6:]}: K1 bit-equal and the "
+              f"fused K2+K3 within phase 7's gates at {len(k1_cases)} "
+              f"shapes (T, C, s) {[c_ for c_, _ in k1_cases]} with far "
+              f"shifts; K4, K5 and K6 at {len(k4_cases)} shapes (T, C, D) "
+              f"{[c_ for c_, _ in k4_cases]} x d0 in (0, D), {n} clips: "
+              "max|err| " + ", ".join(f"{k} {e:.3g}" for k, e in
+                                      worst.items())
+              + "; K6 bit-equal across two launches")
+        if dtype == torch.float32:
+            errs = worst
+    return errs
+
+
+def wide_graph_trainer(rng, dev, workdir: str, graph, card: str):
+    """22d: ``Trainer.start()`` on TRAIN_CONFIG with its graph replaced
+    by ``graph`` (registered) and the default backbone, bf16, at the
+    largest batch of WIDE_BATCHES whose step fits: WIDE_STEPS steps, eval
+    and save.  Returns (launches, batch, peak GiB, step ms)."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.models.shift_gcn import (
+        Model, config_from_reference_args)
+    from shift_gcn_torch.train.config import load_config
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+    from shift_gcn_torch.train.trainer import Trainer
+    from shift_gcn_torch.utils.checkpoint import latest_checkpoint
+
+    base = load_config(["--config", TRAIN_CONFIG])
+    model_args = {k: val for k, val in base.model_args.items()
+                  if k != "num_point"}
+    model_args["graph"] = graph.name
+    config = dataclasses.replace(config_from_reference_args(model_args),
+                                 activation_dtype=base.activation_dtype)
+    v = graph.num_nodes
+    if (config.num_point, config.activation_dtype) != (v, "bfloat16"):
+        fail(f"22d: the config resolves {config.num_point} joints in "
+             f"{config.activation_dtype}, not {v} in bf16")
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    batch_size = peak = step_ms = None
+    for b in WIDE_BATCHES:
+        model = Model(config).init_weights(torch.Generator().manual_seed(0))
+        opt = build_optimizer(model, base.base_lr)
+        data, labels = synthetic_batch(rng, b, T_WINDOW, v)
+        batch = {"data": torch.from_numpy(data).to(dev),
+                 "label": torch.from_numpy(labels).to(dev)}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        try:
+            train_step(model, opt, batch, base.base_lr)
+            torch.cuda.synchronize()
+            got = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if got <= WIDE_MEMORY_SHARE * total:
+                peak = got
+                step_ms = time_ms(lambda: train_step(model, opt, batch,
+                                                     base.base_lr),
+                                  iters=2, reps=3)
+        except torch.cuda.OutOfMemoryError:
+            got = None
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        if peak is not None:
+            batch_size = b
+            break
+        print(f"[wide] 22d: batch {b} does not fit (step peak "
+              f"{'out of memory' if got is None else f'{got:.2f} GiB'} of "
+              f"{total:.1f}) | {card}")
+    if batch_size is None:
+        fail(f"22d: no batch of {WIDE_BATCHES} fits at V={v}")
+
+    feeder_args = {split: write_split(workdir, split, *synthetic_batch(
+        rng, count, T_WINDOW, v)) for split, count in (
+            ("train", WIDE_STEPS * batch_size), ("val", batch_size))}
+    cfg = one_epoch_config(TRAIN_CONFIG, workdir, feeder_args,
+                           "--model_args", json.dumps(model_args),
+                           "--batch_size", str(batch_size),
+                           "--test_batch_size", str(batch_size))
+    trainer = Trainer(cfg)
+    if trainer.model_config.num_point != v:
+        fail(f"22d: the Trainer built {trainer.model_config.num_point} "
+             f"joints, not {v}")
+    epochs = record_epochs(trainer)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    run_peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    expect = {k: PER_STEP[k] * WIDE_STEPS + PER_EVAL_FORWARD.get(k, 0)
+              for k in PER_STEP}
+    if launches != expect:
+        fail(f"22d: launch counts {launches} != expected {expect}")
+    losses = epochs[0]["losses"]
+    if len(losses) != WIDE_STEPS or not np.isfinite(losses).all():
+        fail(f"22d: train losses {losses}")
+    eval_dir = os.path.join(trainer.work_dir, "eval_results")
+    ckpt = latest_checkpoint(trainer.save_dir)
+    if ckpt is None or not os.path.exists(os.path.join(eval_dir,
+                                                       "best_acc.pkl")):
+        fail("22d: the run left no checkpoint or best_acc.pkl")
+    with open(os.path.join(eval_dir, "best_acc.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    if len(scores) != batch_size or any(
+            s.shape != (2,) or not np.isfinite(s).all()
+            for s in scores.values()):
+        fail("22d: scores are not finite 2-class rows per clip")
+    print(f"[wide] 22d: Trainer.start() on {TRAIN_CONFIG} with graph "
+          f"{graph.name!r} (V={v}, registered), the default backbone, "
+          f"bf16, batch {batch_size}, T={T_WINDOW}: {WIDE_STEPS} steps + "
+          f"1 eval batch + save in {wall:.1f} s, losses "
+          f"{[round(x, 4) for x in losses]}, best acc {best:.4f}, "
+          f"checkpoint {os.path.basename(ckpt)}; launches {launches} = per "
+          f"step {PER_STEP} x {WIDE_STEPS} + per eval forward "
+          f"{PER_EVAL_FORWARD}; a step {step_ms:.3f} ms "
+          f"({batch_size / step_ms * 1e3:.1f} clips/s), step peak "
+          f"{peak:.2f} GiB, the run's peak {run_peak:.2f} GiB of "
+          f"{total:.1f} (predicted {WIDE_PREDICTION}) | {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return launches, batch_size, run_peak, step_ms
+
+
+def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str) -> dict:
+    """22e: each kernel at V=v over one train step's launches (the K1 and
+    K4 of a forward, the backward kernels of a step) with n clips, fp32:
+    kernel, plain version, bound and library call, as phases 6 and 10.
+    Returns {kernel: (ms, plain, bound, library, bytes_ms, ops_ms)}."""
+    from shift_gcn_torch.models.shift_gcn import ModelConfig
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+    from shift_gcn_torch.ops import spatial_shift as ss
+    from shift_gcn_torch.ops import temporal_shift as ts
+
+    k1_shapes, k4_shapes = forward_shapes(
+        ModelConfig(num_class=2, num_point=v), T_WINDOW)
+    totals = {k: [0.0] * 6 for k in KERNEL_ROWS}
+
+    def add(kernel, count, ms, plain, lib, cost):
+        for i, val in enumerate((ms, plain, max(cost), lib) + cost):
+            totals[kernel][i] += count * val
+
+    def timed(fn):
+        return time_ms(fn, iters=3, reps=3)
+
+    for t, c, stride in sorted(set(k1_shapes)):
+        count = k1_shapes.count((t, c, stride))
+        x = torch.randn(n, t, v, c, generator=gen, device=dev)
+        g = torch.randn(n, t // stride, v, c, generator=gen, device=dev)
+        ypos = torch.from_numpy(
+            rng.uniform(-1, 1, c).astype(np.float32)).to(dev)
+        lib1 = shift_conv_library(x, ypos, stride)
+        lib2 = shift_conv_transpose_library(g, ypos, stride, t)
+        lib3 = position_grad_library(x, g, ypos, stride)
+        add("temporal_shift", count,
+            timed(lambda: ts.temporal_shift(x, ypos, stride)),
+            timed(lambda: ts.temporal_shift_reference(x, ypos, stride)),
+            timed(lib1), k1_cost_ms(n, t, c, stride, v=v))
+        add("temporal_shift_backward", count,
+            timed(lambda: ts.temporal_shift_backward(x, g, ypos, stride)),
+            timed(lambda: ts.temporal_shift_backward_reference(
+                x, g, ypos, stride)), timed(lib2) + timed(lib3),
+            k23_cost_ms(n, t, c, stride, v=v))
+        del x, g
+    for t, c, d in sorted(set(k4_shapes)):
+        count = k4_shapes.count((t, c, d))
+        r = n * t
+        x = torch.randn(r, v, c, generator=gen, device=dev)
+        g = torch.randn(r, v, d, generator=gen, device=dev)
+        gate = torch.tanh(torch.randn(v, c, generator=gen, device=dev)) + 1
+        w = torch.randn(c, d, generator=gen, device=dev) * d ** -0.5
+        b = torch.randn(d, generator=gen, device=dev) * 0.1
+        wt = w.t().contiguous()
+        shear = {(ch, sign): torch.from_numpy(ss.flat_shift_index(
+            v, ch, sign)).to(dev) for ch in (c, d) for sign in (1, -1)}
+
+        def lib4():
+            h = x.view(r, v * c).index_select(1, shear[c, 1]).view(r, v, c)
+            z = torch.matmul(h * gate, w) + b
+            return z.view(r, v * d).index_select(1, shear[d, -1]).view(
+                r, v, d)
+
+        def lib5():
+            gz = g.view(r, v * d).index_select(1, shear[d, 1]).view(r, v, d)
+            dh = torch.matmul(gz, wt) * gate
+            return dh.view(r, v * c).index_select(1, shear[c, -1]).view(
+                r, v, c)
+
+        def lib6():
+            sx = x.view(r, v * c).index_select(1, shear[c, 1]).view(r, v, c)
+            gz = g.view(r, v * d).index_select(1, shear[d, 1]).view(r, v, d)
+            m = torch.bmm(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
+            return ((m * w[None]).sum(-1), (m * gate[:, :, None]).sum(0),
+                    gz.sum((0, 1)))
+
+        for got, want in ((lib4(), ss.shift_gcn_transform(x, gate, w, b)),
+                          (lib5(), ss.shift_gcn_dx_reference(g, gate, w))
+                          ) + tuple(zip(lib6(), ss.shift_gcn_wgrad_reference(
+                              x, g, gate, w))):
+            err, scale = max_err(got, want)
+            if not err <= 1e-4 * scale:
+                fail(f"22e V={v}: a library yardstick disagrees "
+                     f"({err:.3g})")
+        add("shift_gcn", count,
+            timed(lambda: sk.shift_gcn_forward(x, gate, w, b)),
+            timed(lambda: ss.shift_gcn_transform(x, gate, w, b)),
+            timed(lib4), k4_cost_ms(r, c, d, v=v))
+        add("shift_gcn_dx", count,
+            timed(lambda: sk.shift_gcn_dx(g, gate, w)),
+            timed(lambda: ss.shift_gcn_dx_reference(g, gate, w)),
+            timed(lib5), k4_cost_ms(r, d, c, v=v))
+        add("shift_gcn_wgrad", count,
+            timed(lambda: sk.shift_gcn_wgrad(x, g, gate, w)),
+            timed(lambda: ss.shift_gcn_wgrad_reference(x, g, gate, w)),
+            timed(lib6), k6_cost_ms(r, c, d, v=v))
+        del x, g
+    torch.cuda.empty_cache()
+    for kernel, (ms, plain, bound, lib, bytes_ms, ops_ms) in totals.items():
+        by = "operations" if ops_ms > bytes_ms else "bytes"
+        print(f"[wide] 22e {kernel} at V={v}, a step's launches with {n} "
+              f"clips x T={T_WINDOW}, fp32: {ms:.4f} ms, "
+              f"{100 * bound / ms:.0f}% of bound {bound:.4f} by {by} "
+              f"(plain {plain:.4f}, library {lib:.4f}) | {card}")
+    return totals
+
+
+def run_wide(rng, gen, dev, workdir: str, card: str, seed: int) -> dict:
+    """Phase 22: 22a topologies registered through ``register_graph``;
+    22b each kernel against its plain version at V = 145, 256 and 543;
+    22c one fp32 train step at V=543, kernel path vs the plain backward;
+    22d ``Trainer.start()`` on the registered 543-joint graph; 22e the
+    kernels' times at V=543 beside their bounds; 22f K4, K5 and K6 at
+    V = 25 and 33 bit-equal to the parent commit's build.  Returns the
+    figures for the kernels line and the summary."""
+    from shift_gcn_torch import graphs
+    from shift_gcn_torch.models.shift_gcn import (
+        ModelConfig, config_from_reference_args)
+
+    # 22a: the topologies, registered and resolved by name
+    trees = {}
+    for i, (name, v) in enumerate(TREE_GRAPHS):
+        graph = tree_graph(name, v, seed + i)
+        graphs.register_graph(graph)
+        parents = graphs.get_graph(name).bone_parents()
+        cfg = config_from_reference_args({"graph": name, "num_class": 2,
+                                          "num_person": 1})
+        if (graphs.get_graph(name) is not graph or cfg.num_point != v
+                or parents[0] != 0
+                or not (parents[1:] < np.arange(1, v)).all()):
+            fail(f"22a: {name} does not resolve as registered")
+        trees[v] = graph
+    print(f"[wide] 22a: registered {[(n, v) for n, v in TREE_GRAPHS]} "
+          "(seeded trees rooted at joint 0); each resolves by name through "
+          "get_graph and config_from_reference_args, every joint a bone")
+
+    # 22b: the kernels against their plain versions past the frame tile
+    errs = {}
+    for v in WIDE_JOINTS:
+        for kernel, err in check_wide_kernels(v, gen, rng, dev).items():
+            errs[kernel] = max(errs.get(kernel, 0.0), err)
+
+    # 22c: one fp32 step at V=543 against the plain backward
+    big = trees[HOLISTIC_V]
+    config = ModelConfig(num_class=2, num_point=HOLISTIC_V, num_person=1,
+                         graph=big.name)
+    grad_gap, gy_ratio = check_train_step(
+        config, rng, dev, seed, label=f"22c fp32 V={HOLISTIC_V}",
+        clips=WIDE_STEP_CLIPS)
+
+    # 22d: the Trainer on the registered graph
+    launches, batch, peak, step_ms = wide_graph_trainer(
+        rng, dev, workdir, big, card)
+
+    # 22e: the kernels' times at the Trainer's shapes
+    totals = time_wide_kernels(HOLISTIC_V, batch, gen, rng, dev, card)
+
+    # 22f: the whole-frame tiles, bit for bit the parent's build
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           V144_DIGESTS)) as f:
+        want = json.load(f)
+    got = v144_digests(new_kernels, dev)
+    differ = [k for k in want if got.get(k) != want[k]]
+    if differ or set(got) != set(want):
+        fail(f"22f: {len(differ)} of {len(want)} outputs at V <= 144 not "
+             f"bit-equal to the parent's build, first {differ[:4]}")
+    print(f"[wide] 22f: K4, K5 and K6 at V {V144_JOINTS} ({len(want)} "
+          f"outputs: each unit's (T, C, D) at {V144_CLIPS} clips, fp32 and "
+          f"bf16, d0 {V144_D0}) bit-equal to the parent commit's build "
+          f"({V144_DIGESTS})")
+    return {"errs": errs, "launches": launches, "batch": batch,
+            "peak": peak, "step_ms": step_ms, "totals": totals,
+            "grad_gap": grad_gap, "gy_ratio": gy_ratio}
+
+
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
              "tp22": rank_tp22, "edge": rank_edge, "ring": rank_ring}
 
@@ -4488,7 +4994,9 @@ def main() -> None:
     if sass is None:
         print("[build] no cuobjdump: the K4/K5/K6 HMMA count is not read")
     else:
-        if len(sass) != 10 or any(h == 0 for h, _ in sass.values()):
+        # K4 and K5 x fp32, bf16 x two column tiles x whole-frame and wide
+        # tiles, K6 x fp32, bf16
+        if len(sass) != 18 or any(h == 0 for h, _ in sass.values()):
             fail(f"K4/K5/K6 functions without tensor-core instructions: "
                  f"{sass}")
         print("[build] K4/K5/K6 functions, HMMA instructions / registers: "
@@ -4741,6 +5249,10 @@ def main() -> None:
         remat = run_remat(rng, dev, workdir, card, args.seed)
     print(f"[remat] {par['remat']}")
 
+    # 22. custom topologies and any joint count ----------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        wide = run_wide(rng, gen, dev, workdir, card, args.seed)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -4755,6 +5267,15 @@ def main() -> None:
             "bound_ms": sig(bound),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
             "library_ms": sig(lib)})
+    for entry in entries:
+        name = entry["name"]
+        ms, plain, bound, lib, bytes_ms, ops_ms = wide["totals"][name]
+        entry[f"v{HOLISTIC_V}"] = {
+            "launches": wide["launches"][name],
+            "max_abs_err": sig(wide["errs"][name]), "ms": sig(ms),
+            "plain_ms": sig(plain), "bound_ms": sig(bound),
+            "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
+            "library_ms": sig(lib)}
     print("[note] kernel ms / plain_ms / bound_ms / library_ms, fp32: "
           "temporal_shift and shift_gcn per stream forward at "
           f"{N_WINDOWS} windows x T={T_WINDOW}, launches from the serving "
@@ -4762,7 +5283,11 @@ def main() -> None:
           f"train step at {N_WINDOWS} clips x T={T_WINDOW}, launches from "
           "the Trainer run, the fused kernel's library_ms the sum of two "
           "calls, K6's that of index_select x2 + bmm + three reductions; "
-          "summary: phases 6, 8, 9, 10, 12, 13, 14, 16-21")
+          f"v{HOLISTIC_V}: phase 22, the same over a forward's or a step's "
+          f"launches at V={HOLISTIC_V} with {wide['batch']} clips, "
+          "launches from its Trainer run (22d), max_abs_err over V in "
+          f"{WIDE_JOINTS} (22b); summary: phases 6, 8, 9, 10, 12, 13, 14, "
+          "16-22")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -4800,7 +5325,10 @@ def main() -> None:
           + f" vs {edge['ring_one_ms']:.3g}; remat GiB/ms without->with "
           + ", ".join(f"{k} {r['peak'][0]:.3g}->{r['peak'][1]:.3g}/"
                       f"{r['ms'][0]:.4g}->{r['ms'][1]:.4g}"
-                      for k, r in remat.items()))
+                      for k, r in remat.items())
+          + f"; V={HOLISTIC_V} bf16 batch {wide['batch']} step "
+          f"{wide['step_ms']:.4g} ms, peak {wide['peak']:.3g} GiB, fp32 "
+          f"grads {wide['grad_gap']:.2g}")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

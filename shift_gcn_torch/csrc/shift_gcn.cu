@@ -109,6 +109,24 @@
 // the build to producer warps (3 producers for 12 consumers) measured
 // slower: the build, not the mma, limits the kernel, so a cheaper build
 // comes before any overlap.
+// Wide tiles (kWide, V > kRows: a whole-body skeleton, 543 joints for
+// MediaPipe Holistic): a frame no longer fits a tile, so a tile is kRows
+// consecutive joints [u0, u0 + 144) of one frame, ceil(V / 144) tiles a
+// frame, with the same fragments, mma and warp grid.  For a k-slice from
+// channel k0 (global from d0 for K5), row u and channel k0 + kk read
+// joint (u + k0 + kk) % V, so the slab is the window of 144 + 31 = 175
+// joints from (u0 + k0) % V, staged as it wraps at V; row m, channel kk
+// reads slot m + kk with no wrap.  K4 stages the gate rows of the tile's
+// joints only.  The epilogue stores a part of a frame: output row w gets
+// from the tile the channels whose source joint (w - d') % V lies in
+// [u0, u0 + 144), a contiguous run a row; a thread's 16-byte chunk whose
+// elements all lie in the tile is one vector store, the ragged ends are
+// stored one by one, and every output is written by exactly one tile of
+// its frame (store_tile_wide).  No atomics, so two launches are bit-equal.
+// Shared memory does not grow with V: K4 fp32 202,720 B (128-column
+// tile), bf16 180,320 B.  The 175-row window re-reads 31 of every 144
+// slab rows, and the gate is staged per tile: a first design, right
+// before fast.
 //
 // K6 design: for each joint u, M[u] is a (C x D) product over a very deep
 // K (R up to 19200 frames) with tiny M and N, so the reduction over R is
@@ -122,7 +140,10 @@
 //            16-byte cp.async as they lie into a 2-stage ring (1 stage
 //            where two do not fit: V > 33), so the slab is read from
 //            device memory once per (tile pair) and holds every joint's
-//            diagonal.  The shear is applied when a warp loads its
+//            diagonal.  Past V = 33 a stage holds, of each of its frames,
+//            the group's window of joints + 31 rows from (u0 + c0) % V as
+//            it wraps at V (64 rows at most, whatever V), so K6 takes any
+//            V.  The shear is applied when a warp loads its
 //            fragments from the slab: joint u0 + uu, channel c0 + cc
 //            reads staged row uu + cc (mod the staged window).  Rows are
 //            32 elements and each staged frame is padded by 8, which
@@ -202,9 +223,13 @@ __host__ __device__ constexpr int vec_elems() {
 constexpr int kStages = 2;     // cp.async ring depth
 constexpr int kLdg = kK + 4;   // gate slice row stride (fp32)
 
-template <typename T, bool kDx, int kBN>
+template <typename T, bool kDx, int kBN, bool kWide>
 struct Layout {
-  static constexpr int kSlabBytes = kRows * slab_ld<T>() * sizeof(T);
+  // slab rows a stage holds: the tile's whole frames as they lie, or
+  // (kWide) the wrapped window of kRows + kK - 1 joints that the tile's
+  // sheared rows read
+  static constexpr int kSlabRows = kWide ? kRows + kK - 1 : kRows;
+  static constexpr int kSlabBytes = kSlabRows * slab_ld<T>() * sizeof(T);
   static constexpr int kWBytes = (kDx ? kBN * (kK + 4) : kK * (kBN + 8)) * 4;
   static constexpr int kFragABytes = kRows / 16 * kK8 * 32 * 16;  // per plane
   static constexpr int kFragBBytes = kBN / 8 * kK8 * 32 * 16;
@@ -212,8 +237,9 @@ struct Layout {
   static constexpr int kFragBytes = 2 * kFragABytes + kFragBBytes;
   static constexpr int kRegionBytes = kFragBytes > kZBytes ? kFragBytes
                                                            : kZBytes;
+  // K4's gate slice: V rows, or (kWide) the tile's kRows joints
   __host__ __device__ static int stage_bytes(int v) {
-    return kSlabBytes + kWBytes + (kDx ? 0 : v * kLdg * 4);
+    return kSlabBytes + kWBytes + (kDx ? 0 : (kWide ? kRows : v) * kLdg * 4);
   }
   static int bytes(int v) { return kRegionBytes + kStages * stage_bytes(v); }
 };
@@ -357,25 +383,80 @@ __device__ __forceinline__ void store_tile(const float* zs, T* out,
   }
 }
 
+// The same for a wide tile (V > kRows): zs holds joints [u0, u0 + rows) of
+// the frame at row0.  Output (w, n) reads z at joint (w - n') % V, so this
+// tile writes the outputs whose source row q - e (mod V) lies below rows,
+// where w = (u0 + col' + q) % V and column col + e; every other tile of
+// the frame writes the rest, each output once.  Each thread owns one
+// kVec-column chunk and walks its q over [0, min(V, rows + kVec - 1)),
+// distinct rows w: a chunk wholly in the tile is one vector store, the
+// ragged ends are stored element by element.
+template <typename T, bool kDx, int kBN, int kVec>
+__device__ __forceinline__ void store_tile_wide(const float* zs, T* out,
+                                                const float* gate,
+                                                int64_t row0, int u0,
+                                                int rows, int v, int n0,
+                                                int n, int d0) {
+  constexpr int kLdz = kBN + 4;
+  constexpr int kChunks = kBN / kVec;
+  constexpr int kStep = kMmaThreads / kChunks;
+  static_assert(kMmaThreads % kChunks == 0, "store walk");
+  const int j = threadIdx.x % kChunks;
+  const int col = n0 + j * kVec;
+  if (col >= n) return;  // n % kVec == 0 on the vector path
+  const int w0 = (u0 + ((kDx ? 0 : d0) + col) % v) % v;
+  const int span = min(v, rows + kVec - 1);
+  auto value = [&](int m, int e) {
+    float val = zs[m * kLdz + j * kVec + e];
+    if (kDx) val *= __ldg(gate + (u0 + m) * n + col + e);
+    return val;
+  };
+  for (int q = threadIdx.x / kChunks; q < span; q += kStep) {
+    int w = w0 + q;
+    w -= w >= v ? v : 0;
+    T* dst = out + (row0 + w) * n + col;
+    if (q >= kVec - 1 && q < rows) {
+      float vals[kVec];
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) vals[e] = value(q - e, e);
+      if constexpr (kVec > 1) {
+        store_vec(dst, vals);
+      } else {
+        store_f(dst, vals[0]);
+      }
+    } else {
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) {
+        int m = q - e;
+        m += m < 0 ? v : 0;
+        if (m < rows) store_f(dst + e, value(m, e));
+      }
+    }
+  }
+}
+
 // Persistent: block b takes tiles b, b + gridDim.x, ...; a tile is
 // (frames whole frames, kBN output channels), the column tile the faster
-// index.  kDx=false: K4, x (R, V, kdim) is the input, w (kdim, n)
-// row-major, gate (V, kdim) on the input side, bias added.  kDx=true: K5,
+// index; kWide (V > kRows): (kRows joints of one frame, kBN output
+// channels), `frames` then the tiles of one frame.  kDx=false: K4, x
+// (R, V, kdim) is the input, w (kdim, n) row-major, gate (V, kdim) on the
+// input side, bias added.  kDx=true: K5,
 // x is the cotangent (R, V, kdim) with kdim = D of the forward, w is the
 // forward's (n, kdim) array read transposed, gate (V, n) multiplies the
 // output at its source joint, no bias.  vec_x / vec_w / vec_g / vec_out:
 // the 16-byte paths apply (row lengths and base pointers allow them).
 // d0: the global index of output channel 0 of the forward (K4's n axis,
 // K5's kdim axis), which the shears on that axis read.
-template <typename T, bool kDx, int kBN>
-__global__ void __launch_bounds__(kMmaThreads, kDx && kBN == 64 ? 2 : 1)
+template <typename T, bool kDx, int kBN, bool kWide>
+__global__ void __launch_bounds__(kMmaThreads,
+                                  kDx && kBN == 64 && !kWide ? 2 : 1)
 shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
                      const float* __restrict__ w,
                      const float* __restrict__ bias, T* __restrict__ out,
                      int r_total, int v, int kdim, int n, int frames,
                      int col_tiles, int tiles, int d0, bool vec_x,
                      bool vec_w, bool vec_g, bool vec_out) {
-  using L = Layout<T, kDx, kBN>;
+  using L = Layout<T, kDx, kBN, kWide>;
   constexpr int kNT = kBN / 32;
   constexpr int kLda = slab_ld<T>();
   constexpr int kVecX = vec_elems<T>();
@@ -404,36 +485,74 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
   auto issue = [&](int p) {
     const int tile = blockIdx.x + (p / nk) * gridDim.x;
     const int k0 = (p % nk) * kK;
-    const int r0 = (tile / col_tiles) * frames;
     const int n0 = (tile % col_tiles) * kBN;
-    const int rows = min(frames, r_total - r0) * v;
-    const T* xb = x + static_cast<int64_t>(r0) * v * kdim;
     unsigned char* base = stage_base(p);
     T* xs = reinterpret_cast<T*>(base);
     float* ws = reinterpret_cast<float*>(base + L::kSlabBytes);
-    if (vec_x) {
-      constexpr int kChunks = kK / kVecX;
-      for (int l = tid; l < rows * kChunks; l += kMmaThreads) {
-        const int m = l / kChunks;
-        const int j = l % kChunks;
-        const int ch = k0 + j * kVecX;
-        const bool in = ch < kdim;
-        cp_async16(xs + m * kLda + j * kVecX,
-                   in ? xb + static_cast<int64_t>(m) * kdim + ch : x, in);
+    int u0 = 0;  // kWide: the tile's first joint
+    if constexpr (kWide) {
+      // slot s holds joint (first + s) % V of the tile's frame, first the
+      // joint that row 0 reads at channel k0 (global from d0 for K5)
+      const int rt = tile / col_tiles;
+      const int f = rt / frames;
+      u0 = (rt - f * frames) * kRows;
+      const int first = (u0 + (kDx ? d0 % v : 0) + k0) % v;
+      const T* xf = x + static_cast<int64_t>(f) * v * kdim;
+      if (vec_x) {
+        constexpr int kChunks = kK / kVecX;
+        for (int l = tid; l < L::kSlabRows * kChunks; l += kMmaThreads) {
+          const int m = l / kChunks;
+          const int j = l % kChunks;
+          const int ch = k0 + j * kVecX;
+          const bool in = ch < kdim;
+          const int64_t row = (first + m) % v;
+          cp_async16(xs + m * kLda + j * kVecX,
+                     in ? xf + row * kdim + ch : x, in);
+        }
+      } else {
+        for (int l = tid; l < L::kSlabRows * kK; l += kMmaThreads) {
+          const int m = l / kK;
+          const int kk = l % kK;
+          const int ch = k0 + kk;
+          const int64_t row = (first + m) % v;
+          if constexpr (sizeof(T) == 4) {
+            const bool in = ch < kdim;
+            cp_async4(xs + m * kLda + kk, in ? xf + row * kdim + ch : x,
+                      in);
+          } else {
+            xs[m * kLda + kk] = ch < kdim ? xf[row * kdim + ch]
+                                          : zero_of<T>();
+          }
+        }
       }
     } else {
-      for (int l = tid; l < rows * kK; l += kMmaThreads) {
-        const int m = l / kK;
-        const int kk = l % kK;
-        const int ch = k0 + kk;
-        if constexpr (sizeof(T) == 4) {
+      const int r0 = (tile / col_tiles) * frames;
+      const int rows = min(frames, r_total - r0) * v;
+      const T* xb = x + static_cast<int64_t>(r0) * v * kdim;
+      if (vec_x) {
+        constexpr int kChunks = kK / kVecX;
+        for (int l = tid; l < rows * kChunks; l += kMmaThreads) {
+          const int m = l / kChunks;
+          const int j = l % kChunks;
+          const int ch = k0 + j * kVecX;
           const bool in = ch < kdim;
-          cp_async4(xs + m * kLda + kk,
-                    in ? xb + static_cast<int64_t>(m) * kdim + ch : x, in);
-        } else {
-          xs[m * kLda + kk] = ch < kdim
-                                  ? xb[static_cast<int64_t>(m) * kdim + ch]
-                                  : zero_of<T>();
+          cp_async16(xs + m * kLda + j * kVecX,
+                     in ? xb + static_cast<int64_t>(m) * kdim + ch : x, in);
+        }
+      } else {
+        for (int l = tid; l < rows * kK; l += kMmaThreads) {
+          const int m = l / kK;
+          const int kk = l % kK;
+          const int ch = k0 + kk;
+          if constexpr (sizeof(T) == 4) {
+            const bool in = ch < kdim;
+            cp_async4(xs + m * kLda + kk,
+                      in ? xb + static_cast<int64_t>(m) * kdim + ch : x, in);
+          } else {
+            xs[m * kLda + kk] = ch < kdim
+                                    ? xb[static_cast<int64_t>(m) * kdim + ch]
+                                    : zero_of<T>();
+          }
         }
       }
     }
@@ -484,9 +603,31 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
                     in);
         }
       }
-      // gs[u][kk] = gate[u, k0 + kk]
+      // gs[u][kk] = gate[u, k0 + kk]; kWide: gate[u0 + u, k0 + kk], zero
+      // past the frame's last joint
       float* gs = reinterpret_cast<float*>(base + L::kSlabBytes + L::kWBytes);
-      if (vec_g) {
+      if constexpr (kWide) {
+        const float* gt = gate + static_cast<int64_t>(u0) * kdim;
+        const int grows = min(kRows, v - u0);
+        if (vec_g) {
+          for (int l = tid; l < kRows * (kK / 4); l += kMmaThreads) {
+            const int u = l / (kK / 4);
+            const int j = l % (kK / 4);
+            const int ch = k0 + 4 * j;
+            const bool in = ch < kdim && u < grows;
+            cp_async16(gs + u * kLdg + 4 * j, in ? gt + u * kdim + ch : gate,
+                       in);
+          }
+        } else {
+          for (int l = tid; l < kRows * kK; l += kMmaThreads) {
+            const int u = l / kK;
+            const int kk = l % kK;
+            const bool in = k0 + kk < kdim && u < grows;
+            cp_async4(gs + u * kLdg + kk, in ? gt + u * kdim + k0 + kk : gate,
+                      in);
+          }
+        }
+      } else if (vec_g) {
         for (int l = tid; l < v * (kK / 4); l += kMmaThreads) {
           const int u = l / (kK / 4);
           const int j = l % (kK / 4);
@@ -518,9 +659,15 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int m = (warp / kK8 + 3 * i) * 16 + g + 8 * h;
-      const int f = m < frames * v ? m / v : 0;
-      a_fbase[i][h] = f * v * kLda;
-      a_u[i][h] = m < frames * v ? m - f * v : 0;
+      if constexpr (kWide) {
+        // row m reads slots m + kk: its window starts at slot m
+        a_fbase[i][h] = m * kLda;
+        a_u[i][h] = m;
+      } else {
+        const int f = m < frames * v ? m / v : 0;
+        a_fbase[i][h] = f * v * kLda;
+        a_u[i][h] = m < frames * v ? m - f * v : 0;
+      }
     }
   }
   // The mma: warp (wm, wn) owns m16 tiles wm*kMT + i and n8 tiles wn*kNT + j
@@ -544,9 +691,18 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
     const int ks = p % nk;
     const int k0 = ks * kK;
     const int tile = blockIdx.x + (p / nk) * gridDim.x;
-    const int r0 = (tile / col_tiles) * frames;
     const int n0 = (tile % col_tiles) * kBN;
-    const int rows = min(frames, r_total - r0) * v;
+    // kWide: frame r0 (its first row r0 * V), joints [u0, u0 + rows)
+    int r0, rows, u0 = 0;
+    if constexpr (kWide) {
+      const int rt = tile / col_tiles;
+      r0 = rt / frames;
+      u0 = (rt - r0 * frames) * kRows;
+      rows = min(kRows, v - u0);
+    } else {
+      r0 = (tile / col_tiles) * frames;
+      rows = min(frames, r_total - r0) * v;
+    }
     cp_async_wait<kStages - 2>();
     // stage p has landed; the last mma and the reads of ring slot
     // (p - 1) % kStages are done, so that slot takes stage p + kStages - 1
@@ -571,10 +727,17 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
         for (int q = 0; q < 4; ++q) {
           const int h = q & 1;  // a0, a2: row g; a1, a3: row g + 8
           const int hi = q >> 1;
-          int s = a_u[i][h] + (hi ? cm_hi : cm_lo);
-          s -= s >= v ? v : 0;
-          float val =
-              load_f(xs + a_fbase[i][h] + s * kLda + a_kk_lo + 4 * hi);
+          float val;
+          if constexpr (kWide) {
+            // the window wraps at V as it is staged: row m, channel kk
+            // reads slot m + kk
+            const int kk = a_kk_lo + 4 * hi;
+            val = load_f(xs + a_fbase[i][h] + kk * (kLda + 1));
+          } else {
+            int s = a_u[i][h] + (hi ? cm_hi : cm_lo);
+            s -= s >= v ? v : 0;
+            val = load_f(xs + a_fbase[i][h] + s * kLda + a_kk_lo + 4 * hi);
+          }
           if (!kDx) val *= gs[a_u[i][h] * kLdg + a_kk_lo + 4 * hi];
           a[q] = val;
         }
@@ -661,7 +824,15 @@ shift_gcn_mma_kernel(const T* __restrict__ x, const float* __restrict__ gate,
     }
     __syncthreads();
     const int64_t row0 = static_cast<int64_t>(r0) * v;
-    if (vec_out) {
+    if constexpr (kWide) {
+      if (vec_out) {
+        store_tile_wide<T, kDx, kBN, vec_elems<T>()>(
+            zs, out, gate, row0, u0, rows, v, n0, n, d0);
+      } else {
+        store_tile_wide<T, kDx, kBN, 1>(zs, out, gate, row0, u0, rows, v,
+                                        n0, n, d0);
+      }
+    } else if (vec_out) {
       store_tile<T, kDx, kBN, vec_elems<T>()>(zs, out, gate, row0, rows, v,
                                               n0, n, d0);
     } else {
@@ -1114,13 +1285,14 @@ bool aligned16(const void* p) {
 
 // One launch of the template: r frames of v joints, kdim input channels,
 // n output channels; as many persistent blocks as the SMs hold (at most
-// one per tile).
-template <typename T, bool kDx, int kBN>
+// one per tile).  A tile is kRows / v whole frames, or (kWide) kRows
+// joints of one frame, ceil(v / kRows) tiles a frame.
+template <typename T, bool kDx, int kBN, bool kWide>
 int launch_tile(const void* x, const void* gate, const void* w,
                 const void* bias, void* out, int r, int v, int kdim, int n,
                 int d0, void* stream) {
-  auto kernel = shift_gcn_mma_kernel<T, kDx, kBN>;
-  const int smem = Layout<T, kDx, kBN>::bytes(v);
+  auto kernel = shift_gcn_mma_kernel<T, kDx, kBN, kWide>;
+  const int smem = Layout<T, kDx, kBN, kWide>::bytes(v);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1129,10 +1301,11 @@ int launch_tile(const void* x, const void* gate, const void* w,
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int frames = kRows / v;
+  const int frames = kWide ? (v + kRows - 1) / kRows : kRows / v;
   const int col_tiles = (n + kBN - 1) / kBN;
-  const int64_t tiles =
-      static_cast<int64_t>((r + frames - 1) / frames) * col_tiles;
+  const int64_t row_tiles = kWide ? static_cast<int64_t>(r) * frames
+                                  : (r + frames - 1) / frames;
+  const int64_t tiles = row_tiles * col_tiles;
   if (tiles > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   int per_sm = 1;
   err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
@@ -1153,23 +1326,33 @@ int launch_tile(const void* x, const void* gate, const void* w,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, bool kDx, bool kWide>
+int launch_width(const void* x, const void* gate, const void* w,
+                 const void* bias, void* out, int r, int v, int kdim, int n,
+                 int d0, void* stream) {
+  return n > 64 ? launch_tile<T, kDx, 128, kWide>(x, gate, w, bias, out, r,
+                                                  v, kdim, n, d0, stream)
+                : launch_tile<T, kDx, 64, kWide>(x, gate, w, bias, out, r, v,
+                                                 kdim, n, d0, stream);
+}
+
+// whole-frame tiles up to V = kRows, wide tiles past it
 template <typename T, bool kDx>
 int launch(const void* x, const void* gate, const void* w, const void* bias,
            void* out, int r, int v, int kdim, int n, int d0, void* stream) {
-  if (v < 1 || v > kRows || d0 < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (v < 1 || d0 < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (r == 0 || kdim == 0 || n == 0) return 0;
-  return n > 64 ? launch_tile<T, kDx, 128>(x, gate, w, bias, out, r, v, kdim,
-                                           n, d0, stream)
-                : launch_tile<T, kDx, 64>(x, gate, w, bias, out, r, v, kdim, n,
-                                          d0, stream);
+  return v > kRows ? launch_width<T, kDx, true>(x, gate, w, bias, out, r, v,
+                                                kdim, n, d0, stream)
+                   : launch_width<T, kDx, false>(x, gate, w, bias, out, r, v,
+                                                 kdim, n, d0, stream);
 }
 
 // The shape of one K6 launch, but for the stage count and the 16-byte
 // paths; false if the arguments are out of range.
 bool wg_geom(int r, int v, int c, int d, int d0, int parts, int chunk,
              WgradGeom& s) {
-  if (v < 1 || v > kRows || c < 1 || d < 1 || d0 < 0 || r < 0 ||
+  if (v < 1 || c < 1 || d < 1 || d0 < 0 || r < 0 ||
       parts < 1 || chunk < 1 || static_cast<int64_t>(parts) * chunk < r)
     return false;
   s.r = r;

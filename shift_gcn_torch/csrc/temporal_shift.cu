@@ -651,7 +651,12 @@ tshift_position_final_kernel(const float* __restrict__ partial,
 // The frames a tile stages: `want`, or fewer where they do not fit beside
 // the zero frame in a block's shared memory while `blocks` blocks share an
 // SM (the current device's limits); taps outside the window are read from
-// device memory.  Sets *w and the window's bytes, zero frame included.
+// device memory.  Where V is so large that not one frame fits beside the
+// zero frame, the tile stages none (every tap in range from device
+// memory), and where the zero frame alone does not fit while `blocks`
+// share an SM, fewer share it; with one block a frame of V * CS elements
+// must fit (V <= 1807 at a 128-byte slab row on an H100).  Sets *w and
+// the window's bytes, zero frame included.
 template <typename T, int VEC>
 cudaError_t window_frames(int v, int want, int blocks, int* w,
                           size_t* bytes) {
@@ -672,10 +677,12 @@ cudaError_t window_frames(int v, int want, int blocks, int* w,
   if (err != cudaSuccess) return err;
   const int64_t frame =
       static_cast<int64_t>(v) * Tile<T, VEC>::CS * sizeof(T) + kPadBytes;
-  const int64_t room = per_sm / blocks - reserved;
-  const int64_t fit =
-      ((room < optin ? room : optin) - kStaticBytes) / frame - 1;
-  if (fit < 1) return cudaErrorInvalidValue;
+  int64_t fit = -1;
+  for (; blocks >= 1 && fit < 0; --blocks) {
+    const int64_t room = per_sm / blocks - reserved;
+    fit = ((room < optin ? room : optin) - kStaticBytes) / frame - 1;
+  }
+  if (fit < 0) return cudaErrorInvalidValue;
   *w = static_cast<int>(fit < want ? fit : want);
   *bytes = static_cast<size_t>((*w + 1) * frame);
   return cudaSuccess;

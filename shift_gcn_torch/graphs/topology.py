@@ -215,3 +215,12 @@ def get_graph(name: str) -> SkeletonGraph:
             f"unknown skeleton graph {name!r}; known: {sorted(_REGISTRY)}")
     return _REGISTRY[key]
 
+
+def register_graph(graph: SkeletonGraph) -> None:
+    """Register a custom topology under ``graph.name``, replacing any
+    topology of that name: ``get_graph`` and every consumer of a graph
+    name (the model configs, the Trainer, four-stream's bone streams,
+    the modality CLI, the pipeline, the tools) resolve it afterwards (the
+    reference package's plug-in point, which replaces the reference's
+    import-by-dotted-path at main.py:558-563)."""
+    _REGISTRY[graph.name] = graph

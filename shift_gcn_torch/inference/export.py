@@ -40,6 +40,7 @@ import torch
 from torch import nn
 from torch.utils import _pytree as pytree
 
+from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.shift_gcn import (
     Model, ModelConfig, check_shift_range)
 from shift_gcn_torch.ops.lowering import Lowering
@@ -260,7 +261,8 @@ def main(argv=None):
     parser.add_argument("--no-baked", dest="baked", action="store_false",
                         help="(default) weights-as-inputs artifact")
     parser.add_argument("--num-class", type=int, default=2)
-    parser.add_argument("--num-point", type=int, default=33)
+    parser.add_argument("--num-point", type=int, default=None,
+                        help="joints (default: the graph's joint count)")
     parser.add_argument("--num-person", type=int, default=1)
     parser.add_argument("--graph", default="mediapipe_pose")
     parser.add_argument("--max-shift", type=int, default=DEFAULT_MAX_SHIFT,
@@ -270,7 +272,8 @@ def main(argv=None):
                         "cuda)")
     args = parser.parse_args(argv)
     config = ModelConfig(
-        num_class=args.num_class, num_point=args.num_point,
+        num_class=args.num_class,
+        num_point=args.num_point or get_graph(args.graph).num_nodes,
         num_person=args.num_person, graph=args.graph,
         lowering=Lowering(max_shift=args.max_shift))
     out = export_checkpoint(

@@ -133,8 +133,10 @@ class EnsemblePredictor:
         device="cuda",
     ):
         self.device = resolve_device(device)
+        # a registered topology's joint count (33 for MediaPipe Pose)
         self.config = model_config or ModelConfig(
-            num_class=2, num_point=33, num_person=1, graph=graph)
+            num_class=2, num_point=get_graph(graph).num_nodes, num_person=1,
+            graph=graph)
         self.graph = get_graph(self.config.graph)
         self.alpha = dict(zip(MODALITY_ORDER, alpha))
         self._models: Dict[str, Model] = {}

@@ -317,8 +317,8 @@ def main(argv=None):
         parser.error("pass exactly one of --landmarks / --video")
     model_args = yaml.safe_load(args.model_args) or {}
     model_args.setdefault("num_class", 2)
-    model_args.setdefault("num_point", 33)
     model_args.setdefault("num_person", 1)
+    # num_point defaults to the graph's joint count (33 for MediaPipe Pose)
     model_args.setdefault("graph", "mediapipe_pose")
     cfg = config_from_reference_args(model_args)
     ckpts, fourstream = resolve_checkpoint_args(parser, args)

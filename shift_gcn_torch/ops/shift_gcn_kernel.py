@@ -31,7 +31,10 @@ run their plain PyTorch versions
 (``ops.spatial_shift``) on a CPU tensor and the hand-written kernels
 (``csrc/shift_gcn.cu``) on a CUDA tensor, or raise; called in grad mode
 on an input that requires grad, each raises.  Math is fp32; activations
-follow x.dtype (fp32 or bf16); K6's outputs are fp32.
+follow x.dtype (fp32 or bf16); K6's outputs are fp32.  Any joint count
+V: K4 and K5 tile whole frames up to V = 144 and 144 joints of a frame
+past it, K6 groups the joints; none needs more shared memory as V grows.
+The one limit is 32-bit indexing, R * V * max(C, D) < 2**31.
 
 Every entry point takes ``d0``, the global index of the first output
 channel, default 0: under tensor parallelism (``parallel/tensor.py``) w
@@ -67,9 +70,6 @@ def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
                 or t.device != x.device or not t.is_contiguous()):
             raise ValueError(f"{name}: {pname} must be a contiguous fp32 "
                              f"{shape} tensor on {x.device}")
-    if x.shape[1] > 144:
-        raise ValueError(f"{name}: V={x.shape[1]} exceeds the kernel's "
-                         "144-row frame tile")
 
 
 def _check_offset(name: str, d0: int) -> None:

@@ -176,8 +176,20 @@ def constraint_step(gy_raw: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+# The kernels stage at least a zero frame, V rows of a slab of 128 bytes
+# (32 fp32 or 64 bf16 channels) and a 32-byte pad, beside 1 KiB of static
+# shared memory, in one block's 227 KiB (an H100's opt-in limit): V up to
+# (232448 - 1024 - 32) // 128.  Below it they stage as many frames as fit
+# and read the other taps from device memory.
+MAX_JOINTS = (232448 - 1024 - 32) // 128
+
+
 def _check_cuda(name: str, x: torch.Tensor, ypos: torch.Tensor) -> None:
     kernels.check_activation(name, x, "(N, T, V, C)")
+    if x.shape[2] > MAX_JOINTS:
+        raise ValueError(f"{name}: V={x.shape[2]} > {MAX_JOINTS}: a zero "
+                         "frame of V 128-byte rows does not fit in a "
+                         "block's shared memory")
     c = x.shape[-1]
     if (ypos.shape != (c,) or ypos.dtype != torch.float32
             or ypos.device != x.device or not ypos.is_contiguous()):

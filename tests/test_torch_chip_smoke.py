@@ -1,6 +1,7 @@
 """Control flow of chip_smoke.py's live-serving phases (11-13), its
-four-stream training phase (14), and its lowering-knob, NTU-60 and
-other-family phases (15-17), rehearsed on the CPU at a small size: the
+four-stream training phase (14), its lowering-knob, NTU-60 and
+other-family phases (15-17) and the Trainer of its custom-topology
+phase (22d), rehearsed on the CPU at a small size: the
 kernels' plain versions run in place of the kernels, so every check but
 the launch counts must pass, and the launch counts must fail (the plain
 versions launch nothing)."""
@@ -272,3 +273,35 @@ def test_rank_lines_parse_in_rank_order(rehearsal):
     assert rehearsal == []
     chip_smoke.parse_rank_lines(text, 3)  # rank 2 printed nothing
     assert rehearsal == ["rank lines from ranks [0, 1], expected 3"]
+
+
+def test_wide_graph_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
+                                           capsys, tmp_path):
+    """Phase 22d at T=16 on a registered 160-joint tree (22a's kind of
+    topology) through ``Trainer.start()`` with the default backbone, its
+    first batch made not to fit: only the launch counts fail."""
+    from shift_gcn_torch import graphs
+    from shift_gcn_torch.graphs import topology
+
+    monkeypatch.setattr(chip_smoke, "T_WINDOW", 16)
+    monkeypatch.setattr(chip_smoke, "WIDE_BATCHES", (2, 1))
+    monkeypatch.setattr(chip_smoke, "WIDE_STEPS", 1)
+    # the probe of batch 2 peaks past the card, then 1 GiB
+    peaks = [100.0]
+    monkeypatch.setattr(torch.cuda, "max_memory_allocated",
+                        lambda *a: (peaks.pop() if peaks else 1.0) * 2 ** 30)
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda *a: mock.Mock(total_memory=80 * 2 ** 30))
+    monkeypatch.setattr(topology, "_REGISTRY", dict(topology._REGISTRY))
+    graph = chip_smoke.tree_graph("rehearsal_tree", 160, 0)
+    graphs.register_graph(graph)
+    launches, batch, peak, step_ms = chip_smoke.wide_graph_trainer(
+        np.random.default_rng(0), torch.device("cpu"), str(tmp_path), graph,
+        "card")
+    assert (batch, peak, step_ms) == (1, 1.0, 1.0)
+    assert set(launches.values()) == {0}
+    assert len(training_rehearsal) == 1, training_rehearsal
+    assert "22d: launch counts" in training_rehearsal[0]
+    printed = capsys.readouterr().out
+    assert "22d: batch 2 does not fit (step peak 100.00 GiB" in printed
+    assert "graph 'rehearsal_tree' (V=160, registered)" in printed

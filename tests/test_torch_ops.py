@@ -851,7 +851,7 @@ def test_wgrad_matches_pallas(interpret, v, c, d):
                                    rtol=1e-5, err_msg=name)
 
 
-@pytest.mark.parametrize("v,d", [(25, 8), (33, 130), (144, 64)])
+@pytest.mark.parametrize("v,d", [(25, 8), (33, 130), (144, 64), (543, 64)])
 def test_dbias_needs_no_shear(v, d):
     # the shear permutes the joints within each frame, so the sum of the
     # sheared cotangent over (R, V) is the plain sum: K6 adds the values as
@@ -872,17 +872,59 @@ WGRAD_JOINTS_A_WARP = 3
 # (R, C, D) of one train step's launches, 64 clips (V=33)
 TRAIN_WGRAD_SHAPES = [(19200, 3, 64), (19200, 64, 64), (19200, 64, 128),
                       (9600, 128, 128), (9600, 128, 256), (4800, 256, 256)]
+# joint counts past K4's 144-row frame tile: K6 splits them into groups
+WIDE_JOINTS = (145, 256, 543)
 
 
+@pytest.mark.parametrize("v", (33,) + WIDE_JOINTS)
 @pytest.mark.parametrize("r,c,d", TRAIN_WGRAD_SHAPES)
-def test_wgrad_split_covers_r(r, c, d):
+def test_wgrad_split_covers_r(r, c, d, v):
     # every frame in exactly one chunk, chunks whole bf16 stages, one wave
-    # of at most 132 blocks on the card
-    parts, chunk = shift_gcn_kernel.wgrad_split(r, 33, c, d)
+    # of at most 132 blocks on the card, or one chunk where the tiles
+    # alone (joint groups x c tiles x d tiles) fill more than a wave
+    parts, chunk = shift_gcn_kernel.wgrad_split(r, v, c, d)
     assert chunk % 16 == 0
     assert (parts - 1) * chunk < r <= parts * chunk
-    blocks = parts * -(-c // 32) * -(-d // 32)
-    assert 64 < blocks <= shift_gcn_kernel.WGRAD_BLOCKS
+    tiles = (-(-v // shift_gcn_kernel.WGRAD_GROUP)
+             * -(-c // 32) * -(-d // 32))
+    blocks = parts * tiles
+    assert 64 < blocks
+    assert blocks <= shift_gcn_kernel.WGRAD_BLOCKS or (
+        parts == 1 and tiles > shift_gcn_kernel.WGRAD_BLOCKS // 2)
+
+
+def _wgrad_geometry(v):
+    """K6's joint groups (csrc/shift_gcn.cu: wg_geom): (groups, joints a
+    group, rows of the staged window)."""
+    groups = -(-v // shift_gcn_kernel.WGRAD_GROUP)
+    joints = -(-v // groups)
+    return groups, joints, min(v, joints + shift_gcn_kernel.WGRAD_TILE - 1)
+
+
+@pytest.mark.parametrize("v", WIDE_JOINTS)
+def test_wgrad_groups_stage_the_shear(v):
+    # each joint in one group; a stage of 8 fp32 (16 bf16) frames of the
+    # x and g windows, 32 elements a row and 8 after each frame, fits one
+    # block's 227 KiB whatever V; and the window's slot uu + k, staged
+    # from (u0 + c0) % V as it wraps, is the shear's joint
+    # (u0 + uu + c0 + k) % V
+    groups, joints, window = _wgrad_geometry(v)
+    assert (groups - 1) * joints < v <= groups * joints
+    assert joints <= shift_gcn_kernel.WGRAD_GROUP and window <= 64
+    for frames, itemsize in ((8, 4), (16, 2)):
+        assert 2 * frames * (window * 32 + 8) * itemsize <= 232448
+    rng = np.random.default_rng(v)
+    x = rng.standard_normal((3, v, 64))
+    k = np.arange(32)[None]
+    for jg in range(groups):
+        u0 = jg * joints
+        uu = np.arange(min(joints, v - u0))[:, None]
+        for c0 in (0, 32):
+            staged = x[:, (u0 + c0 + np.arange(window)) % v, c0:c0 + 32]
+            slot = uu + k % window
+            slot -= np.where(slot >= window, window, 0)
+            np.testing.assert_array_equal(
+                staged[:, slot, k], x[:, (u0 + uu + c0 + k) % v, c0 + k])
 
 
 def _rz32(v: np.ndarray) -> np.ndarray:
@@ -989,3 +1031,142 @@ def test_tensor_core_sum_needs_a_flush(kind):
     flushed = float(np.abs(_tensor_core_sum(a, b, True) - want).max())
     whole = float(np.abs(_tensor_core_sum(a, b, False) - want).max())
     assert flushed < 1e-6 * scale < 2e-5 * scale < whole, (flushed, whole)
+
+
+# K4 / K5 wide tiles (csrc/shift_gcn.cu, kWide: V > 144): a tile is 144
+# joints of one frame, a k-slice 32 channels
+TILE_ROWS, TILE_K = 144, 32
+
+
+def _wide_tile_emulated(x, gate, w, bias, d0, dx, cols, vec):
+    """K4 (dx=False: x (R, V, C), w (C, D), output channels from d0) or
+    K5 (dx=True: x the cotangent (R, V, D), w (C, D), dx (R, V, C)) through
+    the wide tiles' index arithmetic in float64: per (frame, tile of 144
+    joints, column tile of ``cols``) each k-slice stages the 175-row
+    window from joint (u0 + k0') % V as it wraps, row m and channel kk
+    read slot m + kk, K4 gates at the tile's joint u0 + m; the epilogue
+    walks each ``vec``-column chunk's q over min(V, rows + vec - 1) and
+    writes the element e whose source row q - e (mod V) lies in the tile.
+    Returns the output and the count of writes of each element."""
+    r, v, kdim = x.shape
+    wt = w.T if dx else w  # (kdim, n)
+    n = wt.shape[1]
+    out = np.zeros((r, v, n))
+    writes = np.zeros((r, v, n), np.int64)
+    rows_k = np.arange(TILE_ROWS)[:, None]
+    kk = np.arange(TILE_K)[None]
+    for f in range(r):
+        for u0 in range(0, v, TILE_ROWS):
+            rows = min(TILE_ROWS, v - u0)
+            for n0 in range(0, n, cols):
+                z = np.zeros((TILE_ROWS, cols))
+                for k0 in range(0, kdim, TILE_K):
+                    first = (u0 + (d0 % v if dx else 0) + k0) % v
+                    joints = (first + np.arange(TILE_ROWS + TILE_K - 1)) % v
+                    ch = k0 + np.arange(TILE_K)
+                    live = ch < kdim
+                    slab = np.where(live, x[f][joints][:, np.minimum(
+                        ch, kdim - 1)], 0.0)
+                    a = slab[rows_k + kk, kk]
+                    if not dx:
+                        joint = np.minimum(u0 + rows_k, v - 1)
+                        a = a * np.where(live & (u0 + rows_k < v), gate[
+                            joint, np.minimum(ch, kdim - 1)], 0.0)
+                    b = np.zeros((TILE_K, cols))
+                    nk = min(kdim - k0, TILE_K)
+                    nc = min(n - n0, cols)
+                    b[:nk, :nc] = wt[k0:k0 + nk, n0:n0 + nc]
+                    z += a @ b
+                if not dx:
+                    z[:, :min(n - n0, cols)] += bias[n0:n0 + cols]
+                for col in range(n0, min(n0 + cols, n), vec):
+                    j = col - n0
+                    w0 = (u0 + ((0 if dx else d0) + col) % v) % v
+                    q = np.arange(min(v, rows + vec - 1))
+                    for e in range(vec):
+                        m = q - e
+                        m = np.where(m < 0, m + v, m)
+                        keep = m < rows
+                        m = m[keep]
+                        val = z[m, j + e]
+                        if dx:
+                            val = val * gate[u0 + m, col + e]
+                        row = (w0 + q[keep]) % v
+                        out[f, row, col + e] = val
+                        writes[f, row, col + e] += 1
+    return out, writes
+
+
+# (V, C, D, d0, kernel, column tile, vector): K4 and K5 at the backbone's
+# widths past 144 joints, 128- and 64-column tiles, 16-byte stores of 4
+# (fp32) and 8 (bf16) elements, and the element stores of unit 1's C=3
+# and of an odd width
+WIDE_TILE_CASES = [
+    (145, 64, 128, 0, "K4", 128, 4), (256, 3, 64, 32, "K4", 64, 1),
+    (543, 130, 64, 40, "K4", 64, 8), (543, 64, 64, 0, "K4", 64, 4),
+    (145, 64, 128, 64, "K5", 64, 4), (256, 130, 64, 0, "K5", 128, 1),
+    (543, 3, 64, 0, "K5", 64, 1), (543, 128, 256, 256, "K5", 128, 8),
+]
+
+
+@pytest.mark.parametrize("v,c,d,d0,kernel,cols,vec", WIDE_TILE_CASES)
+def test_wide_tile_emulation_matches_plain(v, c, d, d0, kernel, cols, vec):
+    # the wide tiles' staging, fragment rows and epilogue give the plain
+    # versions' outputs, each output element written exactly once across
+    # the tiles of its frame
+    # against the definitions in float64 (csrc/shift_gcn.cu's header) at
+    # float64 roundoff, and against the plain versions at fp32 roundoff
+    rng = np.random.default_rng(v + c + d)
+    inputs = _shift_gcn_inputs(rng, 2, v, c, d)
+    x, gate, w, b, g = (a.astype(np.float64) for a in inputs)
+    u = np.arange(v)[:, None]
+    if kernel == "K4":
+        got, writes = _wide_tile_emulated(x, gate, w, b, d0, False, cols,
+                                          vec)
+        cc = np.arange(c)[None]
+        z = (x[:, (u + cc) % v, cc] * gate) @ w + b
+        dd = np.arange(d)[None]
+        want = z[:, (u - d0 - dd) % v, dd]
+        plain = spatial_shift.shift_gcn_transform(
+            *(torch.from_numpy(a) for a in inputs[:4]), d0)
+    else:
+        got, writes = _wide_tile_emulated(g, gate, w, None, d0, True, cols,
+                                          vec)
+        dd = np.arange(d)[None]
+        dz = g[:, (u + d0 + dd) % v, dd] @ w.T
+        cc = np.arange(c)[None]
+        want = dz[:, (u - cc) % v, cc] * gate[(u - cc) % v, cc]
+        plain = spatial_shift.shift_gcn_dx_reference(
+            *(torch.from_numpy(a) for a in (inputs[4], inputs[1],
+                                            inputs[2])), d0)
+    np.testing.assert_array_equal(writes, 1)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-12)
+    np.testing.assert_allclose(got, plain.numpy(), rtol=0,
+                               atol=FP32_TOL * np.abs(want).max())
+
+
+def _mma_shared_bytes(itemsize, dx, cols, wide, v=33):
+    """Dynamic shared memory of one K4 / K5 block (csrc/shift_gcn.cu:
+    Layout::bytes): the fragments or the z tile, whichever is larger,
+    then 2 stages of slab, W tile and K4's gate slice."""
+    lda = 36 if itemsize == 4 else 40
+    frag = 2 * (TILE_ROWS // 16 * 4 * 32 * 16) + cols // 8 * 4 * 32 * 16
+    region = max(frag, TILE_ROWS * (cols + 4) * 4)
+    slab = (TILE_ROWS + TILE_K - 1 if wide else TILE_ROWS) * lda * itemsize
+    w_tile = (cols * 36 if dx else TILE_K * (cols + 8)) * 4
+    gate = 0 if dx else (TILE_ROWS if wide else v) * 36 * 4
+    return region + 2 * (slab + w_tile + gate)
+
+
+@pytest.mark.parametrize("dx", [False, True])
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("cols", [64, 128])
+def test_wide_tile_shared_memory_fits_at_any_v(dx, itemsize, cols):
+    # a wide tile stages 175 slab rows and 144 gate rows whatever V, so it
+    # fits one block's 227 KiB at every V past 144; K4's fp32 128-column
+    # tile is the largest, 202,720 B (161,824 B at V=33 with whole frames)
+    wide = _mma_shared_bytes(itemsize, dx, cols, True)
+    assert wide <= 232448
+    if (itemsize, dx, cols) == (4, False, 128):
+        assert (wide, _mma_shared_bytes(4, False, 128, False)) == (
+            202720, 161824)
