@@ -48,8 +48,9 @@ Phases, in order; any failure exits non-zero:
    gap that 2^-22 noise on the plain K4's output makes;
 9. ``Trainer.start()`` on ``configs/mediapipe/train_joint.yaml`` unchanged
    in model and batch (bf16 activations, batch 64, T=300) for one epoch
-   of 8 steps on synthetic data, with eval and save, batches prefetched
-   one step ahead on the Trainer's worker thread; the launch counters
+   of 8 steps on synthetic data, with eval and save, batches built on
+   the train iterator's producer thread and staged one step ahead on the
+   Trainer's worker thread; the launch counters
    must equal the stated per-step counts x 8 plus the eval forwards, and
    the saved checkpoint must reproduce the best-score pickle; prints the
    feeder's share of the epoch;
@@ -238,7 +239,13 @@ Phases, in order; any failure exits non-zero:
    each kernel's time at V=543 over a step's launches at that batch,
    beside its bound, plain version and library call; (f) K4, K5 and K6
    at V = 25 and 33 bit-equal to the parent commit's build, through the
-   digests in V144_DIGESTS.
+   digests in V144_DIGESTS;
+23. phase 9's ``Trainer.start()`` again on the same clips with
+   ``use_mmap: false`` in both feeder arguments: the feeders hold the
+   clips in memory, the epoch's batches come through ``BatchIterator``'s
+   producer thread, the launches are phase 9's counts, and the 8 per-step
+   losses and the best scores are phase 9's bit for bit; prints both
+   runs' feeder shares.
 
 The last four lines are a JSON object with one entry per kernel (and,
 in each, its figures at V=543 from phase 22), a summary of the
@@ -1182,10 +1189,28 @@ def record_epochs(trainer):
     return epochs
 
 
+def epoch_launches(cfg):
+    """The launches of ``Trainer.start()`` for one epoch of ``cfg`` on
+    TRAIN_CLIPS + VAL_CLIPS clips, with eval: (per kernel, train steps,
+    eval forwards)."""
+    steps = TRAIN_CLIPS // cfg.batch_size
+    eval_forwards = -(-VAL_CLIPS // cfg.test_batch_size)
+    return ({k: PER_STEP[k] * steps + PER_EVAL_FORWARD.get(k, 0)
+             * eval_forwards for k in PER_STEP}, steps, eval_forwards)
+
+
+def read_split(paths: dict):
+    """The clips and labels of a split that ``write_split`` wrote."""
+    with open(paths["label_path"], "rb") as f:
+        _, labels = pickle.load(f)
+    return np.load(paths["data_path"]), np.asarray(labels)
+
+
 def run_trainer(rng, dev, workdir: str):
     """Phase 9: ``Trainer.start()`` on the MediaPipe joint config for one
-    epoch of synthetic data.  Returns the launch counts of the run and the
-    epoch's statistics (``Trainer.train_epoch``)."""
+    epoch of synthetic data.  Returns the launch counts of the run, the
+    epoch's statistics (``Trainer.train_epoch``) and what phase 23 runs
+    again: the two splits' (clips, labels) and the best scores."""
     from shift_gcn_torch import kernels
     from shift_gcn_torch.data.feeder import BatchIterator, Feeder
     from shift_gcn_torch.models.shift_gcn import Model
@@ -1196,8 +1221,7 @@ def run_trainer(rng, dev, workdir: str):
     cfg, feeder_args = training_config(TRAIN_CONFIG, rng, workdir)
     trainer = Trainer(cfg)
     epochs = record_epochs(trainer)
-    steps = TRAIN_CLIPS // cfg.batch_size
-    eval_forwards = -(-VAL_CLIPS // cfg.test_batch_size)
+    expect, steps, eval_forwards = epoch_launches(cfg)
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -1206,8 +1230,6 @@ def run_trainer(rng, dev, workdir: str):
     wall = time.perf_counter() - t0
     launches = dict(kernels.LAUNCHES)
 
-    expect = {k: PER_STEP[k] * steps + PER_EVAL_FORWARD.get(k, 0)
-              * eval_forwards for k in PER_STEP}
     if launches != expect:
         fail(f"trainer launch counts {launches} != expected {expect}")
     losses = epochs[0]["losses"]
@@ -1249,9 +1271,72 @@ def run_trainer(rng, dev, workdir: str):
           f"step {meta['global_step']}) reproduces best_acc.pkl to {gap:.3g}; "
           f"launches {launches} = per step {PER_STEP} x {steps} + per eval "
           f"forward {PER_EVAL_FORWARD} x {eval_forwards}")
+    replay = {"splits": {split: read_split(paths)
+                         for split, paths in feeder_args.items()},
+              "scores": best_scores}
     del trainer, model
     torch.cuda.empty_cache()
-    return launches, epochs[0]
+    return launches, epochs[0], replay
+
+
+def run_in_memory(replay, first, dev, workdir: str, card: str):
+    """Phase 23: phase 9's ``Trainer.start()`` again, on its clips
+    (``replay``, from ``run_trainer``) written anew under ``workdir``,
+    with ``use_mmap: false`` in both feeder arguments (``first``: phase
+    9's epoch statistics).  The feeders must hold the clips in memory,
+    the launches must be phase 9's counts, and the per-step losses and
+    the best scores phase 9's bit for bit: the same seeded init, the same
+    batches from the iterator's producer thread, and a bf16 step repeats
+    its bits on the card (phase 21).  Returns the epoch's statistics."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.train.trainer import Trainer
+
+    feeder_args = {split: dict(write_split(workdir, split, *arrays),
+                               use_mmap=False)
+                   for split, arrays in replay["splits"].items()}
+    cfg = one_epoch_config(TRAIN_CONFIG, workdir, feeder_args)
+    trainer = Trainer(cfg)
+    mapped = [k for k, f in trainer.feeders.items()
+              if isinstance(f.data, np.memmap)]
+    if mapped:
+        fail(f"23: the {mapped} feeders memory-map their clips under "
+             "use_mmap: false")
+    epochs = record_epochs(trainer)
+    expect, steps, eval_forwards = epoch_launches(cfg)
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    best = trainer.start()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    if launches != expect:
+        fail(f"23: trainer launch counts {launches} != expected {expect}")
+    losses, want = epochs[0]["losses"], first["losses"]
+    if len(losses) != steps or losses != want:
+        fail(f"23: losses {losses} with the clips in memory != phase 9's "
+             f"{want}")
+    with open(os.path.join(trainer.work_dir, "eval_results",
+                           "best_acc.pkl"), "rb") as f:
+        scores = pickle.load(f)
+    if scores.keys() != replay["scores"].keys() or any(
+            not np.array_equal(v, replay["scores"][k])
+            for k, v in scores.items()):
+        fail("23: the best scores with the clips in memory are not phase "
+             "9's")
+    print(f"[memory] 23: Trainer.start() on {TRAIN_CONFIG} (bf16, batch "
+          f"{cfg.batch_size}, T={T_WINDOW}) on phase 9's clips with "
+          f"use_mmap: false: {steps} steps + {eval_forwards} eval batches "
+          f"in {wall:.1f} s, best acc {best:.4f}, the {steps} losses and "
+          f"the {len(scores)} best scores bit-equal to phase 9's; "
+          f"launches {launches}; epoch "
+          f"{epochs[0]['clips_per_sec']:.1f} clips/s with the feeder "
+          f"{100 * epochs[0]['dataloader_share']:.2f}% of it, phase 9 "
+          f"(memory-mapped) {first['clips_per_sec']:.1f} clips/s and "
+          f"{100 * first['dataloader_share']:.2f}% | {card}")
+    del trainer
+    torch.cuda.empty_cache()
+    return epochs[0]
 
 
 def time_backward_kernels(config, gen, rng, dev, card: str):
@@ -5204,7 +5289,7 @@ def main() -> None:
     train_errs = check_backward_kernels(config, gen, rng, dev)
     grad_gap, gy_ratio = check_train_step(config, rng, dev, args.seed)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        train_launches, epoch = run_trainer(rng, dev, workdir)
+        train_launches, epoch, replay = run_trainer(rng, dev, workdir)
     train_totals, train_bf16 = time_backward_kernels(config, gen, rng, dev,
                                                      card)
     steps, busy = time_train_step(config, rng, dev, card, args.seed)
@@ -5252,6 +5337,11 @@ def main() -> None:
     # 22. custom topologies and any joint count ----------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         wide = run_wide(rng, gen, dev, workdir, card, args.seed)
+
+    # 23. phase 9's epoch with the clips in memory -------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        run_in_memory(replay, epoch, dev, workdir, card)
+    del replay
 
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in

@@ -1,5 +1,6 @@
-"""Host-side numpy augmentations of the feeder (a copy of the reference
-package's ``data/augmentations.py``, the functions the feeder uses).
+"""Host-side numpy augmentations (a copy of the reference package's
+``data/augmentations.py``): the feeder's, and the reference feeder's
+other tools (``downsample``, ``temporal_slice``, ``openpose_match``).
 
 The reference feeder augmentations (feeders/tools.py) with an explicit
 ``numpy.random.Generator`` instead of global ``random``/``np.random``
@@ -38,14 +39,18 @@ def auto_pad(data: np.ndarray, size: int, *,
 
 
 def random_choose(data: np.ndarray, size: int,
-                  rng: np.random.Generator) -> np.ndarray:
-    """Random temporal crop to `size`, or a random-offset pad when shorter
+                  rng: np.random.Generator,
+                  auto_pad_short: bool = True) -> np.ndarray:
+    """Random temporal crop to `size`; a shorter clip gets a random-offset
+    pad, or is returned as it is without ``auto_pad_short``
     (reference: feeders/tools.py:43-55)."""
     c, t, v, m = data.shape
     if t == size:
         return data
     if t < size:
-        return auto_pad(data, size, random_pad=True, rng=rng)
+        if auto_pad_short:
+            return auto_pad(data, size, random_pad=True, rng=rng)
+        return data
     begin = int(rng.integers(0, t - size + 1))
     return data[:, begin:begin + size]
 
@@ -109,3 +114,56 @@ def random_move(
     new_xy[1] += t_y[:, None, None]
     data[0:2] = new_xy
     return data
+
+
+def downsample(data: np.ndarray, step: int,
+               rng: Optional[np.random.Generator] = None) -> np.ndarray:
+    """Temporal stride subsample from a random start in [0, step) with
+    ``rng``, else from 0 (reference: feeders/tools.py:6-9)."""
+    begin = int(rng.integers(0, step)) if rng is not None else 0
+    return data[:, begin::step]
+
+
+def temporal_slice(data: np.ndarray, step: int) -> np.ndarray:
+    """Fold time into the person axis by `step`: (C, T, V, M) ->
+    (C, T / step, V, step * M); T must be a multiple of `step`
+    (reference: feeders/tools.py:12-16)."""
+    c, t, v, m = data.shape
+    return data.reshape(c, t // step, step, v, m).transpose(
+        0, 1, 3, 2, 4).reshape(c, t // step, v, step * m)
+
+
+def openpose_match(data: np.ndarray) -> np.ndarray:
+    """Greedy frame-to-frame person tracking by joint distance, then the
+    tracks sorted by confidence (reference: feeders/tools.py:120-161).
+
+    data: (3, T, V, M) with channel 2 the per-joint confidence score.
+    """
+    c, t, v, m = data.shape
+    assert c == 3
+    score = data[2].sum(axis=1)                       # (T, M)
+    rank = (-score[: t - 1]).argsort(axis=1)          # (T-1, M)
+
+    xy1 = data[0:2, 0:t - 1].reshape(2, t - 1, v, m, 1)
+    xy2 = data[0:2, 1:t].reshape(2, t - 1, v, 1, m)
+    distance = ((xy2 - xy1) ** 2).sum(axis=2).sum(axis=0)  # (T-1, M, M)
+
+    forward_map = np.zeros((t, m), dtype=int) - 1
+    forward_map[0] = range(m)
+    for body in range(m):
+        choose = rank == body
+        forward = distance[choose].argmin(axis=1)
+        for ti in range(t - 1):
+            distance[ti, :, forward[ti]] = np.inf
+        forward_map[1:][choose] = forward
+    assert np.all(forward_map >= 0)
+
+    for ti in range(t - 1):
+        forward_map[ti + 1] = forward_map[ti + 1][forward_map[ti]]
+
+    new_data = np.zeros_like(data)
+    for ti in range(t):
+        new_data[:, ti] = data[:, ti, :, forward_map[ti]].transpose(1, 2, 0)
+
+    trace_score = new_data[2].sum(axis=1).sum(axis=0)
+    return new_data[:, :, :, (-trace_score).argsort()]

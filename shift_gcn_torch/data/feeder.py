@@ -4,12 +4,16 @@ A numpy copy of the reference package's ``Feeder`` / ``BatchIterator``
 (its own replacement of the reference torch Dataset/DataLoader,
 feeders/feeder.py:11-95, main.py:231-251) for one process: the same
 epoch permutations and augmentation draws from the same seed, so both
-packages see the same batches.  Batches are built in the caller's
-thread; the Trainer runs the iterator one step ahead on its prefetch
-thread.  With ``native=True`` the feeder gathers unaugmented full clips
-through the native loader (``data/native_loader.py``), which raises
-when it cannot be built or cannot open the data: there is no numpy
-fallback, unlike the reference package's feeder.
+packages see the same batches.  The data file is memory-mapped, or read
+into memory with ``use_mmap=False``.  An epoch's batches are built on
+one producer thread, up to ``prefetch`` of them ahead of the consumer
+(the Trainer's transfer thread, which stages each on the device); an
+exception of the producer is raised in the consumer, where the reference
+package's iterator ends the epoch early instead.  With ``native=True``
+the feeder gathers unaugmented full clips through the native loader
+(``data/native_loader.py``, its own mmap; the producer thread is its one
+caller), which raises when it cannot be built or cannot open the data:
+there is no numpy fallback, unlike the reference package's feeder.
 
 ``pad_to_frames`` pads every clip's time axis with empty frames (zeros,
 or (0 - mean) / std under ``normalization``), e.g. T=300 to 304 for
@@ -30,6 +34,8 @@ split over its data ranks (``parallel/mesh.py``); with one node,
 from __future__ import annotations
 
 import pickle
+import queue
+import threading
 from typing import Iterator, Optional, Tuple
 
 import numpy as np
@@ -43,7 +49,8 @@ class Feeder:
     Reference feeder semantics (feeders/feeder.py:41-90): optional
     mean/std normalization, random_shift, random_choose / auto-pad to
     window_size, random_move; ``debug`` truncates to the first 100
-    samples.  The data file is memory-mapped.
+    samples.  The data file is memory-mapped unless ``use_mmap`` is
+    false, which reads it into memory.
     """
 
     def __init__(
@@ -57,6 +64,7 @@ class Feeder:
         window_size: int = -1,
         normalization: bool = False,
         debug: bool = False,
+        use_mmap: bool = True,
         native: bool = False,
         native_threads: int = 4,
         pad_to_frames: int = 0,
@@ -79,7 +87,7 @@ class Feeder:
                     f, encoding="latin1")
         self.label = list(self.label)
 
-        self.data = np.load(data_path, mmap_mode="r")
+        self.data = np.load(data_path, mmap_mode="r" if use_mmap else None)
         if debug:
             self.label = self.label[:100]
             self.data = self.data[:100]
@@ -158,12 +166,14 @@ class BatchIterator:
     augmentations from seed + 7919 * epoch + 104729 * host_id (the
     reference package's streams).  With drop_last=False the final short
     batch is zero-padded to the batch size and a validity mask is
-    emitted.
+    emitted.  ``prefetch`` is the depth of the queue between the epoch's
+    producer thread and its consumer (at least 1).
     """
 
     def __init__(self, feeder: Feeder, batch_size: int, *,
                  shuffle: bool = False, drop_last: bool = False,
-                 seed: int = 1, host_id: int = 0, num_hosts: int = 1):
+                 seed: int = 1, host_id: int = 0, num_hosts: int = 1,
+                 prefetch: int = 2):
         self.feeder = feeder
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -171,6 +181,7 @@ class BatchIterator:
         self.seed = seed
         self.host_id = host_id
         self.num_hosts = num_hosts
+        self.prefetch = prefetch
 
     def _host_quota(self) -> int:
         """Samples per host: floor in training, ceil in eval."""
@@ -226,10 +237,60 @@ class BatchIterator:
 
     def epoch(self, epoch: int) -> Iterator[
             Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]]:
-        """Yield (data, label, index, mask) batches."""
+        """Yield (data, label, index, mask) batches, built on a producer
+        thread.  The one producer draws the augmentations in batch order,
+        so the batches are those of a serial loop.  An exception of the
+        producer is raised here; closing the generator early stops the
+        producer."""
         order = self._epoch_indices(epoch)
+        nb = self.batches_per_epoch()
         rng = np.random.default_rng(
             self.seed + 7919 * epoch + 104729 * self.host_id)
-        for b in range(self.batches_per_epoch()):
-            idx = order[b * self.batch_size:(b + 1) * self.batch_size]
-            yield self._make_batch(idx, rng)
+        q: "queue.Queue" = queue.Queue(maxsize=max(1, self.prefetch))
+        stop = threading.Event()
+        done = object()
+
+        def produce():
+            # every put follows a look at ``stop``: once the consumer has
+            # set it and emptied the queue, at most one put is in flight,
+            # and it finds room
+            try:
+                for b in range(nb):
+                    idx = order[b * self.batch_size:(b + 1) * self.batch_size]
+                    item = self._make_batch(idx, rng)
+                    if stop.is_set():
+                        return
+                    q.put(item)
+                item = done
+            except BaseException as err:  # raised again by the consumer
+                item = _Raised(err)
+            if not stop.is_set():
+                q.put(item)
+
+        producer = threading.Thread(target=produce, daemon=True,
+                                    name="BatchIterator.epoch")
+        producer.start()
+        try:
+            while True:
+                item = q.get()
+                if item is done:
+                    break
+                if isinstance(item, _Raised):
+                    raise item.err
+                yield item
+        finally:
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            producer.join()
+
+
+class _Raised:
+    """An exception of an epoch's producer thread, on its way to the
+    consumer."""
+
+    def __init__(self, err: BaseException):
+        self.err = err

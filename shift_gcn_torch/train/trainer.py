@@ -41,12 +41,13 @@ per-stream and ensemble score pickles, one four-stream checkpoint.
 
 ``device`` defaults to CUDA, where the model runs the hand-written
 kernels; ``device="cpu"`` runs their plain versions and must be asked
-for.  A worker thread batches step b+1 and starts its host-to-device
-copy while step b runs (``BatchTransfer``).  With bf16 transfer
-(``transfer_dtype``, 'auto' under bf16 activations) each batch is
-rounded to bf16 on the host, moved, and cast back to fp32 on the device
-before ``data_bn`` (and before the four-stream derivation), as the
-reference package does.
+for.  The train iterator's producer thread builds the batches
+(``data/feeder.py``), and a worker thread takes step b+1's and starts
+its host-to-device copy while step b runs (``BatchTransfer``).  With
+bf16 transfer (``transfer_dtype``, 'auto' under bf16 activations) each
+batch is rounded to bf16 on the host, moved, and cast back to fp32 on
+the device before ``data_bn`` (and before the four-stream derivation),
+as the reference package does.
 
 Under a default process group (``cli/train.py`` initializes it under
 torchrun, SLURM or Open MPI) the run is data parallel over
@@ -90,7 +91,7 @@ import pickle
 import shutil
 import time
 from concurrent.futures import ThreadPoolExecutor
-from contextlib import ExitStack, contextmanager
+from contextlib import ExitStack, closing, contextmanager
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -565,17 +566,17 @@ class Trainer:
                                     mesh=self.mesh)
 
     def train_epoch(self, epoch: int) -> Dict[str, float]:
-        """One epoch; the prefetch thread batches step b+1 and starts its
-        copy while step b runs (reference package trainer.py:555-588).
-        The ``dataloader`` time is the wait for that thread's batch.  The
-        run's first epoch is traced through step ``profile_steps`` under
-        ``profile_dir``."""
+        """One epoch; the prefetch thread takes step b+1's batch from the
+        iterator's producer thread and starts its copy while step b runs
+        (reference package trainer.py:555-588).  The ``dataloader`` time
+        is the wait for that thread's batch.  The run's first epoch is
+        traced through step ``profile_steps`` under ``profile_dir``."""
         cfg = self.cfg
         self.logger.log(f"Training epoch: {epoch + 1}")
         lr = step_decay_lr(epoch, cfg.base_lr, cfg.step, cfg.warm_up_epoch)
         it = self.iterators["train"]
         nb = it.batches_per_epoch()
-        batches = iter(it.epoch(epoch))
+        batches = it.epoch(epoch)
 
         def fetch_next():
             for data, label, _, _ in batches:
@@ -590,7 +591,8 @@ class Trainer:
                     if cfg.profile_dir and epoch == self.start_epoch
                     else None)
         t0 = time.time()
-        with ThreadPoolExecutor(max_workers=1) as pool:
+        # closing: a step that raises stops the producer thread too
+        with closing(batches), ThreadPoolExecutor(max_workers=1) as pool:
             pending = pool.submit(fetch_next)
             b = 0
             while True:

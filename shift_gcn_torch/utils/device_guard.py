@@ -99,10 +99,11 @@ def reexec_count() -> int:
     return int(os.environ.get(_REEXEC_ENV, "0"))
 
 
-def reexec_with_resume(logger=None, device=None,
-                       wait_s: float = 5.0) -> None:
-    """Replace this process with ``python -m shift_gcn_torch.cli.train``
-    and this process's arguments, resuming from the NEWEST checkpoint.
+def reexec_with_resume(logger=None, extra_argv: Optional[list] = None,
+                       wait_s: float = 5.0, device=None) -> None:
+    """Replace this process with ``python -m shift_gcn_torch.cli.train``,
+    this process's arguments and ``extra_argv``, resuming from the NEWEST
+    checkpoint.
 
     An existing ``--resume <path>`` is rewritten to ``--resume auto`` (a
     fixed path would roll back to the same checkpoint every restart),
@@ -117,7 +118,8 @@ def reexec_with_resume(logger=None, device=None,
         raise DeviceUnhealthyError(
             f"device still unhealthy after {_MAX_REEXEC} fresh-process "
             "restarts; giving up")
-    argv = [sys.executable, "-m", TRAIN_MODULE] + sys.argv[1:]
+    argv = ([sys.executable, "-m", TRAIN_MODULE] + sys.argv[1:]
+            + list(extra_argv or []))
     for flag, value in (("--resume", "auto"), ("--overwrite", "false")):
         if flag in argv:
             argv[argv.index(flag) + 1] = value

@@ -1,7 +1,8 @@
 """Control flow of chip_smoke.py's live-serving phases (11-13), its
 four-stream training phase (14), its lowering-knob, NTU-60 and
-other-family phases (15-17) and the Trainer of its custom-topology
-phase (22d), rehearsed on the CPU at a small size: the
+other-family phases (15-17), the Trainer of its custom-topology
+phase (22d) and its Trainer epoch with the clips memory-mapped and in
+memory (phases 9 and 23), rehearsed on the CPU at a small size: the
 kernels' plain versions run in place of the kernels, so every check but
 the launch counts must pass, and the launch counts must fail (the plain
 versions launch nothing)."""
@@ -305,3 +306,48 @@ def test_wide_graph_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
     printed = capsys.readouterr().out
     assert "22d: batch 2 does not fit (step peak 100.00 GiB" in printed
     assert "graph 'rehearsal_tree' (V=160, registered)" in printed
+
+
+def test_in_memory_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
+                                          capsys, tmp_path):
+    """Phases 9 and 23 at T=16, 2 steps of 4 clips and 4 validation
+    clips: phase 23's losses bit-equal to phase 9's with the clips in
+    memory, a planted change of one loss caught; only the launch counts
+    fail otherwise."""
+    monkeypatch.setattr(chip_smoke, "T_WINDOW", 16)
+    monkeypatch.setattr(chip_smoke, "TRAIN_CLIPS", 8)
+    monkeypatch.setattr(chip_smoke, "VAL_CLIPS", 4)
+    config_at = chip_smoke.one_epoch_config
+    monkeypatch.setattr(
+        chip_smoke, "one_epoch_config",
+        lambda *args: config_at(*args, "--batch_size", "4",
+                                "--test_batch_size", "4"))
+    dev = torch.device("cpu")
+    launches, first, replay = chip_smoke.run_trainer(
+        np.random.default_rng(0), dev, str(tmp_path))
+    assert set(launches.values()) == {0} and len(first["losses"]) == 2
+    assert [a.shape for a, _ in replay["splits"].values()] == [
+        (8, 3, 16, 33, 1), (4, 3, 16, 33, 1)]
+    assert len(replay["scores"]) == 4
+    for run in ("same", "planted"):
+        (tmp_path / run).mkdir()
+        want, scores = dict(first), dict(replay["scores"])
+        if run == "planted":  # one loss and one score off by an ulp
+            want["losses"] = [float(np.nextafter(np.float32(
+                first["losses"][0]), np.float32(np.inf)))] + \
+                first["losses"][1:]
+            key = sorted(scores)[0]
+            scores[key] = np.nextafter(scores[key], np.float32(np.inf))
+        stats = chip_smoke.run_in_memory(dict(replay, scores=scores), want,
+                                         dev, str(tmp_path / run), "card")
+        assert stats["losses"] == first["losses"]
+    # phase 9's launch counts, phase 23's twice, the planted loss and score
+    assert len(training_rehearsal) == 5, training_rehearsal
+    assert "trainer launch counts" in training_rehearsal[0]
+    assert "23: trainer launch counts" in training_rehearsal[1]
+    assert "23: trainer launch counts" in training_rehearsal[2]
+    assert "23: losses" in training_rehearsal[3]
+    assert "23: the best scores" in training_rehearsal[4]
+    printed = capsys.readouterr().out
+    assert printed.count("the 2 losses and the 4 best scores bit-equal "
+                         "to phase 9's") == 2
