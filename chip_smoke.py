@@ -245,7 +245,23 @@ Phases, in order; any failure exits non-zero:
    clips in memory, the epoch's batches come through ``BatchIterator``'s
    producer thread, the launches are phase 9's counts, and the 8 per-step
    losses and the best scores are phase 9's bit for bit; prints both
-   runs' feeder shares.
+   runs' feeder shares;
+24. the shift-op demo and the accuracy runbook: (a)
+   ``scripts/torch_demo_shift_op.py``'s ``run_demo`` (ones(1, 8, 4, 5),
+   C=5 fp32) at strides 1 and 2 in this process: the output bit-equal to
+   the same function on the CPU (the plain versions), grad_ypos equal
+   element for element (its 1e-4 tie steps included), grad_xpos exactly
+   zero, grad_input within 1e-6 of scale, one K1 and one fused K2+K3
+   launch a stride; (b) ``scripts/torch_reproduce_accuracy.sh`` in
+   synthetic mode at production shape (64 + 64 clips of 3x300x33x1,
+   ``configs/mediapipe/train_*.yaml`` unchanged: full width, batch 64,
+   bf16; one epoch; data and work dirs in the phase's temporary
+   directory), its process group killed once the joint stream's final
+   ``.pt`` and the bone stream's log exist, then run again: the rerun
+   skips both data stages, the joint stream resumes past its end with
+   no epoch trained, four best-score pickles and the table, each
+   stream's log naming ``cuda``; prints the phase's and each run's
+   seconds.
 
 The last four lines are a JSON object with one entry per kernel (and,
 in each, its figures at V=543 from phase 22), a summary of the
@@ -5029,6 +5045,185 @@ def run_wide(rng, gen, dev, workdir: str, card: str, seed: int) -> dict:
             "grad_gap": grad_gap, "gy_ratio": gy_ratio}
 
 
+# ---------------------------------------------------------------------------
+# The shift-op demo and the accuracy runbook (phase 24)
+# ---------------------------------------------------------------------------
+
+DEMO_SCRIPT = "scripts/torch_demo_shift_op.py"
+RUNBOOK_SCRIPT = "scripts/torch_reproduce_accuracy.sh"
+# 24b's environment: configs/mediapipe/train_*.yaml unchanged (full
+# width, batch 64, bf16), one epoch of 64 clips and 64 validation clips
+RUNBOOK_ENV = {"EPOCHS": "1", "N_TRAIN": "64", "N_VAL": "64"}
+RUNBOOK_DEVICE = "cuda"   # the device each stream's log must name
+RUNBOOK_TIMEOUT = 600     # s, each of the two runs
+RUNBOOK_STREAMS = ("joint", "bone", "joint_motion", "bone_motion")
+
+
+def repo_path(rel: str) -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(__file__)), rel)
+
+
+def load_demo():
+    """scripts/torch_demo_shift_op.py as a module."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("torch_demo_shift_op",
+                                                  repo_path(DEMO_SCRIPT))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def run_shift_demo(dev, card: str) -> None:
+    """Phase 24a: the demo's forward and backward (ones(1, 8, 4, 5), C=5
+    fp32: 20-byte rows, K1's and the fused K2+K3's 1-element lanes) on
+    ``dev`` at strides 1 and 2, in this process, against the same
+    function on the CPU (the plain versions): the output bit-equal,
+    grad_ypos equal element for element (its 1e-4 tie steps included),
+    grad_xpos exactly zero, grad_input within fp32 roundoff; one K1 and
+    one fused K2+K3 launch a stride."""
+    from shift_gcn_torch import kernels
+
+    demo = load_demo()
+    expect = {name: int(name in ("temporal_shift", "temporal_shift_backward"))
+              for name in kernels.KERNELS}
+    for stride in (1, 2):
+        kernels.reset_launches()
+        got = demo.run_demo(stride, dev)
+        torch.cuda.synchronize()
+        launches = dict(kernels.LAUNCHES)
+        want = demo.run_demo(stride, "cpu")
+        got = {k: v.cpu() for k, v in got.items()}
+        if launches != expect:
+            fail(f"24a: demo launch counts at stride {stride} {launches} "
+                 f"!= expected {expect}")
+        if not torch.equal(got["out"], want["out"]):
+            fail(f"24a: demo output at stride {stride} is not bit-equal to "
+                 f"the plain version's: max|err| "
+                 f"{max_err(got['out'], want['out'])[0]:.3g}")
+        if not torch.equal(got["grad_ypos"], want["grad_ypos"]):
+            fail(f"24a: grad_ypos at stride {stride} "
+                 f"{got['grad_ypos'].tolist()} != the plain version's "
+                 f"{want['grad_ypos'].tolist()}")
+        if got["grad_xpos"].count_nonzero():
+            fail(f"24a: grad_xpos at stride {stride} "
+                 f"{got['grad_xpos'].tolist()} is not zero")
+        err, scale = max_err(got["grad_input"], want["grad_input"])
+        if not err <= 1e-6 * scale:
+            fail(f"24a: grad_input at stride {stride} max|err| {err:.3g} > "
+                 f"{1e-6 * scale:.3g}")
+        print(f"[demo] 24a: {DEMO_SCRIPT} at stride {stride} on {dev}: out "
+              f"{tuple(got['out'].shape)} bit-equal to the plain version, "
+              f"grad_ypos {[sig(v) for v in got['grad_ypos'].tolist()]} "
+              f"equal, grad_xpos "
+              f"zero, grad_input max|err| {err:.3g} (norm "
+              f"{float(torch.linalg.vector_norm(got['grad_input'])):.4f}); "
+              f"launches {launches} | {card}")
+
+
+def run_runbook(workdir: str, card: str) -> dict:
+    """Phase 24b: scripts/torch_reproduce_accuracy.sh in synthetic mode
+    (RUNBOOK_ENV) with its data and work dirs under ``workdir``; its
+    process group killed once the joint stream's final checkpoint exists
+    and the bone stream's log has appeared, then run again: the rerun
+    must skip both data stages, resume the joint stream past its end with
+    no epoch trained, write the four best-score pickles and print the
+    table, and every stream's log must name RUNBOOK_DEVICE.  Returns the
+    runs' seconds."""
+    import signal
+
+    work = os.path.join(workdir, "work")
+    env = dict(os.environ, DATA_DIR=os.path.join(workdir, "data"),
+               WORK_DIR=work, **RUNBOOK_ENV)
+    run_dir = {s: os.path.join(work, f"mediapipe_ShiftGCN_{s}")
+               for s in RUNBOOK_STREAMS}
+    joint_saves = os.path.join(work, "save_models",
+                               "mediapipe_ShiftGCN_joint")
+    last = int(RUNBOOK_ENV["EPOCHS"]) - 1
+    final = f"mediapipe_ShiftGCN_joint-{last}-"
+
+    def joint_final() -> bool:
+        return os.path.isdir(joint_saves) and any(
+            n.startswith(final) and n.endswith(".pt")
+            for n in os.listdir(joint_saves))
+
+    cmd = ["bash", repo_path(RUNBOOK_SCRIPT)]
+    t0 = time.perf_counter()
+    first_log = os.path.join(workdir, "runbook_first.txt")
+    with open(first_log, "w") as out:
+        proc = subprocess.Popen(cmd, env=env, stdout=out,
+                                stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            while not (joint_final() and os.path.exists(
+                    os.path.join(run_dir["bone"], "log.txt"))):
+                if proc.poll() is not None:
+                    with open(first_log) as f:
+                        fail(f"24b: the runbook exited ({proc.returncode}) "
+                             f"before the kill point:\n{f.read()[-3000:]}")
+                    return {}
+                if time.perf_counter() - t0 > RUNBOOK_TIMEOUT:
+                    fail("24b: the joint stream's final checkpoint and the "
+                         f"bone stream's log did not appear in "
+                         f"{RUNBOOK_TIMEOUT} s")
+                    return {}
+                time.sleep(0.2)
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+            proc.wait()
+    first_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    rerun = subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
+                             stderr=subprocess.STDOUT, text=True,
+                             start_new_session=True)
+    try:
+        printed, _ = rerun.communicate(timeout=RUNBOOK_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        os.killpg(rerun.pid, signal.SIGKILL)
+        printed, _ = rerun.communicate()
+    second_s = time.perf_counter() - t1
+    with open(os.path.join(workdir, "runbook_rerun.txt"), "w") as f:
+        f.write(printed)
+    if rerun.returncode != 0:
+        fail(f"24b: the rerun exited {rerun.returncode} after "
+             f"{second_s:.0f} s:\n{printed[-3000:]}")
+        return {}
+    for line in ("== stage 1: joint data already present, skipping gendata",
+                 "== stage 2: modality artifacts already present, skipping",
+                 "== metrics vs BASELINE.md =="):
+        if line not in printed:
+            fail(f"24b: the rerun did not print {line!r}")
+    logs = {}
+    for stream, path in run_dir.items():
+        with open(os.path.join(path, "log.txt")) as f:
+            logs[stream] = f.read()
+        if f"Device: {RUNBOOK_DEVICE}" not in logs[stream]:
+            fail(f"24b: the {stream} stream's log does not show it trained "
+                 f"on {RUNBOOK_DEVICE}")
+        if not os.path.exists(os.path.join(path, "eval_results",
+                                           "best_acc.pkl")):
+            fail(f"24b: no best-score pickle for the {stream} stream")
+    resumed = logs["joint"].split("Auto-resume found checkpoint")
+    if (len(resumed) != 2 or f"Resumed: epoch={last + 1}" not in resumed[1]
+            or "Training epoch:" in resumed[1]):
+        fail("24b: the joint stream's rerun did not resume past its end "
+             "without training")
+    table = printed[printed.index("== metrics vs BASELINE.md"):]
+    top1 = table.splitlines()[2].split()
+    print(f"[runbook] 24b: {RUNBOOK_SCRIPT} synthetic, "
+          f"{RUNBOOK_ENV['N_TRAIN']} + {RUNBOOK_ENV['N_VAL']} clips of "
+          f"3x300x33x1, {RUNBOOK_ENV['EPOCHS']} epoch, "
+          f"configs/mediapipe/train_*.yaml unchanged: killed after the "
+          f"joint stream in {first_s:.1f} s, the rerun skipped both data "
+          f"stages, resumed the joint stream past its end (no epoch "
+          f"trained) and trained three streams on {RUNBOOK_DEVICE} in "
+          f"{second_s:.1f} s; four best pickles, table printed ("
+          f"{' '.join(top1[:3])}) | {card}")
+    return {"first_s": first_s, "rerun_s": second_s}
+
+
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
              "tp22": rank_tp22, "edge": rank_edge, "ring": rank_ring}
 
@@ -5342,6 +5537,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
         run_in_memory(replay, epoch, dev, workdir, card)
     del replay
+
+    # 24. the shift-op demo and the accuracy runbook -----------------------
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_shift_demo(dev, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        runbook = run_runbook(workdir, card)
+    print(f"[runbook] phase 24 in {time.perf_counter() - t0:.1f} s: the "
+          f"killed run {runbook['first_s']:.1f} s, the rerun "
+          f"{runbook['rerun_s']:.1f} s")
 
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in

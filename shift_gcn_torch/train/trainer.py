@@ -258,6 +258,7 @@ class Trainer:
         self.logger = RunLogger(self.work_dir,
                                 to_file=cfg.print_log and self.rank0,
                                 echo=self.rank0)
+        self.logger.log(f"Device: {self.device}")
         os.makedirs(os.path.join(self.work_dir, "eval_results"),
                     exist_ok=True)
         self.family = get_model(cfg.model)

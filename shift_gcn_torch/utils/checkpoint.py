@@ -35,6 +35,7 @@ from __future__ import annotations
 import os
 import pickle
 import re
+import secrets
 from typing import Any, Dict, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
@@ -168,11 +169,29 @@ def write_checkpoint(save_dir: str, experiment: str, epoch: int,
                      global_step: int, best_acc: float,
                      blob: Dict[str, Any]) -> str:
     """``torch.save`` of ``blob`` with epoch, global_step and best_acc
-    beside its entries; returns the path."""
+    beside its entries; returns the path.
+
+    The file is written whole or not at all: ``torch.save`` writes a
+    temporary file in ``save_dir`` (``.<name>.<random>.tmp``, which
+    ``latest_checkpoint`` never matches), flushed and fsynced, and
+    ``os.replace`` renames it onto the final name.  A process killed
+    during a save leaves at most that temporary file, so ``resume:
+    auto`` finds the previous checkpoint, as the reference package's
+    Orbax saves (a temporary directory renamed on commit) do."""
     os.makedirs(save_dir, exist_ok=True)
     path = checkpoint_path(save_dir, experiment, epoch, global_step)
-    torch.save(dict(blob, epoch=epoch, global_step=global_step,
-                    best_acc=best_acc), path)
+    tmp = os.path.join(save_dir, f".{os.path.basename(path)}."
+                                 f"{secrets.token_hex(4)}.tmp")
+    try:
+        with open(tmp, "xb") as f:
+            torch.save(dict(blob, epoch=epoch, global_step=global_step,
+                            best_acc=best_acc), f)
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    except BaseException:
+        os.unlink(tmp)
+        raise
     return path
 
 

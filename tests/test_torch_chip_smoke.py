@@ -2,10 +2,10 @@
 four-stream training phase (14), its lowering-knob, NTU-60 and
 other-family phases (15-17), the Trainer of its custom-topology
 phase (22d) and its Trainer epoch with the clips memory-mapped and in
-memory (phases 9 and 23), rehearsed on the CPU at a small size: the
-kernels' plain versions run in place of the kernels, so every check but
-the launch counts must pass, and the launch counts must fail (the plain
-versions launch nothing)."""
+memory (phases 9 and 23) and its shift-op demo (phase 24a), rehearsed
+on the CPU at a small size: the kernels' plain versions run in place of
+the kernels, so every check but the launch counts must pass, and the
+launch counts must fail (the plain versions launch nothing)."""
 
 import subprocess
 import sys
@@ -351,3 +351,19 @@ def test_in_memory_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
     printed = capsys.readouterr().out
     assert printed.count("the 2 losses and the 4 best scores bit-equal "
                          "to phase 9's") == 2
+
+
+def test_shift_demo_phase_rehearses_on_cpu(rehearsal, capsys):
+    """Phase 24a on the CPU: the demo's run on ``dev`` and its plain run
+    are both the plain versions there, so every comparison passes and
+    only the launch counts (one K1 and one fused K2+K3 a stride) fail."""
+    chip_smoke.run_shift_demo(torch.device("cpu"), "card")
+    assert len(rehearsal) == 2, rehearsal
+    for msg, stride in zip(rehearsal, (1, 2)):
+        assert f"24a: demo launch counts at stride {stride}" in msg
+        assert "'temporal_shift': 1, 'temporal_shift_backward': 1" in msg
+    printed = capsys.readouterr().out
+    assert ("grad_ypos [0.0001, 0.01, -0.01, -0.01, -0.01] equal, "
+            "grad_xpos zero, grad_input max|err| 0") in printed
+    assert ("grad_ypos [0.01, 0.0001, 0.0001, -0.01, -0.01] equal, "
+            "grad_xpos zero, grad_input max|err| 0") in printed
