@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--k6-parent SHIFT_GCN_CU]
 
 Phases, in order; any failure exits non-zero:
 
@@ -9,7 +9,8 @@ Phases, in order; any failure exits non-zero:
    source, in parallel) and prints the seconds it took, and, where the
    toolkit has ``cuobjdump``, the tensor-core (HMMA) instructions and the
    registers of each K4/K5/K6 function of the built library (K4 and K5
-   with whole-frame and wide tiles);
+   with whole-frame and wide tiles, K6 for one joint group and for
+   joint groups);
 3. temporal shift kernel (K1) bit-equal to its plain PyTorch version
    (max|err| 0), fp32 and bf16, at every (T, C, stride) one forward of
    the serving model launches it with (64 windows, V=33), at shifts
@@ -229,17 +230,21 @@ Phases, in order; any failure exits non-zero:
    fused K2+K3 within phase 7's gates at shifts far outside any staged
    window, K4 and K5 within phase 4's gates and K6 within phase 7's at
    d0 = 0 and d0 = D, K6 bit-equal across two launches, with phases 3
-   and 7's odd and unaligned cases; (c) one fp32 train step at V=543 (4
-   clips) on the kernel path against the plain backward, as phase 8; (d)
+   and 7's odd and unaligned cases, and K6's shared memory as the
+   library reckons it equal to ``wgrad_layout``'s; (c) one fp32 train
+   step at V=543 (4 clips) on the kernel path against the plain
+   backward, as phase 8; (d)
    ``Trainer.start()`` on ``configs/mediapipe/train_joint.yaml`` with
    its graph replaced by the registered 543-joint one, the default
    backbone, bf16, at the largest batch of WIDE_BATCHES whose step fits,
    4 steps with eval and save, the launches the per-step counts x 4 plus
    an eval forward, the step's time and the peak memory printed; (e)
    each kernel's time at V=543 over a step's launches at that batch,
-   beside its bound, plain version and library call; (f) K4, K5 and K6
-   at V = 25 and 33 bit-equal to the parent commit's build, through the
-   digests in V144_DIGESTS;
+   beside its bound, plain version and library call, and K6 also on
+   bf16 inputs, with the bytes its blocks stage from L2 and, given
+   ``--k6-parent`` (an earlier commit's csrc/shift_gcn.cu), beside that
+   build's K6; (f) K4, K5 and K6 at V = 25 and 33 bit-equal to the
+   parent commit's build, through the digests in V144_DIGESTS;
 23. phase 9's ``Trainer.start()`` again on the same clips with
    ``use_mmap: false`` in both feeder arguments: the feeders hold the
    clips in memory, the epoch's batches come through ``BatchIterator``'s
@@ -543,7 +548,9 @@ def sass_report(path: str):
     def label(mangled):
         dtype = "bf16" if "bfloat16" in mangled else "fp32"
         if "wgrad_partial_kernel" in mangled:
-            return f"K6 {dtype}"
+            # the template's bool argument: kStrips (joint groups)
+            strips = " strips" if re.search(r"Lb1E", mangled) else ""
+            return f"K6 {dtype}{strips}"
         # the template's bool arguments: kDx (K5), then kWide
         flags = re.findall(r"Lb([01])E", mangled)
         kind = "K5" if flags[:1] == ["1"] else "K4"
@@ -4677,8 +4684,11 @@ def check_wide_kernels(v: int, gen, rng, dev) -> dict:
     within phase 7's, each at d0 = 0 and d0 = D (a rank's slice of a layer
     twice as wide), K6 bit-equal across two launches; and phases 3 and
     7's odd cases: C=130 with an odd T (1-element lanes), an input one
-    element into its storage (unaligned), and for K4-K6 C=130, D=70.
-    Returns the fp32 max |err| per kernel."""
+    element into its storage (unaligned), and for K4-K6 C=130, D=70.  K6's
+    shared memory at V as the library reckons it must be
+    ``wgrad_layout``'s, which the CPU tests hold to fit.  Returns the fp32
+    max |err| per kernel."""
+    from shift_gcn_torch import kernels
     from shift_gcn_torch.models.shift_gcn import ModelConfig
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
@@ -4703,6 +4713,12 @@ def check_wide_kernels(v: int, gen, rng, dev) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         name = f"V={v} {str(dtype)[6:]}"
         worst = {k: 0.0 for k in KERNEL_ROWS}
+        layout = sk.wgrad_layout(v, dtype.itemsize)
+        smem = kernels.library("shift_gcn").shift_gcn_wgrad_smem(
+            v, int(dtype == torch.bfloat16))
+        if smem != layout["smem"]:
+            fail(f"22b K6 {name}: the library's shared memory {smem} B != "
+                 f"wgrad_layout's {layout}")
         for (t, c, stride), kind in k1_cases:
             x = torch.randn(n, t, v, c, generator=gen, device=dev).to(dtype)
             g = torch.randn(n, t // stride, v, c, generator=gen,
@@ -4758,7 +4774,10 @@ def check_wide_kernels(v: int, gen, rng, dev) -> dict:
               f"{[c_ for c_, _ in k4_cases]} x d0 in (0, D), {n} clips: "
               "max|err| " + ", ".join(f"{k} {e:.3g}" for k, e in
                                       worst.items())
-              + "; K6 bit-equal across two launches")
+              + f"; K6 bit-equal across two launches, {layout['groups']} "
+              f"joint groups of {layout['joints']}, {layout['rows']} rows "
+              f"of {layout['width']} channels a staged frame, "
+              f"{layout['smem']} B of shared memory")
         if dtype == torch.float32:
             errs = worst
     return errs
@@ -4875,10 +4894,54 @@ def wide_graph_trainer(rng, dev, workdir: str, graph, card: str):
     return launches, batch_size, run_peak, step_ms
 
 
-def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str) -> dict:
+def build_parent(source: str):
+    """The library of another build of csrc/shift_gcn.cu (an earlier
+    commit's, with this checkout's C interface), compiled with the same
+    flags into the build directory."""
+    import ctypes
+
+    from shift_gcn_torch import kernels
+
+    out = kernels.BUILD_DIR / "libshift_gcn_parent.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", str(out),
+                    source], check=True, timeout=600)
+    lib = ctypes.CDLL(str(out))
+    kernels._declare("shift_gcn", lib)
+    return lib
+
+
+def parent_wgrad(lib, x, g, gate, w):
+    """K6 of the build ``lib`` with the split it was built for: about one
+    wave at every V (``wgrad_wave_split``)."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+
+    r, v, c = x.shape
+    d = w.shape[1]
+    parts, chunk = sk.wgrad_wave_split(r, v, c, d)
+    scratch = lib.shift_gcn_wgrad_scratch(r, v, c, d, 0, parts, chunk)
+    partial = torch.empty(scratch, dtype=torch.float32, device=x.device)
+    out = (torch.empty((v, c), device=x.device),
+           torch.empty((c, d), device=x.device),
+           torch.empty(d, device=x.device))
+    kernels.check(lib.shift_gcn_wgrad(
+        x.data_ptr(), g.data_ptr(), gate.data_ptr(), w.data_ptr(),
+        partial.data_ptr(), scratch, *(t.data_ptr() for t in out), r, v, c,
+        d, 0, parts, chunk, int(x.dtype == torch.bfloat16),
+        torch.cuda.current_stream().cuda_stream), "parent shift_gcn_wgrad")
+    return out
+
+
+def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str,
+                      parent=None) -> dict:
     """22e: each kernel at V=v over one train step's launches (the K1 and
     K4 of a forward, the backward kernels of a step) with n clips, fp32:
     kernel, plain version, bound and library call, as phases 6 and 10.
+    K6 also on bf16 inputs (bound at the bf16 rate), with the bytes its
+    blocks stage from L2 (``wgrad_staged_bytes``), and beside the build
+    ``parent`` (``build_parent``; its staging reckoned as the window of
+    joints + 31 rows), timed in the rounds parent, this, this, parent.
     Returns {kernel: (ms, plain, bound, library, bytes_ms, ops_ms)}."""
     from shift_gcn_torch.models.shift_gcn import ModelConfig
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
@@ -4888,6 +4951,9 @@ def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str) -> dict:
     k1_shapes, k4_shapes = forward_shapes(
         ModelConfig(num_class=2, num_point=v), T_WINDOW)
     totals = {k: [0.0] * 6 for k in KERNEL_ROWS}
+    # K6 by input dtype: this build, the parent's, plain, library, bound,
+    # staged GB of this build and of the parent's
+    k6 = {dtype: [0.0] * 7 for dtype in (torch.float32, torch.bfloat16)}
 
     def add(kernel, count, ms, plain, lib, cost):
         for i, val in enumerate((ms, plain, max(cost), lib) + cost):
@@ -4939,9 +5005,13 @@ def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str) -> dict:
             return dh.view(r, v * c).index_select(1, shear[c, -1]).view(
                 r, v, c)
 
-        def lib6():
-            sx = x.view(r, v * c).index_select(1, shear[c, 1]).view(r, v, c)
-            gz = g.view(r, v * d).index_select(1, shear[d, 1]).view(r, v, d)
+        def lib6(xx=x, gg=g):
+            # two index_select shears into fp32, one per-joint fp32 bmm,
+            # three reductions
+            sx = xx.view(r, v * c).index_select(1, shear[c, 1]).view(
+                r, v, c).float()
+            gz = gg.view(r, v * d).index_select(1, shear[d, 1]).view(
+                r, v, d).float()
             m = torch.bmm(sx.permute(1, 2, 0), gz.permute(1, 0, 2))
             return ((m * w[None]).sum(-1), (m * gate[:, :, None]).sum(0),
                     gz.sum((0, 1)))
@@ -4966,6 +5036,27 @@ def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str) -> dict:
             timed(lambda: sk.shift_gcn_wgrad(x, g, gate, w)),
             timed(lambda: ss.shift_gcn_wgrad_reference(x, g, gate, w)),
             timed(lib6), k6_cost_ms(r, c, d, v=v))
+        for dtype, acc in k6.items():
+            xx, gg = x.to(dtype), g.to(dtype)
+            builds = {} if parent is None else {
+                "parent": lambda: parent_wgrad(parent, xx, gg, gate, w)}
+            builds["this"] = lambda: sk.shift_gcn_wgrad(xx, gg, gate, w)
+            ms = dict.fromkeys(builds, 0.0)
+            for build in list(builds) + list(builds)[::-1]:
+                ms[build] += timed(builds[build]) / 2
+            itemsize = dtype.itemsize
+            rate = TF32_3X_FLOPS if itemsize == 4 else BF16_FLOPS
+            for i, val in enumerate((
+                    ms["this"], ms.get("parent", 0.0),
+                    timed(lambda: ss.shift_gcn_wgrad_reference(
+                        xx, gg, gate, w)),
+                    timed(lambda: lib6(xx, gg)),
+                    max(k6_cost_ms(r, c, d, itemsize, rate, v=v)),
+                    sk.wgrad_staged_bytes(r, v, c, d, itemsize) / 1e9,
+                    sk.wgrad_staged_bytes(r, v, c, d, itemsize, False)
+                    / 1e9)):
+                acc[i] += count * val
+            del xx, gg
         del x, g
     torch.cuda.empty_cache()
     for kernel, (ms, plain, bound, lib, bytes_ms, ops_ms) in totals.items():
@@ -4974,17 +5065,28 @@ def time_wide_kernels(v: int, n: int, gen, rng, dev, card: str) -> dict:
               f"clips x T={T_WINDOW}, fp32: {ms:.4f} ms, "
               f"{100 * bound / ms:.0f}% of bound {bound:.4f} by {by} "
               f"(plain {plain:.4f}, library {lib:.4f}) | {card}")
+    for dtype, (ms, old, plain, lib, bound, staged, staged_old) in (
+            k6.items()):
+        was = (f"{old:.4f} ms" if parent is not None
+               else "not measured (no --k6-parent)")
+        print(f"[wide] 22e K6 at V={v}, {str(dtype)[6:]} inputs, a step's "
+              f"launches with {n} clips: this build {ms:.4f} ms staging "
+              f"{staged:.4g} GB from L2, the parent build {was} staging "
+              f"{staged_old:.4g} GB; plain {plain:.4f}, library {lib:.4f}, "
+              f"bound {bound:.4f} ({100 * bound / ms:.0f}%) | {card}")
     return totals
 
 
-def run_wide(rng, gen, dev, workdir: str, card: str, seed: int) -> dict:
+def run_wide(rng, gen, dev, workdir: str, card: str, seed: int,
+             parent=None) -> dict:
     """Phase 22: 22a topologies registered through ``register_graph``;
     22b each kernel against its plain version at V = 145, 256 and 543;
     22c one fp32 train step at V=543, kernel path vs the plain backward;
     22d ``Trainer.start()`` on the registered 543-joint graph; 22e the
-    kernels' times at V=543 beside their bounds; 22f K4, K5 and K6 at
-    V = 25 and 33 bit-equal to the parent commit's build.  Returns the
-    figures for the kernels line and the summary."""
+    kernels' times at V=543 beside their bounds (K6 beside the library
+    ``parent``, another build of csrc/shift_gcn.cu, where given); 22f K4,
+    K5 and K6 at V = 25 and 33 bit-equal to the parent commit's build.
+    Returns the figures for the kernels line and the summary."""
     from shift_gcn_torch import graphs
     from shift_gcn_torch.models.shift_gcn import (
         ModelConfig, config_from_reference_args)
@@ -5025,7 +5127,8 @@ def run_wide(rng, gen, dev, workdir: str, card: str, seed: int) -> dict:
         rng, dev, workdir, big, card)
 
     # 22e: the kernels' times at the Trainer's shapes
-    totals = time_wide_kernels(HOLISTIC_V, batch, gen, rng, dev, card)
+    totals = time_wide_kernels(HOLISTIC_V, batch, gen, rng, dev, card,
+                               parent)
 
     # 22f: the whole-frame tiles, bit for bit the parent's build
     with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -5231,6 +5334,9 @@ RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--k6-parent", default=None, metavar="SHIFT_GCN_CU",
+                    help="an earlier commit's csrc/shift_gcn.cu: phase 22e "
+                    "times its K6 beside this checkout's")
     # a rank process of phase 18, started by run_ranks
     for flag in ("--rank-job", "--workdir", "--settings"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -5275,8 +5381,8 @@ def main() -> None:
         print("[build] no cuobjdump: the K4/K5/K6 HMMA count is not read")
     else:
         # K4 and K5 x fp32, bf16 x two column tiles x whole-frame and wide
-        # tiles, K6 x fp32, bf16
-        if len(sass) != 18 or any(h == 0 for h, _ in sass.values()):
+        # tiles, K6 x fp32, bf16 x the whole frame and joint groups
+        if len(sass) != 20 or any(h == 0 for h, _ in sass.values()):
             fail(f"K4/K5/K6 functions without tensor-core instructions: "
                  f"{sass}")
         print("[build] K4/K5/K6 functions, HMMA instructions / registers: "
@@ -5530,8 +5636,9 @@ def main() -> None:
     print(f"[remat] {par['remat']}")
 
     # 22. custom topologies and any joint count ----------------------------
+    parent = build_parent(args.k6_parent) if args.k6_parent else None
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
-        wide = run_wide(rng, gen, dev, workdir, card, args.seed)
+        wide = run_wide(rng, gen, dev, workdir, card, args.seed, parent)
 
     # 23. phase 9's epoch with the clips in memory -------------------------
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:

@@ -135,21 +135,13 @@
 //            32-channel d tile); 11 warps at most, each owning up to 3
 //            joints of the group (33 joints a group: the whole frame at
 //            V <= 33) and their 32 x 32 M tiles in registers (96 fp32
-//            accumulators a thread).  Each stage copies kF whole frames
-//            (8 fp32, 16 bf16) of the x c tile and the g d tile with
-//            16-byte cp.async as they lie into a 2-stage ring (1 stage
-//            where two do not fit: V > 33), so the slab is read from
-//            device memory once per (tile pair) and holds every joint's
-//            diagonal.  Past V = 33 a stage holds, of each of its frames,
-//            the group's window of joints + 31 rows from (u0 + c0) % V as
-//            it wraps at V (64 rows at most, whatever V), so K6 takes any
-//            V.  The shear is applied when a warp loads its
-//            fragments from the slab: joint u0 + uu, channel c0 + cc
-//            reads staged row uu + cc (mod the staged window).  Rows are
-//            32 elements and each staged frame is padded by 8, which
-//            keeps those reads free of bank conflicts in fp32 (2-way in
-//            bf16).  Each staged element feeds exactly one joint, so it
-//            is loaded and split once, in registers.  mma.sync with fp32
+//            accumulators a thread).  Each stage stages kF frames (8
+//            fp32, 16 bf16) of the x c tile and the g d tile into a
+//            2-stage ring, so the slabs are read from device memory once
+//            per (tile pair) and hold every joint's diagonal; the shear
+//            is applied when a warp loads its fragments from the slab.
+//            Each staged element feeds exactly one joint, so it is loaded
+//            and split once, in registers.  mma.sync with fp32
 //            accumulation, M = c, N = d, K = frames: fp32 inputs run
 //            m16n8k8 TF32 three times a k8 step (small*big, big*small,
 //            big*big, as K4); bf16 inputs run one m16n8k16 bf16 mma a
@@ -176,17 +168,63 @@
 //            and then the joint groups (dW, dbias) or d tiles (dgate).
 // No floating-point atomics: two launches on one input are bit-equal.
 // The split of R (parts, frames a chunk) is chosen by the wrapper from
-// the shapes alone (about 132 blocks, one wave on an H100), so the
-// summation order does not depend on the card.  Bound: as K4 (the
-// operations term for the wide layers).  The 32 x 32 tile is the
-// accumulator limit at 33 joints (96 of the 168 registers a thread can
-// have at 11 warps).  It re-reads each x slab D/32 times and each g slab
-// C/32 times from L2 (the blocks of one chunk run side by side), about
-// 13.8 GB a fp32 train step, and that staging, not the tensor cores or
-// the fragment build, takes most of the kernel's time on an H100: a third
-// ring stage, or one bulk copy (the copy engine) a staged row in place of
-// the 16-byte cp.async, did not speed it up.  Fewer L2 bytes (larger
-// tiles, or blocks of a cluster sharing a slab) are the lever.
+// the shapes alone, so the summation order does not depend on the card.
+// Bound: as K4 (the operations term for the wide layers).  The 32 x 32
+// tile is the accumulator limit at 33 joints (96 of the 168 registers a
+// thread can have at 11 warps).  The blocks re-read each x slab D/32
+// times and each g slab C/32 times from L2 (the blocks of one chunk run
+// side by side), and that staging, not the tensor cores or the fragment
+// build, sets the kernel's time on an H100.
+//
+// One joint group (V <= 33, the shipped skeletons): a stage holds kF
+// whole frames, [frame][row][32], rows 32 elements and each frame padded
+// by 8 (fragment reads free of bank conflicts in fp32, 2-way in bf16),
+// copied by every warp with 16-byte cp.async as they lie, then
+// multiplied; about one wave of blocks (~132).  Joint uu, channel cc reads
+// staged row uu + cc (mod V).  13.8 GB staged a fp32 step at 64 clips; a
+// third ring stage, or one bulk copy a staged row, did not speed it up.
+//
+// Joint groups (V > 33, e.g. 543 for MediaPipe Holistic): groups of
+// ceil(V / ceil(V / 33)) joints.  A group's joints u0 + uu, channel
+// c0 + cc read rows (u0 + c0 + uu + cc) % V: a parallelogram of rows x
+// channels.  Its bounding window, joints + 31 full rows, holds 2x the
+// rows used and leaves room for one stage only; and one wave of blocks
+// leaves half the SMs idle or a ragged second wave (68 blocks at V = 543,
+// (T, C, D) = (300, 64, 64)).  So:
+//  - strips: the c tile is cut into 32-byte sectors (kW = 8 fp32 or 16
+//    bf16 channels), and strip k holds only the rows its channels read,
+//    joints + kW - 1 of them (made odd) from (u0 + c0 + k kW) % V;
+//    [strip][frame][row][kW], strips 128-byte aligned.  Joint uu, channel
+//    cc reads strip cc / kW at row uu + cc % kW.  Frames are rows * kW
+//    apart, 8 or 24 mod 32 words: the fp32 fragment reads are free of
+//    bank conflicts, bf16's 2-way at most.  34.7 GB staged a fp32 step
+//    at V = 543, 8 clips (20.9 GB bf16), against 56.0 (28.0) for the
+//    window.  Two stages fit whatever V: 159,760 B fp32, 192,528 B bf16
+//    at 32 joints.
+//  - tensor copies: a strip of a stage is one TMA box (kW channels, its
+//    rows, kF frames) of a tensor map over (R, V, n), issued by one
+//    thread and completing on the stage's mbarrier, where it does not
+//    wrap at V and the rows are 16-byte aligned; frames past R read zero
+//    as out of bounds, and chunks are whole stages, so a box never reads
+//    another chunk's frames.  The wrapping strips (about rows / V of
+//    them) and unaligned inputs (unit 1's C = 3) take 16-byte cp.async
+//    by every warp (4-byte copies and scalar bf16 stores where rows are
+//    not 16-byte multiples).  Measured at V = 543, a step's launches at 8
+//    clips, fp32 / bf16 (scripts/k6_variants.py, H100 SXM): every warp
+//    copying the strips with cp.async, then multiplying, 16.96 / 9.56
+//    ms; the tensor copies 11.45 / 7.58 ms, of which the copy alone takes
+//    10.36 / 7.17 and the multiply alone 7.21 / 4.22, so the staging from
+//    L2 (~3 TB/s) still sets the time.  One producer warp issuing every
+//    cp.async while the others multiply was several times slower: one
+//    warp cannot issue the copies.  A third stage (30 joints a group, to
+//    fit) read 13.55 ms, TF32 splits by truncation 11.25: not kept.
+//  - waves: the wrapper picks the chunk (whole 16-frame stages) whose
+//    waves of 132 blocks, one block an SM, take the least time, among
+//    those that leave under 10% of the last wave idle.  Scratch grows
+//    with the parts: at V = 543, 64 clips, (300, 64, 64) 25 parts,
+//    3.5 M floats (14 MB).
+#include <cuda.h>
+#include <cudaTypedefs.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -861,14 +899,29 @@ template <typename T>
 __host__ __device__ constexpr int wg_frames() {
   return sizeof(T) == 4 ? 8 : 16;
 }
+// channels a strip row (groups > 1): one 32-byte sector, 8 fp32 or 16 bf16
+template <typename T>
+__host__ __device__ constexpr int wg_strip() {
+  return 32 / static_cast<int>(sizeof(T));
+}
+constexpr int kWgStages = 2;  // ring stages
+
+// tensor maps of x and g for the strips path's tensor copies
+struct WgradMaps {
+  CUtensorMap x, g;
+};
 
 struct WgradGeom {
   int r, v, c, d;
   int d_global;                // global index of output channel 0 (d0)
-  int groups, joints, window;  // joint groups, joints a group, rows staged
+  int groups, joints;          // joint groups, joints a group
+  int rows;                    // rows a staged frame: window or strip rows
+  int fs;                      // staged frame stride, elements
+  int ss;                      // staged strip stride (strips), elements
+  bool tma_x, tma_g;           // strips by tensor copies (maps below)
   int c_tiles, d_tiles;
   int parts, chunk;            // frame chunks, frames a chunk
-  int warps, stages;
+  int warps;
   bool vec_x, vec_g;
 };
 
@@ -887,16 +940,10 @@ __host__ __device__ inline int64_t wg_scratch(const WgradGeom& s) {
 __host__ __device__ inline int64_t wg_blocks(const WgradGeom& s) {
   return static_cast<int64_t>(s.parts) * s.groups * s.c_tiles * s.d_tiles;
 }
-// Staged frame stride, elements: the pad puts frame t's rows 8 banks from
-// frame t - 1's, so a fragment load (lanes along 8 rows and 4 frames)
-// meets no bank conflict in fp32 (2-way in bf16).
-__host__ __device__ inline int wg_fs(const WgradGeom& s) {
-  return s.window * kWgLd + kWgFramePad;
-}
 
 // Copy kF frames (from f0; frames at or past f_end read zero) of the
 // window rows (base + slot) % V, slot < window, channels [ch0, ch0 + 32)
-// of src (R, V, n) into dst [frame][slot][kWgLd], frames wg_fs(s) apart.
+// of src (R, V, n) into dst [frame][slot][kWgLd], frames s.fs apart.
 // Channels past n and the frame pads are never written: the ring is zeroed
 // once.  Lanes run along a row's pieces (16-byte vectors, or elements);
 // each thread keeps its piece and steps its (frame, slot) without a
@@ -914,12 +961,12 @@ __device__ __forceinline__ void wg_stage(const T* __restrict__ src, T* dst,
   if (static_cast<int>(threadIdx.x) >= step * pieces) return;
   const int j = threadIdx.x % pieces;
   int m = threadIdx.x / pieces;
-  int f = m / s.window;
-  int slot = m - f * s.window;
+  int f = m / s.rows;
+  int slot = m - f * s.rows;
   const int ch = ch0 + (vec ? j * kVec : j);
   T* out = dst + (vec ? j * kVec : j);
-  const int fs = wg_fs(s);
-  for (; m < kF * s.window; m += step) {
+  const int fs = s.fs;
+  for (; m < kF * s.rows; m += step) {
     int row = base + slot;
     row -= row >= s.v ? s.v : 0;
     const bool in = f0 + f < f_end;
@@ -933,24 +980,135 @@ __device__ __forceinline__ void wg_stage(const T* __restrict__ src, T* dst,
       out[f * fs + slot * kWgLd] = in ? *from : zero_of<T>();
     }
     slot += step;
-    while (slot >= s.window) {
-      slot -= s.window;
+    while (slot >= s.rows) {
+      slot -= s.rows;
       ++f;
     }
   }
 }
 
+// Copy kF frames (from f0; frames at or past f_end read zero) of a joint
+// group's strips of src (R, V, n) but those in `skip` (the tensor copies'):
+// strip k holds channels [ch0 + k kW, ch0 + (k + 1) kW) of the rows
+// (base + k kW + j) % V, j < s.rows, at dst[k ss + f fs + j kW].  A warp
+// copies one strip of one frame at a time, its lanes along the strip's
+// rows and their 16-byte halves (or elements); channels past n are never
+// written (the ring is zeroed once).
 template <typename T>
+__device__ __forceinline__ void wg_stage_strips(const T* __restrict__ src,
+                                                T* dst, int f0, int f_end,
+                                                int base, int ch0, int n,
+                                                const WgradGeom& s,
+                                                bool vec, unsigned skip) {
+  constexpr int kF = wg_frames<T>();
+  constexpr int kW = wg_strip<T>();
+  constexpr int kS = kWgTile / kW;
+  constexpr int kVec = vec_elems<T>();
+  static_assert(kW == 2 * kVec, "a strip row is two 16-byte copies");
+  const int shift = vec ? 1 : (kW == 8 ? 3 : 4);  // log2(copies a row)
+  const int items = s.rows << shift;
+  const int lane = threadIdx.x & 31;
+  for (int unit = threadIdx.x >> 5; unit < kF * kS;
+       unit += blockDim.x >> 5) {
+    const int f = unit / kS;
+    const int k = unit % kS;
+    const int ch_k = ch0 + k * kW;
+    if (ch_k >= n || (skip >> k & 1u)) continue;
+    const bool in = f0 + f < f_end;
+    int rb = base + k * kW;  // base < V and k kW <= 24 < V
+    rb -= rb >= s.v ? s.v : 0;
+    const T* frame =
+        src + (in ? static_cast<int64_t>(f0 + f) * s.v * n : 0);
+    T* out = dst + k * s.ss + f * s.fs;
+    for (int i = lane; i < items; i += 32) {
+      const int j = i >> shift;
+      const int e = vec ? (i & 1) * kVec : i & (kW - 1);
+      if (ch_k + e >= n) continue;
+      int row = rb + j;  // rows <= V: one wrap at most
+      row -= row >= s.v ? s.v : 0;
+      const T* from = in ? frame + row * n + ch_k + e : src;
+      T* to = out + j * kW + e;
+      if (vec) {
+        cp_async16(to, from, in);
+      } else if constexpr (sizeof(T) == 4) {
+        cp_async4(to, from, in);
+      } else {
+        *to = in ? *from : zero_of<T>();
+      }
+    }
+  }
+}
+
+// The tensor copies (TMA) of the strips path: a strip of kF frames, one
+// box (kW channels, s.rows rows, kF frames) of a tensor map over (R, V, n),
+// lands in shared memory as [frame][row][channel], completing on an
+// mbarrier.  Frames past R read zero (out of bounds).
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+// Waits for the mbarrier's phase `parity` to complete; traps after ~10 s
+// (2^34 cycles) without it, so that a lost copy fails the launch rather
+// than hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(smem_u32(bar)), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - t0 > (1ll << 34)) __trap();
+  }
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile"
+      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(
+          smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// kStrips: the joint-group path (V > kWgGroup), staged as strips; else
+// the whole frame, staged as a window of V rows.
+template <typename T, bool kStrips>
 __global__ void __launch_bounds__(kWgMaxWarps * 32, 1)
 wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
                      const float* __restrict__ gate,
                      const float* __restrict__ w, float* __restrict__ part,
-                     WgradGeom s) {
+                     WgradGeom s, const __grid_constant__ WgradMaps maps) {
   constexpr int kF = wg_frames<T>();
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int fs = wg_fs(s);
-  const int slab = kF * fs;  // elements of one staged slab
+  constexpr int kW = wg_strip<T>();
+  constexpr int kS = kWgTile / kW;
+  constexpr int kStages = kWgStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int fs = s.fs;
+  // elements of one staged slab
+  const int slab = kStrips ? kS * s.ss : kF * fs;
   T* ring = reinterpret_cast<T*>(smem);  // slot k: x slab, then g slab
+  // the tensor copies' mbarriers, past the ring and the epilogue's sums
+  uint64_t* landed = reinterpret_cast<uint64_t*>(
+      smem + max(kStages * 2 * slab * static_cast<int>(sizeof(T)),
+                 s.warps * kWgTile * (kWgRedLd + 1) * 4));
 
   int b = blockIdx.x;
   const int dti = b % s.d_tiles;
@@ -977,29 +1135,79 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
   const int gq = lane >> 2;
   const int tq = lane & 3;
 
+  // Strips: the tensor copies take the strips that do not wrap at V, of
+  // inputs that allow them (tma_x, tma_g); cp.async the others
+  unsigned tma_sx = 0, tma_sg = 0;
+  if constexpr (kStrips) {
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      const int rx = (base_x + k * kW) % s.v;
+      const int rg = (base_g + k * kW) % s.v;
+      if (s.tma_x && c0 + k * kW < s.c && rx + s.rows <= s.v) tma_sx |= 1u << k;
+      if (s.tma_g && d0 + k * kW < s.d && rg + s.rows <= s.v) tma_sg |= 1u << k;
+    }
+  }
+  const uint32_t tma_bytes =
+      (__popc(tma_sx) + __popc(tma_sg)) * kW * s.rows * kF * sizeof(T);
+  const CUtensorMap* map_x = &maps.x;  // in parameter space
+  const CUtensorMap* map_g = &maps.g;
+
   {  // channels past C / D are never copied: zero the ring once
     uint4* z = reinterpret_cast<uint4*>(smem);
-    const int n16 = s.stages * 2 * slab * static_cast<int>(sizeof(T)) / 16;
+    const int n16 = kStages * 2 * slab * static_cast<int>(sizeof(T)) / 16;
     for (int i = tid; i < n16; i += blockDim.x) z[i] = make_uint4(0, 0, 0, 0);
+  }
+  if (kStrips && tma_bytes) {
+    if (tid == 0) {
+#pragma unroll
+      for (int k = 0; k < kStages; ++k) mbar_init(&landed[k], 1);
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    }
+    // the zeros, stored through the generic proxy, before any tensor copy
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
   __syncthreads();
 
   auto issue = [&](int st, int slot) {
     T* xs = ring + 2 * slot * slab;
     const int f0 = f_begin + st * kF;
-    wg_stage(x, xs, f0, f_end, base_x, c0, s.c, s, s.vec_x);
-    wg_stage(g, xs + slab, f0, f_end, base_g, d0, s.d, s, s.vec_g);
+    if constexpr (kStrips) {
+      if (tid == 0 && tma_bytes) {
+        asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+        mbar_expect_tx(&landed[slot], tma_bytes);
+#pragma unroll
+        for (int k = 0; k < kS; ++k) {
+          if (tma_sx >> k & 1u)
+            tma_load_3d(xs + k * s.ss, map_x, &landed[slot], c0 + k * kW,
+                        (base_x + k * kW) % s.v, f0);
+          if (tma_sg >> k & 1u)
+            tma_load_3d(xs + slab + k * s.ss, map_g, &landed[slot],
+                        d0 + k * kW, (base_g + k * kW) % s.v, f0);
+        }
+      }
+      wg_stage_strips(x, xs, f0, f_end, base_x, c0, s.c, s, s.vec_x, tma_sx);
+      wg_stage_strips(g, xs + slab, f0, f_end, base_g, d0, s.d, s, s.vec_g,
+                      tma_sg);
+    } else {
+      wg_stage(x, xs, f0, f_end, base_x, c0, s.c, s, s.vec_x);
+      wg_stage(g, xs + slab, f0, f_end, base_g, d0, s.d, s, s.vec_g);
+    }
   };
 
-  // the staged slot of fragment row / column k of joint uu is uu + k (mod
-  // the window); k mod the window is taken once here
+  // Window: the staged slot of fragment row / column k of joint uu is
+  // uu + k (mod the window); k mod the window is taken once here
   int cm[2][2], dm[4];
 #pragma unroll
   for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) cm[mi][h] = (mi * 16 + gq + 8 * h) % s.window;
+    for (int h = 0; h < 2; ++h) cm[mi][h] = (mi * 16 + gq + 8 * h) % s.rows;
 #pragma unroll
-  for (int ni = 0; ni < 4; ++ni) dm[ni] = (ni * 8 + gq) % s.window;
+  for (int ni = 0; ni < 4; ++ni) dm[ni] = (ni * 8 + gq) % s.rows;
+  // Strips: channel cb + gq (cb a multiple of 8) of joint uu lies in strip
+  // (cb + gq) / kW at row uu + (cb + gq) % kW of that strip
+  auto strip_at = [&](int cb, int uu) {
+    return (cb / kW) * s.ss + (cb % kW) * (kW + 1) + uu * kW + gq * (kW + 1);
+  };
   // Every warp runs both m16 tiles and all four n8 tiles, without a
   // branch: a tile past C or D multiplies the ring's zeros, and the
   // epilogue drops its channels.
@@ -1026,20 +1234,24 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
         for (int q = 0; q < 4; ++q) acc[jj][mi][ni][q] = 0.0f;
   float bacc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 
-  // Two stages: one is copied while the other is multiplied (one slot, the
-  // copy and the multiply in turn, where two do not fit).
-  const bool two = s.stages == 2;
-  if (steps > 0) issue(0, 0);
-  cp_async_commit();
+  // A ring of kStages: the copies of the next kStages - 1 stages are in
+  // flight while one is multiplied.
+#pragma unroll
+  for (int st = 0; st < kStages - 1; ++st) {
+    if (st < steps) issue(st, st);
+    cp_async_commit();
+  }
   for (int st = 0; st < steps; ++st) {
-    cp_async_wait<0>();
-    // stage st has landed, and every warp is done with the other slot
+    cp_async_wait<kStages - 2>();
+    if (kStrips && tma_bytes)
+      mbar_wait(&landed[st % kStages], (st / kStages) & 1);
+    // stage st has landed, and every warp is done with the slot of stage
+    // st - 1, which stage st + kStages - 1 takes
     __syncthreads();
-    if (two) {
-      if (st + 1 < steps) issue(st + 1, (st + 1) & 1);
-      cp_async_commit();
-    }
-    const T* xs = ring + 2 * (two ? st & 1 : 0) * slab;
+    const int next = st + kStages - 1;
+    if (next < steps) issue(next, next % kStages);
+    cp_async_commit();
+    const T* xs = ring + 2 * (st % kStages) * slab;
     const T* gs = xs + slab;
 #pragma unroll
     for (int jj = 0; jj < kWgJoints; ++jj) {
@@ -1062,11 +1274,16 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
         uint32_t bbig[4][2], bsmall[4][2];
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          int sl = uu + dm[ni];
-          sl -= sl >= s.window ? s.window : 0;
-          const int col = ni * 8 + gq;
-          const float v0 = gs[row_lo + sl * kWgLd + col];
-          const float v1 = gs[row_hi + sl * kWgLd + col];
+          int at;
+          if constexpr (kStrips) {
+            at = strip_at(ni * 8, uu);
+          } else {
+            int sl = uu + dm[ni];
+            sl -= sl >= s.rows ? s.rows : 0;
+            at = sl * kWgLd + ni * 8 + gq;
+          }
+          const float v0 = gs[row_lo + at];
+          const float v1 = gs[row_hi + at];
           if (want_bias && live[jj]) bacc[ni] += v0 + v1;
           split(v0, bbig[ni][0], bsmall[ni][0]);
           split(v1, bbig[ni][1], bsmall[ni][1]);
@@ -1079,11 +1296,15 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int h = q & 1;
-            int sl = uu + cm[mi][h];
-            sl -= sl >= s.window ? s.window : 0;
-            split(xs[(q >> 1 ? row_hi : row_lo) + sl * kWgLd + mi * 16 + gq +
-                     8 * h],
-                  abig[q], asmall[q]);
+            int at;
+            if constexpr (kStrips) {
+              at = strip_at(mi * 16 + 8 * h, uu);
+            } else {
+              int sl = uu + cm[mi][h];
+              sl -= sl >= s.rows ? s.rows : 0;
+              at = sl * kWgLd + mi * 16 + gq + 8 * h;
+            }
+            split(xs[(q >> 1 ? row_hi : row_lo) + at], abig[q], asmall[q]);
           }
 #pragma unroll
           for (int ni = 0; ni < 4; ++ni) {
@@ -1114,11 +1335,16 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
         uint32_t bq[4][2];
 #pragma unroll
         for (int ni = 0; ni < 4; ++ni) {
-          int sl = uu + dm[ni];
-          sl -= sl >= s.window ? s.window : 0;
-          const int col = ni * 8 + gq;
-          bq[ni][0] = pair(gh, row_lo + sl * kWgLd + col);
-          bq[ni][1] = pair(gh, row_hi + sl * kWgLd + col);
+          int at;
+          if constexpr (kStrips) {
+            at = strip_at(ni * 8, uu);
+          } else {
+            int sl = uu + dm[ni];
+            sl -= sl >= s.rows ? s.rows : 0;
+            at = sl * kWgLd + ni * 8 + gq;
+          }
+          bq[ni][0] = pair(gh, row_lo + at);
+          bq[ni][1] = pair(gh, row_hi + at);
           if (want_bias && live[jj])
             bacc[ni] += (bf16_lo(bq[ni][0]) + bf16_hi(bq[ni][0])) +
                         (bf16_lo(bq[ni][1]) + bf16_hi(bq[ni][1]));
@@ -1131,10 +1357,15 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
             const int h = q & 1;
-            int sl = uu + cm[mi][h];
-            sl -= sl >= s.window ? s.window : 0;
-            a[q] = pair(xh, (q >> 1 ? row_hi : row_lo) + sl * kWgLd +
-                                mi * 16 + gq + 8 * h);
+            int at;
+            if constexpr (kStrips) {
+              at = strip_at(mi * 16 + 8 * h, uu);
+            } else {
+              int sl = uu + cm[mi][h];
+              sl -= sl >= s.rows ? s.rows : 0;
+              at = sl * kWgLd + mi * 16 + gq + 8 * h;
+            }
+            a[q] = pair(xh, (q >> 1 ? row_hi : row_lo) + at);
           }
 #pragma unroll
           for (int ni = 0; ni < 4; ++ni)
@@ -1148,11 +1379,6 @@ wgrad_partial_kernel(const T* __restrict__ x, const T* __restrict__ g,
         for (int ni = 0; ni < 4; ++ni)
 #pragma unroll
           for (int q = 0; q < 4; ++q) acc[jj][mi][ni][q] += sa[mi][ni][q];
-    }
-    if (!two) {
-      __syncthreads();  // the one slot is free
-      if (st + 1 < steps) issue(st + 1, 0);
-      cp_async_commit();
     }
   }
   cp_async_wait<0>();
@@ -1348,8 +1574,8 @@ int launch(const void* x, const void* gate, const void* w, const void* bias,
                                                  kdim, n, d0, stream);
 }
 
-// The shape of one K6 launch, but for the stage count and the 16-byte
-// paths; false if the arguments are out of range.
+// The shape of one K6 launch, but for the staged layout (wg_layout) and
+// the 16-byte paths; false if the arguments are out of range.
 bool wg_geom(int r, int v, int c, int d, int d0, int parts, int chunk,
              WgradGeom& s) {
   if (v < 1 || c < 1 || d < 1 || d0 < 0 || r < 0 ||
@@ -1362,15 +1588,79 @@ bool wg_geom(int r, int v, int c, int d, int d0, int parts, int chunk,
   s.d_global = d0;
   s.groups = (v + kWgGroup - 1) / kWgGroup;
   s.joints = (v + s.groups - 1) / s.groups;
-  s.window = v < s.joints + kWgTile - 1 ? v : s.joints + kWgTile - 1;
   s.c_tiles = (c + kWgTile - 1) / kWgTile;
   s.d_tiles = (d + kWgTile - 1) / kWgTile;
   s.parts = parts;
   s.chunk = chunk;
   s.warps = (s.joints + kWgJoints - 1) / kWgJoints;
-  s.stages = 1;
   s.vec_x = s.vec_g = false;
   return wg_blocks(s) <= 0x7fffffff;
+}
+
+// The staged layout and the block's dynamic shared memory (two stages of
+// an x and a g slab, or the epilogue's reduction, whichever is larger,
+// then the strips path's mbarriers).
+// One group (V <= kWgGroup): [frame][row][32], the window of V rows, 8
+// elements after each frame.  Joint groups: [strip][frame][row][kW],
+// kWgTile / kW strips of an odd number >= joints + kW - 1 of rows, each
+// strip 128-byte aligned (a tensor copy's box): frames 8 or 24 mod 32
+// words apart in fp32, which keeps the fragment loads free of bank
+// conflicts (2-way at most in bf16).
+template <typename T>
+int wg_layout(WgradGeom& s) {
+  constexpr int kF = wg_frames<T>();
+  if (s.groups == 1) {
+    s.rows = s.v;
+    s.fs = s.rows * kWgLd + kWgFramePad;
+    s.ss = 0;
+  } else {
+    constexpr int kW = wg_strip<T>();
+    constexpr int kLine = 128 / static_cast<int>(sizeof(T));
+    s.rows = (s.joints + kW - 1) | 1;  // odd: fs = 8 or 24 mod 32 words
+    s.fs = s.rows * kW;
+    s.ss = (kF * s.fs + kLine - 1) / kLine * kLine;  // 128-byte aligned
+  }
+  const int slab = s.groups == 1 ? kF * s.fs : kWgTile / wg_strip<T>() * s.ss;
+  const int ring = kWgStages * 2 * slab * static_cast<int>(sizeof(T));
+  const int red_bytes = s.warps * kWgTile * (kWgRedLd + 1) * 4;
+  // and the strips path's mbarriers
+  return (ring > red_bytes ? ring : red_bytes) +
+         (s.groups > 1 ? kWgStages * 8 : 0);
+}
+
+// A tensor map over src (r, v, n) with boxes of (strip channels, rows,
+// stage frames), zero out of bounds; false if cuTensorMapEncodeTiled
+// refuses it.
+template <typename T>
+bool wg_tensor_map(CUtensorMap* map, const void* src, int r, int v, int n,
+                   int rows) {
+  static PFN_cuTensorMapEncodeTiled encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn,
+                                cudaEnableDefault, &found) != cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return false;
+    encode = reinterpret_cast<PFN_cuTensorMapEncodeTiled>(fn);
+  }
+  const cuuint64_t size = sizeof(T);
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(n),
+                              static_cast<cuuint64_t>(v),
+                              static_cast<cuuint64_t>(r)};
+  const cuuint64_t strides[2] = {n * size, static_cast<cuuint64_t>(v) * n *
+                                               size};
+  const cuuint32_t box[3] = {static_cast<cuuint32_t>(wg_strip<T>()),
+                             static_cast<cuuint32_t>(rows),
+                             static_cast<cuuint32_t>(wg_frames<T>())};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return encode(map,
+                sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                               : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                3, const_cast<void*>(src), dims, strides, box, step,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
@@ -1385,14 +1675,21 @@ int launch_wgrad(const void* x, const void* g, const void* gate,
   s.vec_x = c % kVec == 0 && aligned16(x);
   s.vec_g = d % kVec == 0 && aligned16(g);
   if (scratch < wg_scratch(s)) return static_cast<int>(cudaErrorInvalidValue);
-  const int stage_bytes =
-      2 * wg_frames<T>() * wg_fs(s) * static_cast<int>(sizeof(T));
-  s.stages = 2 * stage_bytes <= kSmemMax ? 2 : 1;
-  const int red_bytes = s.warps * kWgTile * (kWgRedLd + 1) * 4;
-  const int smem = s.stages * stage_bytes > red_bytes
-                       ? s.stages * stage_bytes
-                       : red_bytes;
-  auto kernel = wgrad_partial_kernel<T>;
+  const int smem = wg_layout<T>(s);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  // Joint groups: chunks of whole stages, so that a tensor copy's frames
+  // past the chunk are past R (and read zero); tensor maps of the inputs
+  // whose rows are 16-byte aligned
+  WgradMaps maps;
+  s.tma_x = s.tma_g = false;
+  if (s.groups > 1 && r > 0) {
+    if (chunk % wg_frames<T>() != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    s.tma_x = s.vec_x && wg_tensor_map<T>(&maps.x, x, r, v, c, s.rows);
+    s.tma_g = s.vec_g && wg_tensor_map<T>(&maps.g, g, r, v, d, s.rows);
+  }
+  auto kernel = s.groups > 1 ? wgrad_partial_kernel<T, true>
+                             : wgrad_partial_kernel<T, false>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -1400,7 +1697,7 @@ int launch_wgrad(const void* x, const void* g, const void* gate,
   kernel<<<static_cast<int>(wg_blocks(s)), s.warps * 32, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(g),
       static_cast<const float*>(gate), static_cast<const float*>(w),
-      static_cast<float*>(partial), s);
+      static_cast<float*>(partial), s, maps);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t total = static_cast<int64_t>(c) * d +
@@ -1458,6 +1755,13 @@ extern "C" int shift_gcn_wgrad(const void* x, const void* g, const void* gate,
                  : launch_wgrad<float>(x, g, gate, w, partial, scratch,
                                        dgate, dw, dbias, r, v, c, d, d0,
                                        parts, chunk, stream);
+}
+
+// Dynamic shared memory of one K6 block at v joints (fp32 or bf16 inputs).
+extern "C" int shift_gcn_wgrad_smem(int v, int is_bf16) {
+  WgradGeom s;
+  if (!wg_geom(0, v, 1, 1, 0, 1, 1, s)) return -1;
+  return is_bf16 ? wg_layout<__nv_bfloat16>(s) : wg_layout<float>(s);
 }
 
 // fp32 scratch floats shift_gcn_wgrad needs for these arguments, or -1 if

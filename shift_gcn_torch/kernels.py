@@ -46,6 +46,11 @@ LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
+# symbols that an earlier commit's build of a source may lack (an older
+# build is loaded beside this one to compare the two, bit for bit or in
+# time, by scripts/shift_gcn_bitcheck.py and chip_smoke.py phase 22e)
+OPTIONAL_SYMBOLS = ("shift_gcn_wgrad_smem",)
+
 
 def reset_launches() -> None:
     for name in LAUNCHES:
@@ -129,8 +134,12 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
                                + [ptr],
             # (r, v, c, d, d0, parts, chunk) -> its scratch floats (int64)
             "shift_gcn_wgrad_scratch": [i32] * 7,
+            # (v, is_bf16) -> a K6 block's dynamic shared memory, bytes
+            "shift_gcn_wgrad_smem": [i32] * 2,
         }
     for symbol, argtypes in signatures.items():
+        if symbol in OPTIONAL_SYMBOLS and not hasattr(lib, symbol):
+            continue
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
         fn.restype = i64 if symbol.endswith("_scratch") else ctypes.c_int

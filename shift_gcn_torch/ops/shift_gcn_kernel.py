@@ -45,7 +45,8 @@ which the ranks' backward passes add up (``ops.spatial_shift``).
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -54,11 +55,17 @@ from shift_gcn_torch.ops.spatial_shift import (
     shift_gcn_dx_reference, shift_gcn_transform, shift_gcn_wgrad_reference)
 
 # K6 splits the sum over R into chunks, one block each per tile, so that
-# about this many blocks run: the H100's SM count, fixed here so that the
-# split, and so the order of the sums, depends on the shapes alone.
+# its blocks fill waves of this many: the H100's SM count (one K6 block an
+# SM), fixed here so that the split, and so the order of the sums, depends
+# on the shapes alone.
 WGRAD_BLOCKS = 132
 WGRAD_GROUP = 33   # joints a block of K6 at most (csrc: kWgGroup)
 WGRAD_TILE = 32    # channels of a c or d tile of K6 (csrc: kWgTile)
+# Past one joint group: the least share of the last wave's SMs a split
+# keeps busy, and a block's fixed cost (ring fill, epilogue) in frames
+WGRAD_WAVE_FILL = 0.9
+WGRAD_BLOCK_FRAMES = 32
+WGRAD_SMEM_MAX = 232448   # dynamic shared memory a block (csrc: kSmemMax)
 
 
 def _check_cuda(name: str, x: torch.Tensor, **params) -> None:
@@ -129,16 +136,103 @@ def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
 
 
+def _wgrad_tiles(v: int, c: int, d: int) -> int:
+    return (_ceil_div(v, WGRAD_GROUP) * _ceil_div(c, WGRAD_TILE)
+            * _ceil_div(d, WGRAD_TILE))
+
+
+def wgrad_wave_split(r: int, v: int, c: int, d: int) -> Tuple[int, int]:
+    """(parts, chunk) of about one wave of blocks, or one chunk where the
+    tiles alone fill more: K6's split at one joint group, and at every V
+    before the joint groups had a split of their own."""
+    r = max(r, 1)
+    parts = max(1, WGRAD_BLOCKS // _wgrad_tiles(v, c, d))
+    chunk = _ceil_div(_ceil_div(r, parts), 16) * 16
+    return _ceil_div(r, chunk), chunk
+
+
+@functools.lru_cache(maxsize=None)
 def wgrad_split(r: int, v: int, c: int, d: int) -> Tuple[int, int]:
     """(parts, chunk): K6 sums frames [p * chunk, (p + 1) * chunk) in
     partial p, one stage (8 fp32 or 16 bf16 frames) at a time from the
     chunk's start, then the partials in order.  ``chunk`` is a multiple
-    of 16 frames."""
-    tiles = (_ceil_div(v, WGRAD_GROUP) * _ceil_div(c, WGRAD_TILE)
-             * _ceil_div(d, WGRAD_TILE))
-    parts = max(1, WGRAD_BLOCKS // tiles)
-    chunk = _ceil_div(_ceil_div(max(r, 1), parts), 16) * 16
-    return _ceil_div(max(r, 1), chunk), chunk
+    of 16 frames.
+
+    One joint group (V <= 33): ``wgrad_wave_split``.  Past it, the chunk
+    whose waves take the least time, waves x (chunk +
+    WGRAD_BLOCK_FRAMES), among those whose last wave fills at least
+    WGRAD_WAVE_FILL of the SMs (fewer parts on a tie)."""
+    if v <= WGRAD_GROUP:
+        return wgrad_wave_split(r, v, c, d)
+    r = max(r, 1)
+    tiles = _wgrad_tiles(v, c, d)
+    best = None
+    for split in range(1, _ceil_div(r, 16) + 1):
+        chunk = _ceil_div(_ceil_div(r, split), 16) * 16
+        parts = _ceil_div(r, chunk)
+        blocks = parts * tiles
+        waves = _ceil_div(blocks, WGRAD_BLOCKS)
+        key = (blocks < WGRAD_WAVE_FILL * waves * WGRAD_BLOCKS,
+               waves * (chunk + WGRAD_BLOCK_FRAMES), parts)
+        if best is None or key < best[0]:
+            best = (key, parts, chunk)
+    return best[1], best[2]
+
+
+def wgrad_layout(v: int, itemsize: int) -> dict:
+    """K6's block at v joints for activations of ``itemsize`` bytes
+    (csrc/shift_gcn.cu: wg_geom, wg_layout): ``groups`` of ``joints``
+    joints; ``rows`` rows of ``width`` channels a staged frame, frames
+    ``fs`` elements apart; ``frames`` a stage; ``smem`` bytes of dynamic
+    shared memory (two stages of an x and a g slab, or the epilogue's
+    reduction, then the stages' mbarriers).  One group: the window, V
+    rows of 32 channels.  Joint groups: 32 // width strips, each ``ss``
+    elements (128-byte aligned) of ``frames`` frames of an odd number
+    >= joints + width - 1 of rows, a row one 32-byte sector."""
+    groups = _ceil_div(v, WGRAD_GROUP)
+    joints = _ceil_div(v, groups)
+    frames = 8 if itemsize == 4 else 16
+    if groups == 1:
+        rows, width = v, WGRAD_TILE
+        fs, ss = rows * WGRAD_TILE + 8, 0
+        slab = frames * fs
+    else:
+        width = 32 // itemsize
+        rows = (joints + width - 1) | 1
+        fs = rows * width
+        line = 128 // itemsize
+        ss = _ceil_div(frames * fs, line) * line
+        slab = WGRAD_TILE // width * ss
+    warps = _ceil_div(joints, 3)
+    # and, past one group, the two stages' mbarriers
+    smem = max(2 * 2 * slab * itemsize, warps * 32 * 34 * 4) + (
+        16 if groups > 1 else 0)
+    return {"groups": groups, "joints": joints, "rows": rows,
+            "width": width, "fs": fs, "ss": ss, "frames": frames,
+            "smem": smem}
+
+
+def wgrad_staged_bytes(r: int, v: int, c: int, d: int, itemsize: int,
+                       strips: Optional[bool] = None) -> int:
+    """Bytes K6's blocks copy into shared memory (from L2) for one launch
+    on (R, V, C) and (R, V, D) inputs of ``itemsize`` bytes: every block
+    stages its frames of the x c tile once per d tile and of the g d tile
+    once per c tile.  ``strips`` False reckons the window of joints + 31
+    rows that K6 staged past one joint group before the strips;
+    the default is the layout the kernel uses."""
+    lay = wgrad_layout(v, itemsize)
+    groups, joints = lay["groups"], lay["joints"]
+    if strips is None:
+        strips = groups > 1
+    width = 32 // itemsize if strips else WGRAD_TILE
+    rows = ((joints + width - 1) | 1 if strips
+            else min(v, joints + WGRAD_TILE - 1))
+
+    def per_frame(n: int) -> int:  # a block's rows x channels, all tiles
+        return rows * sum(min(width, n - k0) for k0 in range(0, n, width))
+
+    return r * groups * itemsize * (_ceil_div(d, WGRAD_TILE) * per_frame(c)
+                                    + _ceil_div(c, WGRAD_TILE) * per_frame(d))
 
 
 def shift_gcn_wgrad(x: torch.Tensor, g: torch.Tensor, gate: torch.Tensor,

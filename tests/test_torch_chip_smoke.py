@@ -1,11 +1,15 @@
 """Control flow of chip_smoke.py's live-serving phases (11-13), its
-four-stream training phase (14), its lowering-knob, NTU-60 and
-other-family phases (15-17), the Trainer of its custom-topology
-phase (22d) and its Trainer epoch with the clips memory-mapped and in
-memory (phases 9 and 23) and its shift-op demo (phase 24a), rehearsed
-on the CPU at a small size: the kernels' plain versions run in place of
-the kernels, so every check but the launch counts must pass, and the
-launch counts must fail (the plain versions launch nothing)."""
+NTU-60 and other-family phases (16-17), the Trainer of its
+custom-topology phase (22d) and its kernel timings there (22e), its
+Trainer epoch with the clips memory-mapped and in memory (phases 9 and
+23) and its shift-op demo (phase 24a), rehearsed on the CPU at a small
+size: the kernels' plain versions run in place of the kernels, so every
+check but the launch counts must pass, and the launch counts must fail
+(the plain versions launch nothing).  The four-stream phase (14) and
+the lowering knobs (15), the longest rehearsals, are in
+test_torch_chip_smoke_fourstream.py and test_torch_chip_smoke_lowering.py,
+each a file of its own so that the pytest workers run them side by
+side."""
 
 import subprocess
 import sys
@@ -21,32 +25,12 @@ from shift_gcn_torch.inference import pipeline
 from shift_gcn_torch.inference.streaming import StreamingFallDetector
 from shift_gcn_torch.models.shift_gcn import config_from_reference_args
 from shift_gcn_torch.utils.checkpoint import state_dict_from_arrays
+from torch_chip_smoke_helpers import (  # noqa: F401 (fixtures)
+    rehearsal, training_rehearsal)
 
 ARGS = {"num_class": 2, "num_point": 33, "num_person": 1,
         "graph": "mediapipe_pose",
         "blocks": [[3, 8, 1, False], [8, 16, 2], [16, 16]]}
-FULL_ARGS = {"num_class": 2, "num_point": 33, "num_person": 1,
-             "graph": "mediapipe_pose"}
-
-
-@pytest.fixture
-def rehearsal(monkeypatch):
-    """chip_smoke at T=40, batches of 4 and 10 artifact clips, on the CPU;
-    returns the list its ``fail`` calls append to."""
-    failures = []
-    monkeypatch.setattr(chip_smoke, "T_WINDOW", 40)
-    monkeypatch.setattr(chip_smoke, "N_WINDOWS", 4)
-    monkeypatch.setattr(chip_smoke, "ARTIFACT_CLIPS", 10)
-    monkeypatch.setattr(chip_smoke, "fail", failures.append)
-    monkeypatch.setattr(chip_smoke, "time_ms",
-                        lambda fn, iters=10, reps=5: (fn(), 1.0)[1])
-    monkeypatch.setattr(chip_smoke, "profile_call", lambda *a, **k: None)
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
-    cpu = mock.Mock(return_value=torch.device("cpu"))
-    for module in ("inference.pipeline", "models.shift_gcn",
-                   "inference.export", "inference.serve"):
-        monkeypatch.setattr(f"shift_gcn_torch.{module}.resolve_device", cpu)
-    return failures
 
 
 def test_live_serving_phases_rehearse_on_cpu(rehearsal, capsys):
@@ -70,37 +54,6 @@ def test_live_serving_phases_rehearse_on_cpu(rehearsal, capsys):
     out = capsys.readouterr().out
     assert "max|logit - live| 0," in out
     assert out.count("[stream]") == 3 and out.count("[artifact]") == 2
-
-
-def test_fourstream_phase_rehearses_on_cpu(rehearsal, monkeypatch, capsys,
-                                           tmp_path):
-    """Phase 14 on configs/mediapipe/train_fourstream.yaml, the full-width
-    model at T=40, 2 steps of 4 clips and 6 validation clips."""
-    monkeypatch.setattr(chip_smoke, "TRAIN_CLIPS", 8)
-    monkeypatch.setattr(chip_smoke, "VAL_CLIPS", 6)
-    config_at = chip_smoke.training_config
-    monkeypatch.setattr(
-        chip_smoke, "training_config",
-        lambda *args: config_at(*args, "--batch_size", "4",
-                                "--test_batch_size", "4"))
-    cpu = mock.Mock(return_value=torch.device("cpu"))
-    monkeypatch.setattr("shift_gcn_torch.train.trainer.resolve_device", cpu)
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
-                        lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    monkeypatch.setattr("shift_gcn_torch.utils.device_guard.time.sleep",
-                        mock.Mock(side_effect=AssertionError("slept")))
-    launches, stats, step_ms = chip_smoke.run_fourstream(
-        np.random.default_rng(0), torch.device("cpu"), str(tmp_path),
-        "card")
-    # only the launch counts fail: the plain versions launch nothing
-    assert len(rehearsal) == 1, rehearsal
-    assert "four-stream launch counts" in rehearsal[0]
-    assert set(launches.values()) == {0}
-    assert len(stats["stream_losses"]) == 2 and step_ms == 1.0
-    out = capsys.readouterr().out
-    assert out.count("[fourstream]") == 1
-    assert "device guard healthy, a failing probe raised after 3" in out
 
 
 class _Scripted:
@@ -140,44 +93,6 @@ def test_chip_smoke_fails_without_cuda(tmp_path):
     assert proc.returncode != 0
     assert '"ok": true' not in proc.stdout
     assert "CUDA is not available" in proc.stderr
-
-
-@pytest.fixture
-def training_rehearsal(rehearsal, monkeypatch):
-    """``rehearsal`` with the Trainer and every family on the CPU, the
-    peak-memory reads stubbed and oneDNN off (its convolution backward
-    corrupts the heap once the reference package's XLA code has run in
-    the process, as other test files of a worker may have done)."""
-    cpu = mock.Mock(return_value=torch.device("cpu"))
-    for module in ("train.trainer", "models.stgcn", "models.ring_gnn"):
-        monkeypatch.setattr(f"shift_gcn_torch.{module}.resolve_device", cpu)
-    monkeypatch.setattr(torch.cuda, "reset_peak_memory_stats",
-                        lambda *a: None)
-    monkeypatch.setattr(torch.cuda, "max_memory_allocated", lambda *a: 0)
-    monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
-    return rehearsal
-
-
-def test_lowering_knob_phase_rehearses_on_cpu(training_rehearsal, capsys,
-                                              tmp_path):
-    """Phase 15 on the full-width MediaPipe model at T=40 and 4 clips."""
-    config = config_from_reference_args(FULL_ARGS)
-    out = chip_smoke.run_lowering_knobs(
-        config, np.random.default_rng(0), torch.device("cpu"),
-        str(tmp_path), 0, "card")
-    # six eval forwards and four steps: only their launch counts fail
-    assert len(training_rehearsal) == 10, training_rehearsal
-    assert all("launch counts" in msg for msg in training_rehearsal)
-    # the plain path against itself: no gap at all
-    assert out["xpos_fwd"] == out["far_fwd"] == out["far_fwd16"] == 0.0
-    assert out["xpos_step"] == out["far_step"] == 0.0
-    for label in ("bn_lp", "bn_lp_eval off", "fp32 + compute_dtype bf16"):
-        loss_gap, cos, rel, agree, fwd = out[label]
-        assert loss_gap == rel == fwd == 0.0 and agree == 1.0
-    printed = capsys.readouterr().out
-    assert printed.count("[knobs]") == 4
-    assert printed.count("[step] exact_xpos fp32") == 1
-    assert "|ypos| 12 loads under 16, refused under 8" in printed
 
 
 def test_ntu_phase_rehearses_on_cpu(training_rehearsal, monkeypatch, capsys,
@@ -367,3 +282,29 @@ def test_shift_demo_phase_rehearses_on_cpu(rehearsal, capsys):
             "grad_xpos zero, grad_input max|err| 0") in printed
     assert ("grad_ypos [0.01, 0.0001, 0.0001, -0.01, -0.01] equal, "
             "grad_xpos zero, grad_input max|err| 0") in printed
+
+
+def test_wide_timing_phase_rehearses_on_cpu(rehearsal, monkeypatch, capsys):
+    """Phase 22e at T=8 and V=34 with one clip: every kernel's row and
+    K6's two lines (fp32 and bf16 inputs, the bytes staged, no parent
+    build), the library yardsticks held to the plain versions."""
+    from shift_gcn_torch.models.shift_gcn import ModelConfig
+    from shift_gcn_torch.ops import shift_gcn_kernel as sk
+
+    monkeypatch.setattr(chip_smoke, "T_WINDOW", 8)
+    monkeypatch.setattr(torch.backends.mkldnn, "enabled", False)
+    totals = chip_smoke.time_wide_kernels(
+        34, 1, torch.Generator().manual_seed(0), np.random.default_rng(0),
+        torch.device("cpu"), "card")
+    assert rehearsal == []
+    assert set(totals) == set(chip_smoke.KERNEL_ROWS)
+    printed = capsys.readouterr().out
+    assert printed.count("[wide] 22e ") == len(chip_smoke.KERNEL_ROWS) + 2
+    shapes = chip_smoke.forward_shapes(ModelConfig(num_class=2), 8)[1]
+    for dtype, itemsize in (("float32", 4), ("bfloat16", 2)):
+        staged = sum(sk.wgrad_staged_bytes(t, 34, c, d, itemsize)
+                     for t, c, d in shapes)
+        line = next(x for x in printed.splitlines()
+                    if f"22e K6 at V=34, {dtype} inputs" in x)
+        assert f"this build 10.0000 ms staging {staged / 1e9:.4g} GB" in line
+        assert "the parent build not measured (no --k6-parent)" in line

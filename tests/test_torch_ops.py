@@ -833,7 +833,7 @@ def _shift_gcn_inputs(rng, r, v, c, d):
     return x, gate, w, b, g
 
 
-@pytest.mark.parametrize("v", [25, 33])
+@pytest.mark.parametrize("v", [25, 33, 40])
 @pytest.mark.parametrize("c,d", [(3, 8), (8, 16), (16, 8)])
 def test_wgrad_matches_pallas(interpret, v, c, d):
     # the launcher (its plain version on CPU tensors) against the JAX VJP,
@@ -876,55 +876,271 @@ TRAIN_WGRAD_SHAPES = [(19200, 3, 64), (19200, 64, 64), (19200, 64, 128),
 WIDE_JOINTS = (145, 256, 543)
 
 
-@pytest.mark.parametrize("v", (33,) + WIDE_JOINTS)
-@pytest.mark.parametrize("r,c,d", TRAIN_WGRAD_SHAPES)
-def test_wgrad_split_covers_r(r, c, d, v):
-    # every frame in exactly one chunk, chunks whole bf16 stages, one wave
-    # of at most 132 blocks on the card, or one chunk where the tiles
-    # alone (joint groups x c tiles x d tiles) fill more than a wave
-    parts, chunk = shift_gcn_kernel.wgrad_split(r, v, c, d)
-    assert chunk % 16 == 0
-    assert (parts - 1) * chunk < r <= parts * chunk
+def _wave_fill(parts, r, v, c, d):
+    """(blocks, share of the last wave's SMs those blocks keep busy)."""
     tiles = (-(-v // shift_gcn_kernel.WGRAD_GROUP)
              * -(-c // 32) * -(-d // 32))
     blocks = parts * tiles
-    assert 64 < blocks
-    assert blocks <= shift_gcn_kernel.WGRAD_BLOCKS or (
-        parts == 1 and tiles > shift_gcn_kernel.WGRAD_BLOCKS // 2)
+    waves = -(-blocks // shift_gcn_kernel.WGRAD_BLOCKS)
+    return blocks, blocks / (waves * shift_gcn_kernel.WGRAD_BLOCKS)
 
 
-def _wgrad_geometry(v):
-    """K6's joint groups (csrc/shift_gcn.cu: wg_geom): (groups, joints a
-    group, rows of the staged window)."""
-    groups = -(-v // shift_gcn_kernel.WGRAD_GROUP)
-    joints = -(-v // groups)
-    return groups, joints, min(v, joints + shift_gcn_kernel.WGRAD_TILE - 1)
+@pytest.mark.parametrize("v", (33,) + WIDE_JOINTS)
+@pytest.mark.parametrize("r,c,d", TRAIN_WGRAD_SHAPES)
+def test_wgrad_split_covers_r(r, c, d, v):
+    # every frame in exactly one chunk, chunks whole bf16 stages; one
+    # joint group: one wave of at most 132 blocks; joint groups: waves of
+    # 132 blocks, the last at least 90% full
+    parts, chunk = shift_gcn_kernel.wgrad_split(r, v, c, d)
+    assert chunk % 16 == 0
+    assert (parts - 1) * chunk < r <= parts * chunk
+    blocks, fill = _wave_fill(parts, r, v, c, d)
+    if v <= shift_gcn_kernel.WGRAD_GROUP:
+        assert 64 < blocks <= shift_gcn_kernel.WGRAD_BLOCKS
+    else:
+        assert fill >= shift_gcn_kernel.WGRAD_WAVE_FILL
+
+
+# (T, C, D) of the default backbone's launches
+BACKBONE_WGRAD_SHAPES = [(300, 3, 64), (300, 64, 64), (300, 64, 128),
+                         (150, 128, 128), (150, 128, 256), (75, 256, 256)]
+# (parts, chunk) of those launches at V <= 33 before the joint groups'
+# split, by clips a launch: the split of the one-group path, pinned
+ONE_GROUP_SPLITS = {
+    8: [(50, 48), (30, 80), (15, 160), (8, 160), (4, 304), (2, 304)],
+    64: [(64, 304), (33, 592), (16, 1200), (8, 1200), (4, 2400),
+         (2, 2400)]}
+
+
+@pytest.mark.parametrize("clips", [8, 64])
+@pytest.mark.parametrize("v", [25, 33])
+def test_wgrad_split_pinned_at_one_group(v, clips):
+    # V <= 33 keeps its split, so its summation order, bit for bit
+    assert [shift_gcn_kernel.wgrad_split(clips * t, v, c, d)
+            for t, c, d in BACKBONE_WGRAD_SHAPES] == ONE_GROUP_SPLITS[clips]
+
+
+@pytest.mark.parametrize("clips", [8, 64])
+@pytest.mark.parametrize("v", WIDE_JOINTS)
+def test_wgrad_split_fills_waves(v, clips):
+    # past one joint group every backbone launch fills whole waves of 132
+    # blocks or leaves under 10% of the last one idle, in chunks of whole
+    # bf16 stages; no split with the same fill runs fewer waves x frames
+    for t, c, d in BACKBONE_WGRAD_SHAPES:
+        r = clips * t
+        parts, chunk = shift_gcn_kernel.wgrad_split(r, v, c, d)
+        blocks, fill = _wave_fill(parts, r, v, c, d)
+        assert chunk % 16 == 0 and (parts - 1) * chunk < r <= parts * chunk
+        assert fill >= 0.9, (t, c, d, parts, chunk, blocks)
+        cost = -(-blocks // 132) * (chunk + 32)
+        for other in range(16, r + 16, 16):
+            p = -(-r // other)
+            b, f = _wave_fill(p, r, v, c, d)
+            assert f < 0.9 or -(-b // 132) * (other + 32) >= cost
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+def test_wgrad_strips_fit_and_spread_banks(itemsize):
+    # the joint groups' layout (csrc wg_layout) fits one block's 227 KiB
+    # with its two stages at every V past one group, as the launcher
+    # requires; each fragment load of a warp (lanes along 8 channels and
+    # 4 frames) meets no bank conflict in fp32 and at most a 2-way one in
+    # bf16
+    for v in range(34, 2048):
+        lay = shift_gcn_kernel.wgrad_layout(v, itemsize)
+        assert lay["smem"] <= shift_gcn_kernel.WGRAD_SMEM_MAX, v
+        assert lay["joints"] + lay["width"] - 1 <= lay["rows"] <= v
+        assert lay["rows"] % 2 == 1 and lay["ss"] * itemsize % 128 == 0
+    for v in (34, 145, 543):
+        lay = shift_gcn_kernel.wgrad_layout(v, itemsize)
+        kw, fs, ss = lay["width"], lay["fs"], lay["ss"]
+        gq, tq = np.arange(32) // 4, np.arange(32) % 4
+        # fp32: frames tq (and tq + 4); bf16: frames 2 tq (and 2 tq + 1)
+        frame = tq if itemsize == 4 else 2 * tq
+        for uu in range(lay["joints"]):
+            for cb in range(0, 32, 8):
+                at = (frame * fs + (cb // kw) * ss + (cb % kw) * (kw + 1)
+                      + uu * kw + gq * (kw + 1))
+                words = at * itemsize // 4
+                conflicts = max(len(set(words[(words % 32) == bank]))
+                                for bank in range(32))
+                assert conflicts <= (1 if itemsize == 4 else 2), (v, uu, cb)
+
+
+def _stage_strips(src, f0, f_end, base, ch0, lay, writes):
+    """One slab of csrc wg_stage_strips (and of its tensor copies, which
+    land the same elements): kF frames of a joint group's strips of src
+    (R, V, n), flat [strip * ss + frame * fs + row * kW + e]; ``writes``
+    counts the positions written."""
+    r, v, n = src.shape
+    kw, rows, fs, kf = lay["width"], lay["rows"], lay["fs"], lay["frames"]
+    ss = lay["ss"]
+    out = np.zeros(32 // kw * ss, src.dtype)
+    for f in range(kf):
+        for k in range(32 // kw):
+            ch_k = ch0 + k * kw
+            if ch_k >= n:
+                continue
+            rb = base + k * kw
+            rb -= v if rb >= v else 0
+            row = rb + np.arange(rows)
+            row -= np.where(row >= v, v, 0)
+            assert (row < v).all()
+            e = np.arange(min(kw, n - ch_k))
+            at = k * ss + f * fs + np.arange(rows)[:, None] * kw + e
+            assert at.max() < k * ss + (f + 1) * fs <= (k + 1) * ss
+            writes[at] += 1
+            if f0 + f < f_end:
+                out[at] = src[f0 + f, row[:, None], ch_k + e]
+    return out
+
+
+def _wgrad_strips_emulated(x, g, gate, w, d0, itemsize):
+    """K6 past one joint group in numpy: the split, the blocks (chunk,
+    joint group, c tile, d tile), each stage's strips staged as the
+    kernel stages them and read at its fragment offsets, a stage's
+    products summed and added to fp32 sums, the epilogue's partials and
+    the final sums in the kernel's order.  Returns (dgate, dw, dbias) and
+    how often each (frame, joint, c, d) product was summed."""
+    r, v, c = x.shape
+    d = w.shape[1]
+    lay = shift_gcn_kernel.wgrad_layout(v, itemsize)
+    groups, joints, kw = lay["groups"], lay["joints"], lay["width"]
+    fs, kf, ss = lay["fs"], lay["frames"], lay["ss"]
+    parts, chunk = shift_gcn_kernel.wgrad_split(r, v, c, d)
+    c_tiles, d_tiles = -(-c // 32), -(-d // 32)
+    count = np.zeros((r, v, c, d), np.uint8)
+    dw_part = np.zeros((parts, groups, c, d), np.float32)
+    dgate_part = np.zeros((parts, d_tiles, v, c), np.float32)
+    bias_part = np.zeros((parts, groups, d), np.float32)
+    # fragment channel cb + gq of joint uu: strip_at(cb, uu)
+    cc = np.arange(32)
+    cb, gq = cc - cc % 8, cc % 8
+    for p in range(parts):
+        f_begin, f_end = p * chunk, min(r, (p + 1) * chunk)
+        for jg in range(groups):
+            u0 = jg * joints
+            nj = min(joints, v - u0)
+            uu = np.arange(nj)[:, None]
+            at = (cb // kw) * ss + (cb % kw) * (kw + 1) + uu * kw + gq * (
+                kw + 1)
+            for cti in range(c_tiles):
+                for dti in range(d_tiles):
+                    c0, e0 = 32 * cti, 32 * dti
+                    nc, nd = min(32, c - c0), min(32, d - e0)
+                    base_x = (u0 + c0) % v
+                    base_g = (u0 + d0 % v + e0) % v
+                    acc = np.zeros((nj, 32, 32), np.float32)
+                    bacc = np.zeros(32, np.float32)
+                    for f0 in range(f_begin, f_end, kf):
+                        writes = np.zeros((2, 32 // kw * ss), np.int32)
+                        xs = _stage_strips(x, f0, f_end, base_x, c0, lay,
+                                           writes[0])
+                        gs = _stage_strips(g, f0, f_end, base_g, e0, lay,
+                                           writes[1])
+                        assert writes.max() <= 1
+                        frames = np.arange(kf)[:, None, None] * fs
+                        a = xs[frames + at]  # (kf, nj, 32)
+                        b = gs[frames + at]
+                        live = min(kf, f_end - f0)
+                        rr = np.arange(f0, f0 + live)[:, None, None]
+                        us = (u0 + uu)[None]
+                        np.testing.assert_array_equal(
+                            a[:live, :, :nc],
+                            x[rr, (us + c0 + cc[:nc]) % v, c0 + cc[:nc]])
+                        np.testing.assert_array_equal(
+                            b[:live, :, :nd], g[rr, (us + d0 + e0
+                                                     + cc[:nd]) % v,
+                                                e0 + cc[:nd]])
+                        count[f0:f0 + live, u0:u0 + nj, c0:c0 + nc,
+                              e0:e0 + nd] += 1
+                        stage = np.einsum("fuc,fud->ucd", a.astype(
+                            np.float64), b.astype(np.float64))
+                        acc = (acc + stage.astype(np.float32)).astype(
+                            np.float32)
+                        if cti == 0:
+                            bacc = (bacc + b.sum((0, 1), dtype=np.float32)
+                                    ).astype(np.float32)
+                    m = acc[:, :nc, :nd]
+                    dgate_part[p, dti, u0:u0 + nj, c0:c0 + nc] = (
+                        m * w[c0:c0 + nc, e0:e0 + nd]).sum(
+                            -1, dtype=np.float32)
+                    warps = -(-nj // WGRAD_JOINTS_A_WARP)
+                    per_warp = [sum(gate[u0 + u, c0:c0 + nc, None] * m[u]
+                                    for u in range(wp, nj, warps))
+                                for wp in range(warps)]
+                    dw_p = per_warp[0]
+                    for part in per_warp[1:]:
+                        dw_p = (dw_p + part).astype(np.float32)
+                    dw_part[p, jg, c0:c0 + nc, e0:e0 + nd] = dw_p
+                    if cti == 0:
+                        bias_part[p, jg, e0:e0 + nd] = bacc[:nd]
+    final = [np.zeros((v, c), np.float32), np.zeros((c, d), np.float32),
+             np.zeros(d, np.float32)]
+    for k in range(parts * d_tiles):
+        final[0] = (final[0] + dgate_part.reshape(-1, v, c)[k]).astype(
+            np.float32)
+    for k in range(parts * groups):
+        final[1] = (final[1] + dw_part.reshape(-1, c, d)[k]).astype(
+            np.float32)
+        final[2] = (final[2] + bias_part.reshape(-1, d)[k]).astype(
+            np.float32)
+    return final, count
+
+
+@pytest.mark.parametrize("itemsize", [4, 2])
+@pytest.mark.parametrize("d0_tiles", [0, 1])
+@pytest.mark.parametrize("v", [34, 70, 145, 543])
+def test_wgrad_strips_emulation_matches_plain(v, d0_tiles, itemsize):
+    # K6 past one joint group (csrc wgrad_partial_kernel<T, true>): each
+    # (frame, joint, c, d) product summed exactly once across blocks,
+    # stages and the split, every staged strip element the shear's, and
+    # the sums within fp32 tolerance of the plain version, at d0 = 0 and
+    # d0 = D (a rank's slice of a layer twice as wide); C = 40 and D = 20
+    # leave ragged tiles, R = 24 a ragged chunk or stage
+    rng = np.random.default_rng(v + 7 * d0_tiles + itemsize)
+    r, c, d = 24, 40, 20
+    x, gate, w, _, g = _shift_gcn_inputs(rng, r, v, c, d)
+    if itemsize == 2:  # the values a bf16 input holds
+        x, g = (torch.from_numpy(a).bfloat16().float().numpy()
+                for a in (x, g))
+    d0 = d0_tiles * d
+    got, count = _wgrad_strips_emulated(x, g, gate, w, d0, itemsize)
+    np.testing.assert_array_equal(count, 1)
+    want = shift_gcn_kernel.shift_gcn_wgrad(
+        *map(torch.from_numpy, (x, g, gate, w)), d0)
+    for name, a, ref in zip(("dgate", "dw", "dbias"), got, want):
+        scale = max(1.0, float(ref.abs().max()))
+        np.testing.assert_allclose(a, ref.numpy(), rtol=0,
+                                   atol=FP32_TOL * scale, err_msg=name)
 
 
 @pytest.mark.parametrize("v", WIDE_JOINTS)
 def test_wgrad_groups_stage_the_shear(v):
-    # each joint in one group; a stage of 8 fp32 (16 bf16) frames of the
-    # x and g windows, 32 elements a row and 8 after each frame, fits one
-    # block's 227 KiB whatever V; and the window's slot uu + k, staged
-    # from (u0 + c0) % V as it wraps, is the shear's joint
-    # (u0 + uu + c0 + k) % V
-    groups, joints, window = _wgrad_geometry(v)
-    assert (groups - 1) * joints < v <= groups * joints
-    assert joints <= shift_gcn_kernel.WGRAD_GROUP and window <= 64
-    for frames, itemsize in ((8, 4), (16, 2)):
-        assert 2 * frames * (window * 32 + 8) * itemsize <= 232448
+    # each joint in one group of at most 33; a strip k of 32 // itemsize
+    # channels, staged from row (u0 + c0 + k kW) % V as it wraps, holds at
+    # strip_at(cb, uu) (csrc wgrad_partial_kernel) the shear's element
+    # x[(u0 + uu + c0 + cb + gq) % V, c0 + cb + gq]
     rng = np.random.default_rng(v)
-    x = rng.standard_normal((3, v, 64))
-    k = np.arange(32)[None]
-    for jg in range(groups):
-        u0 = jg * joints
-        uu = np.arange(min(joints, v - u0))[:, None]
-        for c0 in (0, 32):
-            staged = x[:, (u0 + c0 + np.arange(window)) % v, c0:c0 + 32]
-            slot = uu + k % window
-            slot -= np.where(slot >= window, window, 0)
-            np.testing.assert_array_equal(
-                staged[:, slot, k], x[:, (u0 + uu + c0 + k) % v, c0 + k])
+    x = rng.standard_normal((3, v, 64)).astype(np.float32)
+    for itemsize in (4, 2):
+        lay = shift_gcn_kernel.wgrad_layout(v, itemsize)
+        groups, joints, kw = lay["groups"], lay["joints"], lay["width"]
+        ss = lay["ss"]
+        assert (groups - 1) * joints < v <= groups * joints
+        assert joints <= shift_gcn_kernel.WGRAD_GROUP
+        cc = np.arange(32)
+        cb, gq = cc - cc % 8, cc % 8
+        for jg in range(groups):
+            u0 = jg * joints
+            uu = np.arange(min(joints, v - u0))[:, None]
+            at = (cb // kw) * ss + (cb % kw) * (kw + 1) + uu * kw + gq * (
+                kw + 1)
+            for c0 in (0, 32):
+                staged = _stage_strips(x, 0, 3, (u0 + c0) % v, c0, lay,
+                                       np.zeros(32 // kw * ss, np.int32))
+                np.testing.assert_array_equal(
+                    staged[at], x[0, (u0 + uu + c0 + cc) % v, c0 + cc])
 
 
 def _rz32(v: np.ndarray) -> np.ndarray:
