@@ -14,7 +14,8 @@ port's or the reference's ``.pt`` / ``.pkl`` files, one per modality
 (``auto_detect_checkpoints`` finds them under a save-models root), or
 one four-stream checkpoint of the port's trainer
 (``EnsemblePredictor.from_fourstream_checkpoint``); the models run on
-CUDA unless the caller passes ``device="cpu"``.
+CUDA unless the caller passes ``device="cpu"``.  A report's stages are
+timed as the ``serve.*`` spans of ``utils/trace.py``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from shift_gcn_torch.data.preprocess import pre_normalization
 from shift_gcn_torch.ensemble import DEFAULT_ALPHA
 from shift_gcn_torch.graphs import get_graph
 from shift_gcn_torch.models.shift_gcn import Model, ModelConfig
+from shift_gcn_torch.utils import trace
 from shift_gcn_torch.utils.checkpoint import (
     _CHECKPOINT_NAME, latest_checkpoint, load_fourstream_checkpoint,
     load_reference_checkpoint)
@@ -175,18 +177,23 @@ class EnsemblePredictor:
     def predict(self, windows: np.ndarray) -> np.ndarray:
         """windows: (W, C, T, V, M) pre-normalized joint windows ->
         (W, num_class) ensembled probabilities."""
-        mods = derive_modalities(windows, self.graph)
+        with trace.span("serve.modalities"):
+            mods = derive_modalities(windows, self.graph)
         total = None
         with torch.inference_mode():
             for modality in MODALITY_ORDER:
                 if modality not in self._models:
                     continue
-                x = torch.from_numpy(
-                    np.ascontiguousarray(mods[modality], np.float32)
-                ).to(self.device)
-                weighted = self._models[modality](x) * self.alpha[modality]
-                total = weighted if total is None else total + weighted
-            return torch.softmax(total, dim=-1).cpu().numpy()
+                with trace.span("serve.h2d"):
+                    x = torch.from_numpy(
+                        np.ascontiguousarray(mods[modality], np.float32)
+                    ).to(self.device)
+                with trace.span("serve.forward"):
+                    weighted = (self._models[modality](x)
+                                * self.alpha[modality])
+                    total = weighted if total is None else total + weighted
+            with trace.span("serve.readback"):
+                return torch.softmax(total, dim=-1).cpu().numpy()
 
 
 def build_report(
@@ -218,14 +225,18 @@ def run_on_landmarks(
     threshold: float = 0.5,
 ) -> Dict:
     """Landmarks (3, T, 33, 1) -> fall report dict."""
-    total_frames = landmarks.shape[1]
-    windows, spans = create_sliding_windows(landmarks, window, stride)
-    batch = pre_normalization(
-        windows.copy(),
-        zaxis=predictor.graph.zaxis, xaxis=predictor.graph.xaxis,
-        center_joint=list(predictor.graph.center_joint))
-    probs = predictor.predict(batch)
-    return build_report(probs[:, 1], spans, total_frames, threshold)
+    with trace.span("serve.report"):
+        total_frames = landmarks.shape[1]
+        with trace.span("serve.windows"):
+            windows, spans = create_sliding_windows(landmarks, window,
+                                                    stride)
+        with trace.span("serve.pre_normalization"):
+            batch = pre_normalization(
+                windows.copy(),
+                zaxis=predictor.graph.zaxis, xaxis=predictor.graph.xaxis,
+                center_joint=list(predictor.graph.center_joint))
+        probs = predictor.predict(batch)
+        return build_report(probs[:, 1], spans, total_frames, threshold)
 
 
 def _has_modality(name: str, modality: str) -> bool:

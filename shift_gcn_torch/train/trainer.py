@@ -110,7 +110,7 @@ from shift_gcn_torch.train import fourstream
 from shift_gcn_torch.train import state as state_lib
 from shift_gcn_torch.train.optim import build_optimizer, step_decay_lr
 from shift_gcn_torch.utils import checkpoint as ckpt_lib
-from shift_gcn_torch.utils import device_guard
+from shift_gcn_torch.utils import device_guard, trace
 from shift_gcn_torch.utils.device import resolve_device
 from shift_gcn_torch.utils.logging import RunLogger
 
@@ -569,43 +569,44 @@ class Trainer:
     def train_epoch(self, epoch: int) -> Dict[str, float]:
         """One epoch; the prefetch thread takes step b+1's batch from the
         iterator's producer thread and starts its copy while step b runs
-        (reference package trainer.py:555-588).  The ``dataloader`` time
-        is the wait for that thread's batch.  The run's first epoch is
-        traced through step ``profile_steps`` under ``profile_dir``."""
+        (reference package trainer.py:555-588).  The epoch is timed as
+        the ``train.*`` spans of ``utils/trace.py``; ``dataloader_share``
+        is the share of the epoch spent before the first batch was in
+        hand (``train.epoch_start``) and waiting for each later one
+        (``train.feeder_wait``).  The run's first epoch is traced through
+        step ``profile_steps`` under ``profile_dir``."""
         cfg = self.cfg
-        self.logger.log(f"Training epoch: {epoch + 1}")
-        lr = step_decay_lr(epoch, cfg.base_lr, cfg.step, cfg.warm_up_epoch)
-        it = self.iterators["train"]
-        nb = it.batches_per_epoch()
-        batches = it.epoch(epoch)
 
         def fetch_next():
             for data, label, _, _ in batches:
                 return self.transfer.stage(*self._local(data, label))
             return None
 
-        timer = {"dataloader": 1e-3, "model": 1e-3}
         # per-step metrics stay on the device until the epoch ends: reading
         # one would wait for the device every step
         losses, accs = [], []
-        profiler = (self._start_profiler()
-                    if cfg.profile_dir and epoch == self.start_epoch
-                    else None)
-        t0 = time.time()
+        t0 = time.perf_counter_ns()
         # closing: a step that raises stops the producer thread too
-        with closing(batches), ThreadPoolExecutor(max_workers=1) as pool:
-            pending = pool.submit(fetch_next)
+        with ExitStack() as stack:
+            with trace.span("train.epoch_start") as opening:
+                self.logger.log(f"Training epoch: {epoch + 1}")
+                lr = step_decay_lr(epoch, cfg.base_lr, cfg.step,
+                                   cfg.warm_up_epoch)
+                it = self.iterators["train"]
+                nb = it.batches_per_epoch()
+                batches = stack.enter_context(closing(it.epoch(epoch)))
+                profiler = (self._start_profiler()
+                            if cfg.profile_dir and epoch == self.start_epoch
+                            else None)
+                pool = stack.enter_context(ThreadPoolExecutor(max_workers=1))
+                staged = pool.submit(fetch_next).result()
+            waited_ns = opening.ns
             b = 0
-            while True:
-                mark = time.time()
-                staged = pending.result()
-                now = time.time()
-                timer["dataloader"] += now - mark
-                if staged is None:
-                    break
+            while staged is not None:
                 pending = pool.submit(fetch_next)
-                loss, acc = self._train_step(self.transfer.receive(staged),
-                                             lr)
+                with trace.span("train.step"):
+                    loss, acc = self._train_step(
+                        self.transfer.receive(staged), lr)
                 losses.append(loss)
                 accs.append(acc)
                 if profiler is not None:
@@ -623,16 +624,17 @@ class Trainer:
                     self.logger.log(f"\tBatch({b}/{nb}) done. Loss: "
                                     f"{np.mean(streams):.4f}  "
                                     f"lr:{lr:.6f}{extra}")
-                timer["model"] += time.time() - now
                 b += 1
+                with trace.span("train.feeder_wait") as wait:
+                    staged = pending.result()
+                waited_ns += wait.ns
         if profiler is not None:  # an epoch shorter than profile_steps
             self._write_trace(profiler)
-        mark = time.time()
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        timer["model"] += time.time() - mark
-        dt = time.time() - t0
-        per_step = torch.stack(losses).cpu().numpy() if losses else None
+        with trace.span("train.epoch_end"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            per_step = torch.stack(losses).cpu().numpy() if losses else None
+        dt = (time.perf_counter_ns() - t0) * 1e-9
         # under fourstream a step's loss is the mean over the streams, as
         # the reference package logs it
         losses = [] if per_step is None else (
@@ -641,16 +643,16 @@ class Trainer:
                 if accs else [])
         mean_loss = float(np.mean(losses)) if losses else float("nan")
         mean_acc = float(np.mean(accs)) if accs else float("nan")
-        total = sum(timer.values())
-        proportion = {k: f"{int(round(v * 100 / total)):02d}%"
-                      for k, v in timer.items()}
+        share = waited_ns * 1e-9 / dt
+        proportion = {k: f"{int(round(v * 100)):02d}%"
+                      for k, v in (("dataloader", share),
+                                   ("model", 1.0 - share))}
         clips = nb * cfg.batch_size * self.hosts
         self.logger.log(
             f"\tMean training loss: {mean_loss:.4f}  acc: {mean_acc:.4f}  "
-            f"({clips / max(dt, 1e-9):.1f} clips/s)  time: {proportion}")
+            f"({clips / dt:.1f} clips/s)  time: {proportion}")
         stats = {"loss": mean_loss, "acc": mean_acc, "losses": losses,
-                 "clips_per_sec": clips / max(dt, 1e-9),
-                 "dataloader_share": timer["dataloader"] / total}
+                 "clips_per_sec": clips / dt, "dataloader_share": share}
         if self.fourstream and per_step is not None:
             stats["stream_losses"] = per_step.tolist()
         return stats
