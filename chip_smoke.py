@@ -1,6 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--k6-parent SHIFT_GCN_CU]
+    python3 chip_smoke.py [--seed N] [--k6-parent SHIFT_GCN_CU] [--bn-only]
 
 Phases, in order; any failure exits non-zero:
 
@@ -119,7 +119,8 @@ Phases, in order; any failure exits non-zero:
    model (128 skeleton rows a batch); prints the step and forward times
    (CUDA events) and the step's peak memory;
 17. the other families, each through ``Trainer.start()`` for 4 steps
-   with eval and save, launching none of the port's kernels, and held
+   with eval and save, launching none of the port's Shift-GCN kernels
+   (ST-GCN's train-mode BNs launch theirs), and held
    from its seeded init against the same module on the CPU and on the
    CPU in float64, with the same weights and clips (``card_vs_cpu``:
    logits within 1e-4 of scale of the CPU's; each gradient's relative
@@ -177,23 +178,24 @@ Phases, in order; any failure exits non-zero:
    which the gates must catch.  Prints the step times (gathers through
    host memory: not a scaling figure) and peak memory per rank;
 20. the edge partition on this card, its ranks sharing it over gloo and
-   launching none of the port's kernels: (a) ``Trainer.start()`` on
-   ``configs/stgcn_edges.yaml`` unchanged in model (full-width ST-GCN,
-   fp32) and batch (16, T=300), its mesh [2, 4] cut on the data axis to
-   [1, 4] (``gather``, 4 ranks), 2 steps with eval and save: equal
-   finite losses on every rank, one checkpoint, which evaluated in this
-   process alone (the edge partition off) scores within EDGE_SCORE_GATE
-   of the run's scores with every prediction equal; (b) one fp32 step
-   of that model and batch from the seeded init at [1, 4] and [2, 2]
-   against the one-process step: the loss within EDGE_LOSS_TOL
-   relative, each gradient by phase 17's rule against the one-process
-   float64 step (GRAD_RATIO x the one-process fp32 step's relative L2
-   gap + GRAD_FLOOR; the biases a train-mode BN cancels within 5e-4 of
-   their weight gradient's scale); (c) ``configs/synthetic_ring.yaml``
-   unchanged through ``Trainer.start()`` at its mesh [1, 8] (``ring``,
-   8 ranks, node shards of 32), 4 steps with eval and save, its
-   checkpoint scored in one process as (a), and one fp32 step against
-   the one-process step, logits and gradients within RING_TOL of scale;
+   launching none of the port's Shift-GCN kernels: (a)
+   ``Trainer.start()`` on ``configs/stgcn_edges.yaml`` unchanged in model
+   (full-width ST-GCN, fp32) and batch (16, T=300), its mesh [2, 4] cut
+   on the data axis to [1, 4] (``gather``, 4 ranks), 2 steps with eval
+   and save: equal finite losses on every rank, one checkpoint, which
+   evaluated in this process alone (the edge partition off) scores
+   within EDGE_SCORE_GATE of the run's scores with every prediction
+   equal; (b) one fp32 step of that model and batch from the seeded init
+   at [1, 4] and [2, 2] against the one-process step: the loss within
+   EDGE_LOSS_TOL relative, each gradient by phase 17's rule against the
+   one-process float64 step on the CPU (GRAD_RATIO x the one-process
+   fp32 step's relative L2 gap + GRAD_FLOOR; the biases a train-mode BN
+   cancels within 5e-4 of their weight gradient's scale); (c)
+   ``configs/synthetic_ring.yaml`` unchanged through ``Trainer.start()``
+   at its mesh [1, 8] (``ring``, 8 ranks, node shards of 32), 4 steps
+   with eval and save, its checkpoint scored in one process as (a), and
+   one fp32 step against the one-process step, logits and gradients
+   within RING_TOL of scale;
    (d) the steps again with each of EDGE_FAULTS planted (the partial
    sums' all-reduce with an identity backward; the ring's cotangents
    sent the forward's way), which the gates must catch.  Prints the
@@ -266,7 +268,21 @@ Phases, in order; any failure exits non-zero:
    skips both data stages, the joint stream resumes past its end with
    no epoch trained, four best-score pickles and the table, each
    stream's log naming ``cuda``; prints the phase's and each run's
-   seconds.
+   seconds;
+25. train-mode BN (``csrc/batchnorm.cu``) at every BN call of one train
+   step of the fall model (bf16 activations, data_bn fp32) and of NTU-60
+   (fp32), 64 clips x T=300: the forward's mean and inv within BN_TOL
+   of the plain version's, y bit-equal to the plain normalize given the
+   kernels' statistics and within BN_TOL of scale (2^-7 in bf16) of the
+   plain forward, the running statistics and the count, with lp also at
+   the bf16 shapes; the backward's dw and db within BN_TOL of the sum of
+   their terms' magnitudes and dx within BN_TOL of scale (2^-7 in bf16),
+   from the same statistics; every output bit-equal across two
+   launches; one train step of each model launching one BN forward and
+   one backward per train-mode BN; and the step's BN calls timed
+   forward and backward beside their bytes bound, the plain versions
+   and ``F.batch_norm`` (forward and backward).  ``--bn-only`` runs
+   phases 1, 2 and 25 alone.
 
 The last four lines are a JSON object with one entry per kernel (and,
 in each, its figures at V=543 from phase 22), a summary of the
@@ -321,6 +337,20 @@ FOURSTREAM_CONFIG = "configs/mediapipe/train_fourstream.yaml"
 NTU60_CONFIG = "configs/nturgbd-cross-subject/train_joint.yaml"
 STGCN_CONFIG = "configs/stgcn_edges.yaml"
 RING_CONFIG = "configs/synthetic_ring.yaml"
+BN_SOURCE = "shift_gcn_torch/csrc/batchnorm.cu"
+BN_KERNELS = ("batch_norm_train", "batch_norm_train_backward")
+# fp32: the kernels' sums against torch's, in another order: mean within
+# BN_TOL of E|x|, inv of itself (var ~ 4 against E[x^2] ~ 4.25 for the
+# N(0.5, 2) inputs: as well conditioned as the sums), dw and db of the sum
+# of their terms' magnitudes, y and dx of their scale, the running
+# statistics of theirs.  bf16 outputs: one rounding of the same fp32
+# value may land on the neighbouring bf16 (2^-7 of scale).
+BN_TOL = 1e-5
+# the models phase 25 takes its BN shapes and launch counts from: the
+# fall model as its Trainer runs it (bf16 activations), NTU-60 (fp32)
+BN_MODELS = (("fall", TRAIN_CONFIG), ("NTU-60", NTU60_CONFIG))
+
+
 # the edge-partition keys phase 17 drops from its configs (phase 20 keeps
 # them)
 MESH_KEYS = ("mesh_shape", "edge_partition", "edge_strategy")
@@ -349,16 +379,20 @@ TRAIN_CLIPS, VAL_CLIPS = 512, 128
 # launches per train step of the 10-unit model: each unit runs K1 twice
 # and K4 once forward; backward the fused K2+K3 once per K1, K5 once per
 # K4 (every unit's input needs its gradient: unit 1's is data_bn's
-# output), K6 once per K4
+# output), K6 once per K4; and one train-mode BN forward and backward per
+# BN: data_bn, three a unit, a down BN in units 1, 5 and 8 and a residual
+# BN in units 5 and 8
 PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
-            "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10}
+            "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10,
+            "batch_norm_train": 36, "batch_norm_train_backward": 36}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
 # a train step with ``remat`` (phase 21): each unit's forward runs again
-# in the backward, K1 and K4 with it; the backward kernels as PER_STEP.
-# The recomputation's early stop ends it at a unit's last saved tensor,
-# the output of its final ReLU, after both K1 launches and K4: it trims
-# no launch
-REMAT_STEP = dict(PER_STEP, temporal_shift=40, shift_gcn=20)
+# in the backward, K1, K4 and its 35 BNs (all but data_bn) with it; the
+# backward kernels as PER_STEP.  The recomputation's early stop ends it at
+# a unit's last saved tensor, the output of its final ReLU, after both K1
+# launches, K4 and every BN: it trims no launch
+REMAT_STEP = dict(PER_STEP, temporal_shift=40, shift_gcn=20,
+                  batch_norm_train=71)
 # live serving (phases 12, 13): a landmark track of 3 windows streamed at
 # hop == the offline stride, then at a tenth of a window for the latency;
 # an artifact scores ARTIFACT_CLIPS clips in batches of N_WINDOWS, the
@@ -375,6 +409,7 @@ PROFILE_GROUPS = (
     ("K5 dx", ("shift_gcn_mma_kernel<float, true",
                "shift_gcn_mma_kernel<__nv_bfloat16, true")),
     ("K6 weight gradients", ("wgrad_partial_kernel", "wgrad_final_kernel")),
+    ("train-mode BN", ("bnorm_",)),
     ("cuBLAS / cuDNN", ("gemm", "xmma", "cutlass", "sm90_", "convolve")),
     ("reductions", ("reduce_kernel",)),
     ("copies and casts", ("copy",)),
@@ -609,9 +644,10 @@ def shift_conv_library(x: torch.Tensor, ypos: torch.Tensor, stride: int):
 @contextmanager
 def plain_path(keep=()):
     """Route the raw kernel launchers (forward and backward, the fused
-    temporal-shift backward and its one-output forms) to their plain
-    versions, but those named in ``keep``; the autograd Functions around
-    them stay."""
+    temporal-shift backward and its one-output forms, train-mode BN's) to
+    their plain versions, but those named in ``keep``; the autograd
+    Functions around them stay."""
+    from shift_gcn_torch.ops import batchnorm as bn
     from shift_gcn_torch.ops import shift_gcn_kernel as sk
     from shift_gcn_torch.ops import spatial_shift as ss
     from shift_gcn_torch.ops import temporal_shift as ts
@@ -625,7 +661,11 @@ def plain_path(keep=()):
               ts.temporal_shift_position_grad_reference),
              (sk, "shift_gcn_forward", ss.shift_gcn_transform),
              (sk, "shift_gcn_dx", ss.shift_gcn_dx_reference),
-             (sk, "shift_gcn_wgrad", ss.shift_gcn_wgrad_reference))
+             (sk, "shift_gcn_wgrad", ss.shift_gcn_wgrad_reference),
+             (bn, "batch_norm_train_forward",
+              bn.batch_norm_train_forward_reference),
+             (bn, "batch_norm_train_backward",
+              bn.batch_norm_train_backward_reference))
     patches = [mock.patch.object(mod, name, fn) for mod, name, fn in swaps
                if name not in keep]
     for patch in patches:
@@ -1077,12 +1117,13 @@ def check_train_step(config, rng, dev, seed: int, prepare=None,
 
     loss, grads, raws = run()
     # The backward kernels against their plain versions on one forward: K4
-    # runs on both sides.  The train step turns any fp32-order difference
-    # in the forward into gradient differences of up to ~1e-3 of scale
-    # (ReLU inputs within roundoff of 0 flip; each flip moves one term of
-    # sums over ~6e5 terms): the whole plain path, and that path with
-    # 2^-22 noise on K4's output, show it below.
-    with plain_path(keep=("shift_gcn_forward",)):
+    # and the train-mode BN forward run on both sides.  The train step
+    # turns any fp32-order difference in the forward into gradient
+    # differences of up to ~1e-3 of scale (ReLU inputs within roundoff of 0
+    # flip; each flip moves one term of sums over ~6e5 terms): the whole
+    # plain path, and that path with 2^-22 noise on K4's output, show it
+    # below.
+    with plain_path(keep=("shift_gcn_forward", "batch_norm_train_forward")):
         loss_p, grads_p, raws_p = run()
     with plain_path():
         loss_full, grads_full, _ = run()
@@ -2651,9 +2692,10 @@ def train_family(config_path: str, data, labels, val, workdir: str,
     best = trainer.start()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    if any(kernels.LAUNCHES.values()):
-        fail(f"{config_path}: the family launched the port's kernels "
-             f"{kernels.LAUNCHES}")
+    if any(kernels.LAUNCHES[k] for k in kernels.LAUNCHES
+           if k not in BN_KERNELS):
+        fail(f"{config_path}: the family launched the port's Shift-GCN "
+             f"kernels {kernels.LAUNCHES}")
     losses = epochs[0]["losses"]
     if (len(losses) != len(labels) // batch_size
             or not np.isfinite(losses).all()):
@@ -2914,31 +2956,22 @@ def planted(fault: str):
     rank planting the same so that the collectives still pair:
     "reverse_halo" drops the reverse halo exchange (each rank keeps its
     own rows of the extended block's grad_input), "bn_backward" leaves
-    sync BN's statistics cotangents unaveraged over the ranks."""
-    import types
-
-    import torch.distributed as dist
-
+    sync BN's statistics cotangents unaveraged over the ranks (the train
+    BN backward's mean(dy) and mean(dy * xhat) kept each rank's own)."""
     from shift_gcn_torch.ops import batchnorm
-    from shift_gcn_torch.parallel import comm, halo
+    from shift_gcn_torch.parallel import halo
 
-    class Unaveraged(torch.autograd.Function):
-        @staticmethod
-        def forward(ctx, x, group):
-            return (comm.all_reduce_sum_(x.clone(), group)
-                    / dist.get_world_size(group))
+    backward = batchnorm.batch_norm_train_backward
 
-        @staticmethod
-        def backward(ctx, g):
-            return g, None
+    def unaveraged(*args, group=None, **kwargs):
+        return backward(*args, group=None, **kwargs)
 
     patch = {
         "reverse_halo": lambda: mock.patch.object(
             halo, "halo_return",
             lambda dx, lo, hi, mesh: dx[:, lo:dx.shape[1] - hi].clone()),
         "bn_backward": lambda: mock.patch.object(
-            batchnorm, "comm",
-            types.SimpleNamespace(all_reduce_mean=Unaveraged.apply)),
+            batchnorm, "batch_norm_train_backward", unaveraged),
     }[fault]()
     with patch:
         yield
@@ -3963,8 +3996,10 @@ def edge_step(settings: dict, family: str, mesh=None, strategy=None,
     kernels.reset_launches()
     loss = float(step()[0])
     hook.remove()
-    if any(kernels.LAUNCHES.values()):
-        fail(f"20: {family} launched the port's kernels {kernels.LAUNCHES}")
+    if any(kernels.LAUNCHES[k] for k in kernels.LAUNCHES
+           if k not in BN_KERNELS):
+        fail(f"20: {family} launched the port's Shift-GCN kernels "
+             f"{kernels.LAUNCHES}")
     grads = {n: p.grad.detach().cpu().double().numpy().copy()
              for n, p in model.named_parameters()}
     ms = elapsed_ms(step, dev) if timed else None
@@ -4007,9 +4042,10 @@ def edge_trainer(settings: dict, workdir: str, family: str, mesh):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     wall = time.perf_counter() - t0
-    if any(kernels.LAUNCHES.values()):
-        fail(f"20: the {family} Trainer launched the port's kernels "
-             f"{kernels.LAUNCHES}")
+    if any(kernels.LAUNCHES[k] for k in kernels.LAUNCHES
+           if k not in BN_KERNELS):
+        fail(f"20: the {family} Trainer launched the port's Shift-GCN "
+             f"kernels {kernels.LAUNCHES}")
     tmesh = trainer.mesh
     return {"losses": epochs[0]["losses"] if epochs else [],
             "clips_per_sec": epochs[0]["clips_per_sec"] if epochs else None,
@@ -4167,8 +4203,9 @@ def run_edge_partition(rng, dev, workdir: str, card: str, seed: int,
                             "batch": EDGE_BATCH, "t": T_WINDOW}
     # the one-process references, fp32 and (ST-GCN) float64
     loss32, _, grads32, one_ms, one_peak = edge_step(settings, "stgcn")
-    grads64 = edge_step(settings, "stgcn", dtype=torch.float64,
-                        timed=False)[2]
+    # float64 on the CPU: the card's train-mode BN takes fp32, bf16, fp16
+    grads64 = edge_step(dict(settings, device="cpu"), "stgcn",
+                        dtype=torch.float64, timed=False)[2]
     ref = {"loss": loss32, "grads": grads32, "grads64": grads64}
     want_config = repr(edge_model(settings, "stgcn", "cpu").config)
 
@@ -5327,6 +5364,266 @@ def run_runbook(workdir: str, card: str) -> dict:
     return {"first_s": first_s, "rerun_s": second_s}
 
 
+# ---------------------------------------------------------------------------
+# Train-mode BN (phase 25)
+# ---------------------------------------------------------------------------
+
+def bn_model(config_path: str, dev):
+    """The train-mode model of ``config_path``'s model_args and
+    activation dtype, seeded init."""
+    from shift_gcn_torch.models.shift_gcn import (
+        Model, config_from_reference_args)
+    from shift_gcn_torch.train.config import load_config
+
+    base = load_config(["--config", config_path])
+    config = dataclasses.replace(
+        config_from_reference_args(base.model_args),
+        activation_dtype=base.activation_dtype)
+    model = Model(config, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    return model.train()
+
+
+def bn_calls(model, x):
+    """Every train-mode BN call of one forward of ``model`` on ``x``, in
+    call order: (input shape, dtype, feature_dims, whether its input
+    needs a gradient in training: all but data_bn's, whose input is the
+    clips)."""
+    from shift_gcn_torch.ops.batchnorm import BatchNorm
+
+    calls = []
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: calls.append((tuple(args[0].shape), args[0].dtype,
+                                        mod.feature_dims,
+                                        mod is not model.data_bn)))
+             for m in model.modules() if isinstance(m, BatchNorm)]
+    with torch.no_grad():
+        model(x)
+    for hook in hooks:
+        hook.remove()
+    return calls
+
+
+def bn_bytes(shape, dtype, want_dx: bool):
+    """Bytes of one call each way, each input read and each output written
+    once: forward x and y; backward x and dy, and dx where it is wanted."""
+    size = int(np.prod(shape)) * torch.empty((), dtype=dtype).element_size()
+    return 2 * size, (3 if want_dx else 2) * size
+
+
+def check_bn_case(shape, dtype, fd: int, want_dx: bool, lp: bool, gen, dev,
+                  label: str):
+    """The kernels against their plain versions at one call's shape, on
+    N(0.5, 2) inputs: forward (mean and inv, y, the running statistics and
+    the count), y bit-equal to the plain normalize given the kernels'
+    statistics, backward (dx where wanted, dw, db) from the same
+    statistics, and every output bit-equal across two launches.  Returns
+    the inputs for the timings."""
+    from shift_gcn_torch.ops import batchnorm as bn
+
+    f = int(np.prod(shape[len(shape) - fd:]))
+    dims = tuple(range(len(shape) - fd))
+    feat = shape[len(shape) - fd:]
+    x = (torch.randn(shape, generator=gen, device=dev) * 2 + 0.5).to(dtype)
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    w = torch.rand(f, generator=gen, device=dev) + 0.5
+    b = torch.randn(f, generator=gen, device=dev)
+    rm0 = torch.randn(f, generator=gen, device=dev) * 0.1
+    rv0 = torch.rand(f, generator=gen, device=dev) + 0.5
+
+    def forward(launcher):
+        state = (rm0.clone(), rv0.clone(),
+                 torch.zeros((), dtype=torch.long, device=dev))
+        y, mean_inv = launcher(x, w, b, *state, feature_dims=fd, lp=lp)
+        return (y, mean_inv) + state
+
+    got, again = forward(bn.batch_norm_train_forward), \
+        forward(bn.batch_norm_train_forward)
+    want = forward(bn.batch_norm_train_forward_reference)
+    grads = [bn.batch_norm_train_backward(x, dy, got[1], w, feature_dims=fd,
+                                          want_dx=want_dx)
+             for _ in range(2)]
+    grad_want = bn.batch_norm_train_backward_reference(
+        x, dy, got[1], w, feature_dims=fd, want_dx=want_dx)
+    torch.cuda.synchronize()
+    where = f"25 {label} {tuple(shape)} {str(dtype)[6:]} F={f}" + (
+        " lp" if lp else "")
+    for name, a, c in zip(("y", "mean_inv", "running_mean", "running_var",
+                           "count"), got, again):
+        if not torch.equal(a, c):
+            fail(f"{where}: {name} differs between two launches")
+    for name, a, c in zip(("dx", "dw", "db"), *grads):
+        if not (a is None and c is None or torch.equal(a, c)):
+            fail(f"{where}: {name} differs between two launches")
+    y, mean_inv, rm, rv, count = got
+    mean, inv = mean_inv.unbind(0)
+    x32 = x.float()
+    abs_mean = x32.abs().mean(dims).reshape(-1)
+    errs = {"mean": float(((mean - want[1][0]).abs() / abs_mean).max()),
+            "inv": float(((inv - want[1][1]).abs() / want[1][1]).max())}
+    if not max(errs.values()) <= BN_TOL:
+        fail(f"{where}: statistics off the plain version's by {errs} of "
+             f"scale > {BN_TOL:g}")
+    plain_y = bn._normalize(x, mean.reshape(feat), inv.reshape(feat), w, b,
+                            feat, lp)
+    if not torch.equal(y, plain_y):
+        fail(f"{where}: y not bit-equal to the plain normalize on the "
+             f"kernels' statistics (max|err| {max_err(y, plain_y)[0]:.3g})")
+    tol = BN_TOL if dtype == torch.float32 else 2 ** -7
+    for name, a, c, t in (("y", y, want[0], tol),
+                          ("running_mean", rm, want[2], BN_TOL),
+                          ("running_var", rv, want[3], BN_TOL)):
+        err, scale = max_err(a, c)
+        if not err <= t * scale:
+            fail(f"{where}: {name} max|err| {err:.3g} > {t * scale:.3g}")
+        errs[name] = err / scale
+    if int(count) != 1 or int(want[4]) != 1:
+        fail(f"{where}: num_batches_tracked {int(count)}, plain "
+             f"{int(want[4])}, not 1")
+    dx, dw, db = grads[0]
+    if (dx is None) != (not want_dx):
+        fail(f"{where}: dx {'missing' if dx is None else 'not skipped'}")
+    g32 = dy.float()
+    xhat = (x32 - mean.reshape(feat)) * inv.reshape(feat)
+    for name, a, c, terms in (("db", db, grad_want[2], g32.abs()),
+                              ("dw", dw, grad_want[1], (g32 * xhat).abs())):
+        bound = BN_TOL * terms.sum(dims).reshape(-1)
+        ratio = float(((a - c).abs() / bound).max())
+        if not ratio <= 1.0:
+            fail(f"{where}: {name} off the plain version's by {ratio:.3g} "
+                 f"x {BN_TOL:g} of the sum of |terms|")
+        errs[name] = ratio * BN_TOL
+    if want_dx:
+        err, scale = max_err(dx, grad_want[0])
+        if not err <= tol * scale:
+            fail(f"{where}: dx max|err| {err:.3g} > {tol * scale:.3g}")
+        errs["dx"] = err / scale
+    return {"x": x, "dy": dy, "w": w, "b": b, "mean_inv": mean_inv,
+            "state": (rm, rv, count), "errs": errs}
+
+
+def time_bn_case(case, shape, dtype, fd: int, want_dx: bool):
+    """(kernel forward ms, kernel backward ms, plain ms, library ms) of one
+    call at ``case``'s inputs: the plain versions forward and backward,
+    and ``F.batch_norm`` forward and backward on x as (R, F), the library
+    yardstick that the port never calls."""
+    import torch.nn.functional as F
+
+    from shift_gcn_torch.ops import batchnorm as bn
+
+    x, dy, w, b, mean_inv = (case[k] for k in ("x", "dy", "w", "b",
+                                               "mean_inv"))
+    rm, rv, count = case["state"]
+    kw = {"feature_dims": fd}
+    fwd = time_ms(lambda: bn.batch_norm_train_forward(x, w, b, rm, rv, count,
+                                                      **kw))
+    bwd = time_ms(lambda: bn.batch_norm_train_backward(
+        x, dy, mean_inv, w, want_dx=want_dx, **kw))
+
+    def plain():
+        _, mi = bn.batch_norm_train_forward_reference(x, w, b, rm, rv, count,
+                                                      **kw)
+        bn.batch_norm_train_backward_reference(x, dy, mi, w,
+                                               want_dx=want_dx, **kw)
+
+    f = int(np.prod(shape[len(shape) - fd:]))
+    x2 = x.reshape(-1, f).detach().requires_grad_(want_dx)
+    dy2 = dy.reshape(-1, f)
+    w2, b2 = w.detach().requires_grad_(), b.detach().requires_grad_()
+    inputs = [t for t in (x2, w2, b2) if t.requires_grad]
+
+    def library():
+        out = F.batch_norm(x2, rm, rv, w2, b2, training=True)
+        torch.autograd.grad(out, inputs, dy2)
+
+    return fwd, bwd, time_ms(plain), time_ms(library)
+
+
+def run_batchnorm(gen, dev, card: str) -> dict:
+    """Phase 25: the train-mode BN kernels against their plain versions at
+    every BN call of one train step of each of BN_MODELS (N_WINDOWS clips
+    of T=T_WINDOW), with lp also on each bf16 shape; the launch counters of
+    one train step of each model (one forward and one backward launch per
+    train-mode BN); each call's time forward and backward summed over the
+    step beside its bytes bound, its plain version and F.batch_norm.
+    Returns {model: {...}} for the summary."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.train.optim import build_optimizer
+    from shift_gcn_torch.train.state import train_step
+
+    out = {}
+    rng = np.random.default_rng(25)
+    for label, config_path in BN_MODELS:
+        model = bn_model(config_path, dev)
+        cfg = model.config
+        data, labels = ntu_clips(rng, N_WINDOWS, T_WINDOW, cfg.num_point,
+                                 cfg.num_person, cfg.num_class)
+        batch = {"data": torch.from_numpy(data).to(dev),
+                 "label": torch.from_numpy(labels).to(dev)}
+        calls = bn_calls(model, batch["data"])
+        opt = build_optimizer(model, 0.1)
+        kernels.reset_launches()
+        train_step(model, opt, batch, 0.1)
+        torch.cuda.synchronize()
+        launches = {k: kernels.LAUNCHES[k] for k in BN_KERNELS}
+        bns = sum(isinstance(m, type(model.data_bn)) for m in model.modules())
+        if launches != dict.fromkeys(BN_KERNELS, len(calls)) or \
+                len(calls) != bns:
+            fail(f"25 {label}: BN launch counts of one train step "
+                 f"{launches}, expected {len(calls)} each, one per "
+                 f"train-mode BN ({bns} BatchNorm modules)")
+        del model, opt, batch
+        torch.cuda.empty_cache()
+        cases = {}
+        for call in calls:
+            cases[call] = cases.get(call, 0) + 1
+        worst = {}
+        totals = dict.fromkeys(("fwd", "bwd", "bytes_fwd", "bytes_bwd",
+                                "plain", "library"), 0.0)
+        for (shape, dtype, fd, want_dx), count in cases.items():
+            for lp in ((False, True) if dtype != torch.float32
+                       else (False,)):
+                case = check_bn_case(shape, dtype, fd, want_dx, lp, gen, dev,
+                                     label)
+                for k, v in case["errs"].items():
+                    worst[k] = max(worst.get(k, 0.0), v)
+                if lp:
+                    continue
+                times = time_bn_case(case, shape, dtype, fd, want_dx)
+                for k, v in zip(("fwd", "bwd", "plain", "library"), times):
+                    totals[k] += count * v
+                for k, v in zip(("bytes_fwd", "bytes_bwd"),
+                                bn_bytes(shape, dtype, want_dx)):
+                    totals[k] += count * v
+                del case
+            torch.cuda.empty_cache()
+        bound_fwd = totals["bytes_fwd"] / HBM_BYTES_PER_S * 1e3
+        bound_bwd = totals["bytes_bwd"] / HBM_BYTES_PER_S * 1e3
+        print(f"[bn] 25 {label}: {len(calls)} train-mode BNs a step, "
+              f"{len(cases)} shapes (lp also at each bf16 one), kernels vs "
+              f"plain versions: worst share of scale "
+              + ", ".join(f"{k} {v:.3g}" for k, v in sorted(worst.items()))
+              + f" (tol {BN_TOL:g}, bf16 y and dx 2^-7); y bit-equal to the "
+              f"plain normalize on the kernels' statistics; every output "
+              f"bit-equal across two launches; launches of one train step "
+              f"{launches}")
+        print(f"[bn] 25 {label}, {N_WINDOWS} clips x T={T_WINDOW}, a step's "
+              f"BN calls: forward {totals['fwd']:.3f} ms (bound "
+              f"{bound_fwd:.3f}, {100 * bound_fwd / totals['fwd']:.0f}%), "
+              f"backward {totals['bwd']:.3f} ms (bound {bound_bwd:.3f}, "
+              f"{100 * bound_bwd / totals['bwd']:.0f}%); plain "
+              f"{totals['plain']:.3f} ms, F.batch_norm "
+              f"{totals['library']:.3f} ms, forward and backward | {card}")
+        out[label] = {"calls": len(calls), "launches": launches,
+                      "ms": sig(totals["fwd"]), "backward_ms": sig(
+                          totals["bwd"]), "bound_ms": sig(bound_fwd),
+                      "backward_bound_ms": sig(bound_bwd),
+                      "plain_ms": sig(totals["plain"]),
+                      "library_ms": sig(totals["library"]),
+                      "max_err": {k: sig(v) for k, v in worst.items()}}
+    return out
+
+
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
              "tp22": rank_tp22, "edge": rank_edge, "ring": rank_ring}
 
@@ -5337,6 +5634,9 @@ def main() -> None:
     ap.add_argument("--k6-parent", default=None, metavar="SHIFT_GCN_CU",
                     help="an earlier commit's csrc/shift_gcn.cu: phase 22e "
                     "times its K6 beside this checkout's")
+    ap.add_argument("--bn-only", action="store_true",
+                    help="phases 1, 2 and 25 alone: the train-mode BN "
+                    "kernels' checks, launch counts and timings")
     # a rank process of phase 18, started by run_ranks
     for flag in ("--rank-job", "--workdir", "--settings"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -5387,6 +5687,14 @@ def main() -> None:
                  f"{sass}")
         print("[build] K4/K5/K6 functions, HMMA instructions / registers: "
               + ", ".join(f"{k} {h}/{r}" for k, (h, r) in sass.items()))
+    if args.bn_only:
+        bn = run_batchnorm(gen, dev, card)
+        print(json.dumps({"batch_norm_train": bn}, separators=(",", ":")))
+        print(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": kind,
+            "count": torch.cuda.device_count()}}))
+        return
 
     # 3./4. each kernel vs its plain version at the forward's launches --
     config = ModelConfig(num_class=2, num_point=V, num_person=1,
@@ -5655,6 +5963,9 @@ def main() -> None:
           f"killed run {runbook['first_s']:.1f} s, the rerun "
           f"{runbook['rerun_s']:.1f} s")
 
+    # 25. train-mode BN ----------------------------------------------------
+    bn = run_batchnorm(gen, dev, card)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -5678,6 +5989,10 @@ def main() -> None:
             "plain_ms": sig(plain), "bound_ms": sig(bound),
             "bound_by": "operations" if ops_ms > bytes_ms else "bytes",
             "library_ms": sig(lib)}
+    entries.append({
+        "name": "batch_norm_train", "route": "cuda", "source": BN_SOURCE,
+        "replaces": "no TPU kernel: stock ops (reference ops/batchnorm.py)",
+        "bound_by": "bytes", **bn})
     print("[note] kernel ms / plain_ms / bound_ms / library_ms, fp32: "
           "temporal_shift and shift_gcn per stream forward at "
           f"{N_WINDOWS} windows x T={T_WINDOW}, launches from the serving "
@@ -5688,8 +6003,10 @@ def main() -> None:
           f"v{HOLISTIC_V}: phase 22, the same over a forward's or a step's "
           f"launches at V={HOLISTIC_V} with {wide['batch']} clips, "
           "launches from its Trainer run (22d), max_abs_err over V in "
-          f"{WIDE_JOINTS} (22b); summary: phases 6, 8, 9, 10, 12, 13, 14, "
-          "16-22")
+          f"{WIDE_JOINTS} (22b); batch_norm_train: phase 25, forward "
+          "(ms) and backward per train step of each model at "
+          f"{N_WINDOWS} clips x T={T_WINDOW}; summary: phases 6, 8, 9, 10, "
+          "12, 13, 14, 16-22")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))

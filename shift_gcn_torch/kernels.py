@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("temporal_shift", "shift_gcn")
+SOURCES = ("temporal_shift", "shift_gcn", "batchnorm")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -36,11 +36,14 @@ KERNELS: Dict[str, str] = {
     "shift_gcn": "shift_gcn",                     # K4, forward
     "shift_gcn_dx": "shift_gcn",                  # K5
     "shift_gcn_wgrad": "shift_gcn",               # K6: dgate, dW, dbias
+    "batch_norm_train": "batchnorm",              # train-mode BN forward
+    "batch_norm_train_backward": "batchnorm",     # and its backward
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (a kernel run as a partial-sum pass and a final
-# pass, the fused temporal-shift backward and K6, counts as one launch).
+# pass, the fused temporal-shift backward and K6, counts as one launch, as
+# does each train-mode BN forward and backward, whatever its passes).
 # Callers reset them with reset_launches().
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -112,7 +115,31 @@ def library(name: str) -> ctypes.CDLL:
 
 def _declare(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "temporal_shift":
+    f32 = ctypes.c_float
+    plan = [i32] * 7  # r, f, then ops/batchnorm.py's LaunchPlan
+    if name == "batchnorm":
+        signatures = {
+            # (x, partial, stats, mean_inv, running_mean, running_var,
+            #  num_batches_tracked, r, f, plan, eps, 1 - momentum,
+            #  momentum, unbias, update, dtype, stream); stats or mean_inv
+            #  null
+            "batch_norm_train_stats": [ptr] * 7 + plan + [f32] * 4
+                                      + [i32] * 2 + [ptr],
+            # (stats, mean_inv, running_mean, running_var,
+            #  num_batches_tracked, f, eps, 1 - momentum, momentum, unbias,
+            #  update, stream)
+            "batch_norm_train_finish": [ptr] * 5 + [i32] + [f32] * 4
+                                       + [i32] + [ptr],
+            # (x, mean_inv, w, b, y, r, f, plan, lp, dtype, stream)
+            "batch_norm_train_normalize": [ptr] * 5 + plan + [i32] * 2
+                                          + [ptr],
+            # (x, dy, mean_inv, partial, dw, db, means, r, f, plan, dtype,
+            #  stream)
+            "batch_norm_train_grad_sums": [ptr] * 7 + plan + [i32] + [ptr],
+            # (x, dy, mean_inv, w, means, dx, r, f, plan, dtype, stream)
+            "batch_norm_train_grad_input": [ptr] * 6 + plan + [i32] + [ptr],
+        }
+    elif name == "temporal_shift":
         signatures = {
             # (x, ypos, out, n, t_in, t_out, v, c, stride, is_bf16, stream)
             "temporal_shift_forward": [ptr, ptr, ptr] + [i32] * 7 + [ptr],

@@ -308,3 +308,20 @@ def test_wide_timing_phase_rehearses_on_cpu(rehearsal, monkeypatch, capsys):
                     if f"22e K6 at V=34, {dtype} inputs" in x)
         assert f"this build 10.0000 ms staging {staged / 1e9:.4g} GB" in line
         assert "the parent build not measured (no --k6-parent)" in line
+
+
+def test_bn_phase_rehearses_on_cpu(rehearsal, capsys):
+    """Phase 25 at T=40 and 4 clips: the plain versions stand in for the
+    kernels, so every comparison passes and only each model's launch
+    counts fail (the plain versions launch nothing)."""
+    out = chip_smoke.run_batchnorm(torch.Generator().manual_seed(0),
+                                   torch.device("cpu"), "card")
+    assert len(rehearsal) == 2, rehearsal
+    for msg, label in zip(rehearsal, ("fall", "NTU-60")):
+        assert f"25 {label}: BN launch counts of one train step" in msg
+        assert "expected 36 each" in msg
+    assert set(out) == {"fall", "NTU-60"}
+    assert all(o["calls"] == 36 for o in out.values())
+    printed = capsys.readouterr().out
+    assert "[bn] 25 fall: 36 train-mode BNs a step" in printed
+    assert "[bn] 25 NTU-60: 36 train-mode BNs a step" in printed

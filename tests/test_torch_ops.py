@@ -235,6 +235,7 @@ def test_cpu_path_launches_no_kernel():
     shift_gcn_kernel.fused_shift_gcn(
         x.reshape(4, 33, 3), torch.ones(33, 3), w, torch.zeros(5)
     ).sum().backward()
+    batchnorm.BatchNorm(3).train()(x).square().sum().backward()
     assert set(kernels.LAUNCHES) == set(kernels.KERNELS)
     # K6 is one weight-gradient kernel; the bare shear is gone
     assert "shift_gcn_wgrad" in kernels.LAUNCHES
@@ -243,6 +244,9 @@ def test_cpu_path_launches_no_kernel():
     assert "temporal_shift_backward" in kernels.LAUNCHES
     assert not {"temporal_shift_grad_input",
                 "temporal_shift_position_grad"} & set(kernels.LAUNCHES)
+    # a train-mode BN counts one forward and one backward launch
+    assert {"batch_norm_train", "batch_norm_train_backward"} <= set(
+        kernels.LAUNCHES)
     assert all(count == 0 for count in kernels.LAUNCHES.values())
 
 
@@ -675,7 +679,13 @@ def test_shift_gcn_plain_backward(dtype):
         x[0], torch.ones(4, 3), torch.zeros(3, 3)),
     lambda x: shift_gcn_kernel.shift_gcn_wgrad(
         x[0], x[0].detach(), torch.ones(4, 3), torch.zeros(3, 3)),
-], ids=["K1", "K2", "K3", "K2K3", "K4", "K5", "K6"])
+    lambda x: batchnorm.batch_norm_train_forward(
+        x, torch.ones(3), torch.zeros(3), torch.zeros(3), torch.ones(3),
+        torch.zeros((), dtype=torch.long)),
+    lambda x: batchnorm.batch_norm_train_backward(
+        x, x.detach(), torch.stack([torch.zeros(3), torch.ones(3)]),
+        torch.ones(3)),
+], ids=["K1", "K2", "K3", "K2K3", "K4", "K5", "K6", "BN", "BN_backward"])
 def test_raw_launchers_refuse_grad(launcher):
     # a raw launcher's output has no grad_fn: outside its Function, in
     # grad mode, it raises instead of cutting the gradient
@@ -727,6 +737,210 @@ def test_batch_norm_train_matches_reference(feature_dims, reduce_axes,
                                    atol=FP32_TOL, rtol=FP32_TOL)
     assert int(bn.num_batches_tracked) == int(
         new_state["num_batches_tracked"]) == 5
+
+
+# ---------------------------------------------------------------------------
+# Train-mode BN: the Function's plain version, its analytic backward, and
+# the kernels' launch plan (csrc/batchnorm.cu)
+# ---------------------------------------------------------------------------
+
+
+def _batch_norm_train_composition(x, weight, bias, feature_dims, lp):
+    """Train-mode BN as the port wrote it before its Function: stock ops
+    that autograd differentiates one by one.  The analytic backward's
+    oracle."""
+    dims = tuple(range(x.dim() - feature_dims))
+    shape = x.shape[x.dim() - feature_dims:]
+    x32 = x.to(batchnorm.stat_dtype(x.dtype))
+    stats = torch.stack([x32.mean(dims), (x32 * x32).mean(dims)])
+    mean, mean_sq = stats.unbind(0)
+    inv = torch.rsqrt(mean_sq - mean * mean + 1e-5)
+    return batchnorm._normalize(x, mean, inv, weight, bias, shape, lp, x32)
+
+
+BN_LAYOUTS = [
+    pytest.param(1, (0, 1), (3, 6, 15), id="data_bn"),   # (N, T, M*V*C)
+    pytest.param(2, (0, 1), (3, 6, 5, 3), id="gcn_bn"),  # (V, C) features
+    pytest.param(1, (0, 1, 2), (3, 6, 5, 3), id="tcn_bn"),
+]
+
+
+@pytest.mark.parametrize("feature_dims,reduce_axes,shape", BN_LAYOUTS)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lp", [False, True], ids=["fp32_normalize", "lp"])
+@pytest.mark.parametrize("update", [True, False], ids=["update", "frozen"])
+def test_batch_norm_train_function_matches_reference(
+        feature_dims, reduce_axes, shape, dtype, lp, update):
+    rng = np.random.default_rng(
+        40 + len(shape) + feature_dims + 2 * lp + 4 * update)
+    nf = int(np.prod(shape[len(shape) - feature_dims:]))
+    x = (rng.standard_normal(shape) * 2 + 0.5).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, nf).astype(np.float32)
+    b = rng.standard_normal(nf).astype(np.float32)
+    mean = rng.standard_normal(nf).astype(np.float32)
+    var = rng.uniform(0.5, 2.0, nf).astype(np.float32)
+    cot = rng.standard_normal(shape).astype(np.float32)
+    want, new_state = jax_batch_norm(
+        jnp.asarray(x).astype(dtype),
+        {"weight": jnp.asarray(w), "bias": jnp.asarray(b)},
+        {"running_mean": jnp.asarray(mean), "running_var": jnp.asarray(var),
+         "num_batches_tracked": jnp.asarray(4, jnp.int32)},
+        reduce_axes=reduce_axes, training=True, lp=lp)
+    torch_dtype = getattr(torch, dtype)
+    xt = torch.from_numpy(x).to(torch_dtype).requires_grad_(True)
+    wt = torch.from_numpy(w).requires_grad_(True)
+    bt = torch.from_numpy(b).requires_grad_(True)
+    rm, rv = torch.from_numpy(mean.copy()), torch.from_numpy(var.copy())
+    nbt = torch.full((), 4, dtype=torch.long)
+    kernels.reset_launches()
+    got = batchnorm.batch_norm_train(xt, wt, bt, rm, rv, nbt,
+                                     feature_dims=feature_dims, lp=lp,
+                                     update=update)
+    assert got.dtype == torch_dtype
+    want32 = np.asarray(want.astype(jnp.float32))
+    # fp32: the same fp32 statistics and normalize; bf16: one rounding of
+    # the same fp32 value (or, lp, x * a + b in bf16, where XLA may keep
+    # the product in fp32 before the add), a bf16 ulp of the scale apart
+    atol = FP32_TOL if dtype == "float32" else 2 ** -7 * np.abs(want32).max()
+    np.testing.assert_allclose(got.detach().float().numpy(), want32,
+                               atol=atol, rtol=FP32_TOL)
+    if update:
+        for key, t in (("running_mean", rm), ("running_var", rv)):
+            np.testing.assert_allclose(t.numpy(), np.asarray(new_state[key]),
+                                       atol=FP32_TOL, rtol=FP32_TOL)
+        assert int(nbt) == int(new_state["num_batches_tracked"]) == 5
+    else:
+        np.testing.assert_array_equal(rm.numpy(), mean)
+        np.testing.assert_array_equal(rv.numpy(), var)
+        assert int(nbt) == 4
+
+    gt = torch.from_numpy(cot).to(torch_dtype)
+    grads = torch.autograd.grad(got, (xt, wt, bt), gt)
+    oracle = torch.autograd.grad(
+        _batch_norm_train_composition(xt, wt, bt, feature_dims, lp),
+        (xt, wt, bt), gt)
+    # fp32: roundoff of two formulas of one gradient.  bf16: dx one
+    # rounding to bf16 of fp32 values that differ by roundoff; dw and db
+    # sums of the same fp32 terms.  lp: the oracle differentiates bf16
+    # ops, each product and sum rounded to bf16 (2^-8 of its terms), a
+    # few in a chain
+    for name, g, o in zip(("dx", "dw", "db"), grads, oracle):
+        tol = (2 ** -5 if dtype == "bfloat16" and lp
+               else 2 ** -7 if dtype == "bfloat16" and name == "dx"
+               else FP32_TOL)
+        assert g.dtype == o.dtype, name
+        o = o.float().numpy()
+        np.testing.assert_allclose(g.float().numpy(), o, rtol=0,
+                                   atol=tol * np.abs(o).max(), err_msg=name)
+    # the plain versions on the CPU launch no kernel
+    assert not any(kernels.LAUNCHES.values())
+
+
+def test_batch_norm_train_backward_skips_dx():
+    # data_bn's input (the clips) needs no gradient: dx is not computed,
+    # dw and db are the ones a differentiable input gets
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((4, 5, 6)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((4, 5, 6)).astype(np.float32))
+    grads = []
+    for needs in (False, True):
+        xi = x.clone().requires_grad_(needs)
+        w, b = torch.ones(6, requires_grad=True), torch.zeros(
+            6, requires_grad=True)
+        y = batchnorm.batch_norm_train(
+            xi, w, b, torch.zeros(6), torch.ones(6),
+            torch.zeros((), dtype=torch.long))
+        y.backward(g)
+        assert (xi.grad is not None) == needs
+        grads.append((w.grad, b.grad))
+    for a, c in zip(*grads):
+        torch.testing.assert_close(a, c, rtol=0, atol=0)
+    _, mean_inv = batchnorm.batch_norm_train_forward(
+        x, torch.ones(6), torch.zeros(6), torch.zeros(6), torch.ones(6),
+        torch.zeros((), dtype=torch.long), update=False)
+    dx, dw, db = batchnorm.batch_norm_train_backward(
+        x, g, mean_inv, torch.ones(6), want_dx=False)
+    assert dx is None and dw.shape == db.shape == (6,)
+
+
+def _emulate_bn_sums(a: np.ndarray, plan) -> np.ndarray:
+    """The two per-feature sums of the kernels' reductions over a (R, F)
+    fp32 array, in their order: each thread (feature, row lane) adds its
+    chunk's rows one by one, the block its row lanes in order, then
+    chunk lane q of the final pass chunks q, q + 32, ... and lane 0 the
+    lanes in order.  Returns (2, F) fp32; raises unless the plan's tiles
+    and chunks cover every element exactly once."""
+    r, f = a.shape
+    rlanes = batchnorm.PASS_THREADS // plan.lanes
+    features = np.concatenate([
+        (t * plan.lanes + lane) * plan.vec + np.arange(plan.vec)
+        for t in range(plan.tiles) for lane in range(plan.lanes)])
+    features = features[features < f]
+    assert np.array_equal(np.sort(features), np.arange(f))
+    seen = np.zeros(r, np.int64)
+    partial = np.zeros((plan.chunks, 2, f), np.float32)
+    for c in range(plan.chunks):
+        rows = np.arange(c * plan.chunk_rows,
+                         min(r, (c + 1) * plan.chunk_rows))
+        assert rows.size, "an empty chunk"
+        seen[rows] += 1
+        pad = -rows.size % rlanes
+        block = np.concatenate([a[rows], np.zeros((pad, f), np.float32)])
+        block = block.reshape(-1, rlanes, f)    # (row step, row lane, F)
+        for k, terms in enumerate((block, block * block)):
+            per_thread = np.add.accumulate(terms, axis=0, dtype=np.float32)
+            partial[c, k] = np.add.accumulate(per_thread[-1], axis=0,
+                                              dtype=np.float32)[-1]
+    assert (seen == 1).all()
+    lanes = [np.add.accumulate(partial[q::32], axis=0, dtype=np.float32)[-1]
+             for q in range(min(32, plan.chunks))]
+    return np.add.accumulate(np.stack(lanes), axis=0, dtype=np.float32)[-1]
+
+
+# (R, F, itemsize, aligned): the fall step's BN shapes at 2 clips (tcn BN
+# C=64 and 256 in bf16, the Shift_gcn bn V*C=2112 and 8448, data_bn 99 in
+# fp32), NTU's data_bn (150), an unaligned tensor, and edge cases: one row
+# lane's worth of rows, and R smaller than a block's row lanes
+BN_PLAN_CASES = [(2 * 300 * 33, 64, 2, True), (2 * 75 * 33, 256, 2, True),
+                 (2 * 300, 2112, 2, True), (2 * 75, 8448, 2, True),
+                 (2 * 300, 99, 4, True), (4 * 300, 150, 4, True),
+                 (2 * 150 * 33, 128, 4, False), (8, 64, 4, True),
+                 (3, 5, 2, True), (1, 8448, 4, True)]
+
+
+@pytest.mark.parametrize("r,f,itemsize,aligned", BN_PLAN_CASES,
+                         ids=[f"{r}x{f}-{i}{'' if a else '-unaligned'}"
+                              for r, f, i, a in BN_PLAN_CASES])
+def test_batch_norm_plan_covers_and_sums(r, f, itemsize, aligned):
+    plan = batchnorm.launch_plan(r, f, itemsize, aligned)
+    per_vector = 16 // itemsize
+    assert plan.vec == (per_vector if aligned and f % per_vector == 0
+                        else 1)
+    assert plan.lanes <= batchnorm.MAX_LANES
+    assert batchnorm.PASS_THREADS % plan.lanes == 0
+    assert plan.tiles * plan.chunks <= batchnorm.TARGET_BLOCKS + plan.tiles
+    assert plan.chunks <= 65535
+    rng = np.random.default_rng(r + f)
+    a = (rng.standard_normal((r, f)) * 2 + 0.5).astype(np.float32)
+    got = _emulate_bn_sums(a, plan)
+    a64 = a.astype(np.float64)
+    for k, terms in enumerate((a64, a64 * a64)):
+        # fp32 sums of at most a few hundred terms at each level
+        np.testing.assert_allclose(got[k], terms.sum(0), rtol=0,
+                                   atol=1e-6 * np.abs(terms).sum(0).max())
+
+
+@pytest.mark.parametrize("r,f,itemsize,plan", [
+    (64 * 300 * 33, 64, 2, (8, 8, 1, 1024, 619)),    # fall tcn BN, bf16
+    (64 * 300, 33 * 256, 2, (8, 32, 33, 32, 600)),   # fall Shift_gcn bn
+    (128 * 300 * 25, 64, 4, (4, 16, 1, 1024, 938)),  # NTU tcn BN, fp32
+    (64 * 300, 150, 4, (1, 32, 5, 205, 94)),         # NTU data_bn
+], ids=["fall_tcn", "fall_gcn", "ntu_tcn", "ntu_data_bn"])
+def test_batch_norm_plan_at_the_models_shapes(r, f, itemsize, plan):
+    # from (R, F) and the alignment alone, never the device: about
+    # TARGET_BLOCKS blocks of 16-byte runs, one-element runs where F is
+    # not a multiple of a vector
+    assert batchnorm.launch_plan(r, f, itemsize, True) == plan
 
 
 # ---------------------------------------------------------------------------
