@@ -123,6 +123,7 @@ def report_readings(cell, seed: int, device: torch.device) -> dict:
     from benchmark.drivers import report
     from benchmark.reference import serve as ref_serve
 
+    report.require_served_family(cell.config)
     config, mix = cell.config, cell.traffic
     pool = generate.tracks(config, mix, seed)
     state = report.calibrated_weights(config, mix, pool, seed, device)

@@ -14,6 +14,10 @@ windowing, pre-normalization and modality derivation, then profiles
 ``profile_reports`` more reports.  Afterwards the reference recomputes
 ``check_reports`` reports drawn from the seed among those served, the
 longest one included.
+
+Serving is Shift-GCN's: ``EnsemblePredictor`` builds the port's
+Shift-GCN, so a configuration of another family is refused before
+anything is built.
 """
 
 from __future__ import annotations
@@ -26,13 +30,23 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from benchmark import checks, generate, weights
+from benchmark import checks, families, generate, weights
 from benchmark.reference import model as ref_model
 from benchmark.reference import serve as ref_serve
 from benchmark.trace import Spans, profile
 
 STREAMS = ref_serve.STREAMS
 PREP = ("create_sliding_windows", "pre_normalization", "derive_modalities")
+FAMILY = "shift_gcn"      # the only family that the serving pipeline builds
+
+
+def require_served_family(config: dict) -> None:
+    family = families.name(config)
+    if family != FAMILY:
+        raise ValueError(
+            f"the report driver serves the {FAMILY!r} family alone "
+            f"(EnsemblePredictor builds Shift-GCN); this configuration's "
+            f"family is {family!r}")
 
 
 def stream_seed(seed: int, k: int) -> int:
@@ -79,6 +93,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: torch.device,
     from benchmark import card
     from benchmark.result import Outcome
 
+    require_served_family(cell.config)
     config, mix = cell.config, cell.traffic
     pool = generate.tracks(config, mix, seed)
     state = calibrated_weights(config, mix, pool, seed, device)

@@ -4,14 +4,15 @@ Set-up writes the configuration's synthetic split (``train_clips`` clips
 and ``val_clips`` for the Trainer's eval feeder, which no timed step
 reads) under the run's temporary directory, builds the Trainer from the
 configuration's ``train`` block and the mix's ``experiment`` block
-(fields of ``ExperimentConfig``; any other key is refused), loads the
-benchmark's weights into its model and runs the first ``warmup_steps``
-steps of epoch 0.  The first ``check_steps`` of them are those the
-reference follows: their rows, each step's loss, the first gradient as
-the optimizer holds it after one step, and the parameters after the
-last of them are read through spies that the window's epochs no longer
-carry.  The window then runs whole epochs until ``--seconds`` have
-passed; a traced run profiles one more epoch.
+(fields of ``ExperimentConfig``; any other key is refused) with the
+model of the configuration's family, loads the benchmark's weights into
+its model and runs the first ``warmup_steps`` steps of epoch 0.  The
+first ``check_steps`` of them are those the reference follows: their
+rows, each step's loss, the first gradient as the optimizer holds it
+after one step, and the parameters after the last of them are read
+through spies that the window's epochs no longer carry.  The window
+then runs whole epochs until ``--seconds`` have passed; a traced run
+profiles one more epoch.
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from benchmark import generate, weights
+from benchmark import families, generate, weights
 from benchmark.trace import Spans, profile
 
 
@@ -47,15 +48,17 @@ def write_split(config: dict, seed: int, workdir: Path) -> Dict[str, str]:
 
 
 # fields that the harness sets for every run, and no data file may
+# (``model`` is the configuration's family's)
 HARNESS_FIELDS = ("Experiment_name", "work_dir", "model_saved_name", "seed",
-                  "print_log", "log_interval", "test_feeder_args",
+                  "print_log", "log_interval", "test_feeder_args", "model",
                   "model_args", "activation_dtype", "device_guard")
 
 
 def experiment(cell, seed: int, workdir: Path, paths: Dict[str, str]):
-    """The ``ExperimentConfig`` of the cell: the configuration's ``train``
-    block, then the mix's ``experiment`` block over it, each key a field
-    of ``ExperimentConfig``; the split's paths join the feeder's
+    """The ``ExperimentConfig`` of the cell: the model of the
+    configuration's family, the configuration's ``train`` block, then the
+    mix's ``experiment`` block over it, each key a field of
+    ``ExperimentConfig``; the split's paths join the feeder's
     arguments."""
     from shift_gcn_torch.train.config import ExperimentConfig
 
@@ -78,6 +81,7 @@ def experiment(cell, seed: int, workdir: Path, paths: Dict[str, str]):
         print_log=False, log_interval=10 ** 9,
         test_feeder_args={"data_path": paths["val_data"],
                           "label_path": paths["val_label"]},
+        model=families.of(cell.config).MODEL,
         model_args=dict(cell.config["model_args"]),
         activation_dtype=None if act == "float32" else act,
         device_guard=False, **given)

@@ -5,14 +5,18 @@ metric or cell is a file of its own, found by the name the manifest
 gives it:
 
 - a configuration: the ``file`` of its ``configs`` entry (JSON);
+- a model family: ``families/<family>.py``, the family that a
+  configuration's ``"family"`` key names (``shift_gcn`` without one):
+  its weights, work counts and plain reference (``families/__init__.py``);
 - a traffic mix: ``traffic/<traffic>.json``, parameters for the general
   driver its ``driver`` key names (``drivers/<driver>.py``);
 - a per-layer metric: ``metrics/<name>.py``, a reader with ``read(ctx)``
   that returns a number or None (nothing to read);
 - a cell's correctness limits: ``limits/<workload>.json``.
 
-A new configuration, mix, metric or cell is a new file and a new entry;
-no file here changes.
+A new configuration, family, mix, metric or cell is a new file and a new
+entry; no file here changes.  A cell whose configuration names a family
+with no file is refused when it is loaded.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import importlib.util
 import json
 from pathlib import Path
 from typing import Dict, List, Optional
+
+from benchmark import families
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -75,6 +81,7 @@ def cell(workload: str, root: Path = ROOT) -> Cell:
     config_entry = next(c for c in manifest["configs"]
                         if c["name"] == entry["config"])
     config = _load_json(root / config_entry["file"])
+    families.check(config, root / "benchmark" / "families")
     traffic = _load_json(root / "benchmark" / "traffic"
                          / f"{entry['traffic']}.json")
     e2e, layer = metrics_of(manifest, workload)

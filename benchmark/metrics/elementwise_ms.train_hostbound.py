@@ -1,0 +1,9 @@
+"""``elementwise_ms.train``, read in a training cell whose rate is set by
+the host's dispatch (``clips_per_s.train_hostbound``)."""
+
+from pathlib import Path
+
+from benchmark import manifest
+
+read = manifest.metric_reader(
+    "elementwise_ms.train", Path(__file__).resolve().parents[2])

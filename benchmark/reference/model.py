@@ -1,31 +1,13 @@
-"""Shift-GCN in plain PyTorch, float32, on a dict of named weights.
-
-Written from the layer equations of Shift-GCN (Cheng et al., CVPR 2020)
-and the source repository's ``model/shift_gcn.py``, in its layout
-(N*M, C, T, V):
-
-- data BN over M*V*C features of (N, M*V*C, T);
-- spatial block: shift_in of the flat (V*C) axis by the source's index
-  tables, times the gate tanh(Feature_Mask) + 1, a (C, D) product plus
-  bias, shift_out, BN over V*D features; plus the down branch (1x1 conv
-  and BN) where C != D; ReLU;
-- temporal block: BN, the learned fractional shift (stride 1), 1x1 conv,
-  ReLU, the shift at the unit's stride, BN;
-- unit: ReLU(temporal(spatial(x)) + residual), the residual none, the
-  input, or a strided 1x1 conv and BN;
-- mean over (T', V) and persons, then the classifier.
-
-The temporal shift reads, per channel with y = ypos (+0.5 at stride 2),
-lo = floor(y), f = y - lo: out[t] = (1 - f) x[t*s + lo] + f x[t*s + lo
-+ 1], zero outside the clip.  Its backward is the source's: the exact
-transpose for x and, for ypos, the fixed step 0.01 * sign of the
-position gradient (1e-4 where it is exactly zero); xpos gets zero.
+"""What every family's plain reference shares, in float32 on a dict of
+named weights: the rounding of a control run, BN, TF32 off, and the
+forward of the configuration's family (``families/<family>.py``).
 
 BN in training normalizes by the batch statistics (mean, then the
-biased variance about it); in eval by the running statistics.  ``precision`` rounds as a control
-run computes: ``tf32`` rounds both operands of every matmul and conv to
-TF32 (fp32 accumulation), ``fp8`` rounds every activation to e4m3 and
-every activation gradient to e5m2, each by its own amax scale.
+biased variance about it); in eval by the running statistics.
+``precision`` rounds as a control run computes: ``tf32`` rounds both
+operands of every matmul and conv to TF32 (fp32 accumulation), ``fp8``
+rounds every activation to e4m3 and every activation gradient to e5m2,
+each by its own amax scale.
 """
 
 from __future__ import annotations
@@ -36,6 +18,8 @@ from typing import Dict
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from benchmark import families
 
 Weights = Dict[str, torch.Tensor]
 
@@ -125,108 +109,11 @@ def batch_norm(x: torch.Tensor, w: Weights, prefix: str,
             + w[prefix + ".bias"].reshape(shape))
 
 
-class TemporalShift(torch.autograd.Function):
-    """x (B, C, T, V), ypos (C,) -> (B, C, T // stride, V)."""
-
-    @staticmethod
-    def _shift(x, ypos, stride):
-        b, c, t, v = x.shape
-        y = ypos.detach().float() + (0.5 if stride != 1 else 0.0)
-        lo = torch.floor(y)
-        f = (y - lo)[None, :, None, None]
-        lo = lo.long()
-        pad = int(lo.abs().max().item()) + 2
-        xp = F.pad(x, (0, 0, pad, pad))
-        t_out = t // stride
-        idx = (torch.arange(t_out, device=x.device)[None, :] * stride
-               + lo[:, None] + pad)                          # (C, T_out)
-        idx = idx[None, :, :, None].expand(b, c, t_out, v)
-        x0 = torch.gather(xp, 2, idx)
-        x1 = torch.gather(xp, 2, idx + 1)
-        return x0, x1, f
-
-    @staticmethod
-    def forward(ctx, x, ypos, stride):
-        ctx.stride = stride
-        ctx.save_for_backward(x, ypos)
-        x0, x1, f = TemporalShift._shift(x, ypos, stride)
-        return (1.0 - f) * x0 + f * x1
-
-    @staticmethod
-    def backward(ctx, g):
-        x, ypos = ctx.saved_tensors
-        with torch.enable_grad():
-            xg = x.detach().requires_grad_(True)
-            x0, x1, f = TemporalShift._shift(xg, ypos, ctx.stride)
-            out = (1.0 - f) * x0 + f * x1
-            (gx,) = torch.autograd.grad(out, xg, g)
-        gy = ((x1 - x0).detach() * g).sum((0, 2, 3))
-        step = torch.where(gy != 0, torch.sign(gy) * 0.01,
-                           torch.full_like(gy, 1e-4))
-        return gx, step, None
-
-
-def _shift_index(v: int, c: int, direction: int, device) -> torch.Tensor:
-    """The source's flat (V*C) shift index: out[i*C + j] = x[idx]."""
-    i = torch.arange(v, device=device)[:, None]
-    j = torch.arange(c, device=device)[None, :]
-    return ((i * c + j + direction * j * c) % (c * v)).reshape(-1)
-
-
-def spatial(x, w, p, training, prec):
-    b, cin, t, v = x.shape
-    weight = w[p + ".Linear_weight"]
-    cout = weight.shape[1]
-    h = x.permute(0, 2, 3, 1).reshape(b * t, v * cin)
-    h = h[:, _shift_index(v, cin, 1, x.device)].reshape(b * t, v, cin)
-    h = h * (torch.tanh(w[p + ".Feature_Mask"]) + 1.0)
-    h = prec.matmul(h, weight) + w[p + ".Linear_bias"].reshape(cout)
-    h = h.reshape(b * t, v * cout)[:, _shift_index(v, cout, -1, x.device)]
-    h = prec.act(batch_norm(h, w, p + ".bn", training))
-    h = h.reshape(b, t, v, cout).permute(0, 3, 1, 2)
-    if cin != cout:
-        res = prec.conv1x1(x, w[p + ".down.0.weight"], w[p + ".down.0.bias"])
-        res = prec.act(batch_norm(res, w, p + ".down.1", training))
-    else:
-        res = x
-    return prec.act(torch.relu(h + res))
-
-
-def temporal(x, w, p, stride, training, prec):
-    h = prec.act(batch_norm(x, w, p + ".bn", training))
-    h = prec.act(TemporalShift.apply(h, w[p + ".shift_in.ypos"], 1))
-    h = prec.conv1x1(h, w[p + ".temporal_linear.weight"],
-                     w[p + ".temporal_linear.bias"])
-    h = torch.relu(h)
-    h = prec.act(TemporalShift.apply(h, w[p + ".shift_out.ypos"], stride))
-    return prec.act(batch_norm(h, w, p + ".bn2", training))
-
-
-def forward(w: Weights, x: torch.Tensor, config: dict, training: bool,
+def forward(w: Weights, x: torch.Tensor, config: dict, training,
             prec: Precision = FP32) -> torch.Tensor:
-    """x (N, C, T, V, M) fp32 -> logits (N, classes) fp32."""
-    n, c, t, v, m = x.shape
-    h = x.permute(0, 4, 3, 1, 2).reshape(n, m * v * c, t)
-    h = batch_norm(h, w, "data_bn", training)
-    h = h.reshape(n, m, v, c, t).permute(0, 1, 3, 4, 2).reshape(
-        n * m, c, t, v)
-    h = prec.act(h)
-    for i, (cin, cout, stride, residual) in enumerate(config["backbone"]):
-        p = f"l{i + 1}"
-        out = temporal(spatial(h, w, p + ".gcn1", training, prec), w,
-                       p + ".tcn1", int(stride), training, prec)
-        if not residual:
-            res = None
-        elif cin == cout and stride == 1:
-            res = h
-        else:
-            res = prec.conv1x1(h, w[p + ".residual.conv.weight"],
-                               w[p + ".residual.conv.bias"], int(stride))
-            res = prec.act(batch_norm(res, w, p + ".residual.bn", training))
-        h = prec.act(torch.relu(out if res is None else out + res))
-    feat = h.shape[1]
-    pooled = h.reshape(n, m, feat, -1).mean(3).mean(1)
-    return (prec.matmul(pooled, w["fc.weight"].t()) + w["fc.bias"]).float()
+    """x (N, C, T, V, M) fp32 -> logits (N, classes) fp32: the reference
+    of the configuration's family."""
+    return families.of(config).forward(w, x, config, training, prec)
 
 
 @contextlib.contextmanager

@@ -1,10 +1,11 @@
-"""The source's training step, in plain PyTorch on the reference model.
+"""The source's training step, in plain PyTorch on the reference model
+of the configuration's family.
 
 SGD with momentum 0.9 and nesterov, per-parameter weight decay from the
 configuration's table (the first pattern a name contains wins), the
-mean softmax cross-entropy of a batch, BN by batch statistics.  The
-position parameters move by the temporal shift's fixed step; xpos gets a
-zero gradient, so weight decay alone moves it.
+mean softmax cross-entropy of a batch, BN by batch statistics.  A
+parameter moves by the gradient its family's reference gives it
+(Shift-GCN's positions by the temporal shift's fixed step).
 """
 
 from __future__ import annotations
