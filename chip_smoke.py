@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one GPU.
 
-    python3 chip_smoke.py [--seed N] [--k6-parent SHIFT_GCN_CU] [--bn-only]
+    python3 chip_smoke.py [--seed N] [--k6-parent SHIFT_GCN_CU]
+                          [--bn-only | --agcn-only]
 
 Phases, in order; any failure exits non-zero:
 
@@ -282,7 +283,19 @@ Phases, in order; any failure exits non-zero:
    one backward per train-mode BN; and the step's BN calls timed
    forward and backward beside their bytes bound, the plain versions
    and ``F.batch_norm`` (forward and backward).  ``--bn-only`` runs
-   phases 1, 2 and 25 alone.
+   phases 1, 2 and 25 alone;
+26. 2s-AGCN's joint stream (``configs/nturgbd-cross-subject/
+   train_joint_agcn.yaml``: the ``agcn2s`` family at the published
+   widths, fp32) through the Trainer for 2 steps of 64 synthetic clips x
+   T=300, launches counted from zero: 10 adjacency forwards and 10
+   backwards a step (``csrc/adaptive.cu``), one BN forward and backward
+   per train-mode BN, no other kernel of the port's; the adjacency
+   kernels against their plain versions at every unit's launch shape
+   (G, P and de within ADJ_TOL of their largest value, P's columns
+   summing to 1 over the source joints, bit-equal across two launches);
+   their times over a step's launches beside their bytes bound and the
+   plain versions; a bare train step's time, peak memory and busy share.
+   ``--agcn-only`` runs phases 1, 2 and 26 alone.
 
 The last four lines are a JSON object with one entry per kernel (and,
 in each, its figures at V=543 from phase 22), a summary of the
@@ -349,6 +362,15 @@ BN_TOL = 1e-5
 # the models phase 25 takes its BN shapes and launch counts from: the
 # fall model as its Trainer runs it (bf16 activations), NTU-60 (fp32)
 BN_MODELS = (("fall", TRAIN_CONFIG), ("NTU-60", NTU60_CONFIG))
+# 2s-AGCN's joint stream and its adjacency kernels (phase 26)
+AGCN_CONFIG = "configs/nturgbd-cross-subject/train_joint_agcn.yaml"
+AGCN_SOURCE = "shift_gcn_torch/csrc/adaptive.cu"
+AGCN_KERNELS = ("agcn_adjacency", "agcn_adjacency_backward")
+AGCN_STEPS = 2   # Trainer steps of phase 26
+# fp32: the kernels' sums over d*T products (forward) and V products
+# (backward) in another order than the plain versions' matmuls: a few ulps
+# of the largest value, amplified by the softmax's exponent
+ADJ_TOL = 2e-5
 
 
 # the edge-partition keys phase 17 drops from its configs (phase 20 keeps
@@ -381,10 +403,11 @@ TRAIN_CLIPS, VAL_CLIPS = 512, 128
 # K4 (every unit's input needs its gradient: unit 1's is data_bn's
 # output), K6 once per K4; and one train-mode BN forward and backward per
 # BN: data_bn, three a unit, a down BN in units 1, 5 and 8 and a residual
-# BN in units 5 and 8
+# BN in units 5 and 8; no 2s-AGCN adjacency
 PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
             "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10,
-            "batch_norm_train": 36, "batch_norm_train_backward": 36}
+            "batch_norm_train": 36, "batch_norm_train_backward": 36,
+            "agcn_adjacency": 0, "agcn_adjacency_backward": 0}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
 # a train step with ``remat`` (phase 21): each unit's forward runs again
 # in the backward, K1, K4 and its 35 BNs (all but data_bn) with it; the
@@ -5624,6 +5647,211 @@ def run_batchnorm(gen, dev, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 2s-AGCN's adjacency (phase 26)
+# ---------------------------------------------------------------------------
+
+def adjacency_shapes(config, n: int, t: int):
+    """{(N', V, T, K, d): launches a step} of the adjacency of every unit
+    of ``config`` (an AGCNConfig) on clips of ``t`` frames, ``n`` skeleton
+    rows a batch: T is the unit's input length, d = C_out / 4."""
+    from shift_gcn_torch.graphs import get_graph
+    from shift_gcn_torch.models.agcn import COFF_EMBEDDING
+
+    k = get_graph(config.graph).A.shape[0]
+    shapes = {}
+    for _, cout, stride, _ in config.blocks:
+        shape = (n, config.num_point, t, k, cout // COFF_EMBEDDING)
+        shapes[shape] = shapes.get(shape, 0) + 1
+        t = -(-t // stride)
+    return shapes
+
+
+def adjacency_cost_ms(n: int, v: int, t: int, k: int, d: int):
+    """(forward, backward) bound ms of one launch: bytes at the HBM rate
+    (forward e, A and PA read and G written; backward e, P and dG read and
+    de written; as ``benchmark/families/agcn2s.py`` counts them) or the
+    contraction's FLOPs (2 N' K d T V^2, twice that backward) at the fp32
+    SIMT rate, the larger."""
+    emb = 4 * n * v * t * 2 * k * d
+    graph = 4 * n * k * v * v
+    flops = 2.0 * n * k * d * t * v * v
+    return (1e3 * max((emb + 2 * 4 * k * v * v + graph) / HBM_BYTES_PER_S,
+                      flops / FP32_SIMT_FLOPS),
+            1e3 * max((2 * emb + 2 * graph) / HBM_BYTES_PER_S,
+                      2 * flops / FP32_SIMT_FLOPS))
+
+
+def check_adjacency_case(shape, gen, dev):
+    """The kernels against their plain versions at one launch shape, on
+    N(0, 9) embeddings (attention logits spread past 1), A in U(0, 1) and
+    PA N(0, 0.01): G and P within ADJ_TOL of their largest value, each
+    column of P summing to 1 over the source joints, de within ADJ_TOL of
+    its largest value from the plain P, every output bit-equal across two
+    launches.  Returns (the inputs, the worst shares of scale)."""
+    from shift_gcn_torch.ops import adaptive
+
+    n, v, t, k, d = shape
+    e = torch.randn(n, v, t, 2 * k * d, generator=gen, device=dev) * 3
+    a = torch.rand(k, v, v, generator=gen, device=dev)
+    pa = torch.randn(k, v, v, generator=gen, device=dev) * 0.1
+    dg = torch.randn(n, k, v, v, generator=gen, device=dev)
+    (g, p), (g2, p2) = (adaptive.adjacency_forward(e, a, pa, k)
+                        for _ in range(2))
+    de, de2 = (adaptive.adjacency_backward(e, p, dg) for _ in range(2))
+    want_g, want_p = adaptive.adjacency_forward_reference(e, a, pa, k)
+    want_de = adaptive.adjacency_backward_reference(e, want_p, dg)
+    torch.cuda.synchronize()
+    where = f"26 adjacency (N', V, T, K, d) = {shape}"
+    for name, x, y in (("G", g, g2), ("P", p, p2), ("de", de, de2)):
+        if not torch.equal(x, y):
+            fail(f"{where}: {name} differs between two launches")
+    errs = {}
+    for name, got, want in (("G", g, want_g), ("P", p, want_p),
+                            ("de", de, want_de)):
+        err, scale = max_err(got, want)
+        if not err <= ADJ_TOL * scale:
+            fail(f"{where}: {name} max|err| {err:.3g} > "
+                 f"{ADJ_TOL * scale:.3g}")
+        errs[name] = err / scale
+    columns = float((p.sum(2) - 1).abs().max())
+    if not columns <= 1e-5:
+        fail(f"{where}: P's columns sum to 1 within {columns:.3g}, not "
+             f"over the source joints")
+    return (e, a, pa, dg, p), errs
+
+
+def run_agcn(rng, gen, dev, workdir: str, card: str) -> dict:
+    """Phase 26: 2s-AGCN's joint stream (AGCN_CONFIG, the ``agcn2s``
+    family at the published widths, fp32) through the Trainer for
+    AGCN_STEPS steps of N_WINDOWS synthetic NTU-60 clips of T_WINDOW
+    frames, launches counted from zero: one adjacency forward and one
+    backward per unit, one BN forward and backward per train-mode BN,
+    nothing else of the port's; the adjacency kernels against their plain
+    versions at every unit's launch shape; their times over a step's
+    launches beside the bound and the plain versions; and a bare train
+    step's time, peak memory and busy share.  Returns the figures of the
+    kernels entry and the summary."""
+    from shift_gcn_torch import kernels
+    from shift_gcn_torch.models import agcn
+    from shift_gcn_torch.models.registry import get_model
+    from shift_gcn_torch.ops import adaptive
+    from shift_gcn_torch.ops.batchnorm import BatchNorm
+    from shift_gcn_torch.train.config import load_config
+    from shift_gcn_torch.train.trainer import Trainer
+
+    base = load_config(["--config", AGCN_CONFIG])
+    config = agcn.config_from_args(base.model_args)
+    if not (get_model(base.model).name == "agcn2s"
+            and (config.num_class, config.num_point, config.num_person,
+                 config.graph, config.blocks, base.batch_size)
+            == (60, 25, 2, "ntu_rgb_d", agcn.PUBLISHED_BLOCKS, 64)
+            and base.activation_dtype is None):
+        fail(f"{AGCN_CONFIG} no longer trains the published 2s-AGCN "
+             "(agcn2s, 60 classes, V=25, M=2, ten units) at batch 64 in "
+             "fp32")
+    v, m = config.num_point, config.num_person
+    feeder_args = {
+        split: write_split(workdir, split, *ntu_clips(
+            rng, n, T_WINDOW, v, m, config.num_class))
+        for split, n in (("train", AGCN_STEPS * N_WINDOWS),
+                         ("val", N_WINDOWS))}
+    cfg = one_epoch_config(AGCN_CONFIG, workdir, feeder_args,
+                           "--batch_size", str(N_WINDOWS),
+                           "--test_batch_size", str(N_WINDOWS))
+    trainer = Trainer(cfg)
+    if not (isinstance(trainer.model, agcn.Model)
+            and trainer.model.config == config):
+        fail(f"the Trainer built {type(trainer.model).__name__} from "
+             f"{AGCN_CONFIG}, not the published agcn2s")
+    units = len(config.blocks)
+    bns = sum(isinstance(mod, BatchNorm) for mod in trainer.model.modules())
+    kernels.reset_launches()
+    epoch = trainer.train_epoch(0)
+    torch.cuda.synchronize()
+    launches = dict(kernels.LAUNCHES)
+    per_step = dict.fromkeys(kernels.KERNELS, 0)
+    per_step.update(dict.fromkeys(AGCN_KERNELS, units))
+    per_step.update(dict.fromkeys(BN_KERNELS, bns))
+    expect = {k: c * AGCN_STEPS for k, c in per_step.items()}
+    if launches != expect:
+        fail(f"26 2s-AGCN launch counts of {AGCN_STEPS} Trainer steps "
+             f"{launches} != expected {expect}: per step one adjacency "
+             f"forward and backward per unit ({units}), one BN forward and "
+             f"backward per train-mode BN ({bns})")
+    losses = epoch["losses"]
+    if len(losses) != AGCN_STEPS or not np.isfinite(losses).all():
+        fail(f"26 2s-AGCN train losses {losses}")
+    del trainer
+    torch.cuda.empty_cache()
+
+    model = agcn.Model(config, device=dev).init_weights(
+        torch.Generator().manual_seed(0))
+    data, labels = ntu_clips(rng, N_WINDOWS, T_WINDOW, v, m,
+                             config.num_class)
+    batch = {"data": torch.from_numpy(data).to(dev),
+             "label": torch.from_numpy(labels).to(dev)}
+    step_ms, fwd_ms, peak, busy = step_cost(
+        model, batch, base.base_lr, dev,
+        f"one 2s-AGCN fp32 train step, batch {N_WINDOWS}", card)
+    del model, batch
+    torch.cuda.empty_cache()
+
+    worst = {}
+    totals = dict.fromkeys(("fwd", "bwd", "bound_fwd", "bound_bwd",
+                            "plain"), 0.0)
+    shapes = adjacency_shapes(config, N_WINDOWS * m, T_WINDOW)
+    for shape, count in shapes.items():
+        (e, a, pa, dg, p), errs = check_adjacency_case(shape, gen, dev)
+        for key, err in errs.items():
+            worst[key] = max(worst.get(key, 0.0), err)
+        k = shape[3]
+        fwd = time_ms(lambda: adaptive.adjacency_forward(e, a, pa, k))
+        bwd = time_ms(lambda: adaptive.adjacency_backward(e, p, dg))
+
+        def plain():
+            _, pp = adaptive.adjacency_forward_reference(e, a, pa, k)
+            adaptive.adjacency_backward_reference(e, pp, dg)
+
+        plain_ms = time_ms(plain)
+        bound_fwd, bound_bwd = adjacency_cost_ms(*shape)
+        for key, val in (("fwd", fwd), ("bwd", bwd), ("plain", plain_ms),
+                         ("bound_fwd", bound_fwd), ("bound_bwd", bound_bwd)):
+            totals[key] += count * val
+        print(f"[agcn] 26 adjacency (N', V, T, K, d) = {shape} x{count}: "
+              f"forward {fwd:.4f} ms (bound {bound_fwd:.4f}), backward "
+              f"{bwd:.4f} ms (bound {bound_bwd:.4f}), plain {plain_ms:.4f} "
+              f"ms forward and backward | {card}")
+        del e, a, pa, dg, p
+        torch.cuda.empty_cache()
+    ms = totals["fwd"] + totals["bwd"]
+    bound = totals["bound_fwd"] + totals["bound_bwd"]
+    print(f"[agcn] 26 {AGCN_CONFIG} through the Trainer (agcn2s, "
+          f"published widths, fp32, batch {N_WINDOWS}, T={T_WINDOW}): "
+          f"{AGCN_STEPS} steps, losses {[round(x, 4) for x in losses]}, "
+          f"launches {launches}; adjacency kernels vs plain versions at "
+          f"{len(shapes)} unit shapes: worst share of the largest value "
+          + ", ".join(f"{k} {x:.3g}" for k, x in sorted(worst.items()))
+          + f" (tol {ADJ_TOL:g}), bit-equal across two launches")
+    print(f"[agcn] 26 a step's adjacency launches at {N_WINDOWS} clips x "
+          f"T={T_WINDOW}: forward {totals['fwd']:.3f} ms (bound "
+          f"{totals['bound_fwd']:.3f}), backward {totals['bwd']:.3f} ms "
+          f"(bound {totals['bound_bwd']:.3f}), {100 * bound / ms:.0f}% of "
+          f"bound; plain {totals['plain']:.3f} ms; bare train step "
+          f"{step_ms:.3f} ms ({N_WINDOWS / step_ms * 1e3:.1f} clips/s), "
+          f"eval forward {fwd_ms:.3f} ms, step peak memory {peak:.2f} GiB, "
+          f"device busy {'n/a' if busy is None else f'{100 * busy:.1f}%'} "
+          f"of the profiled step | {card}")
+    return {"launches": {k: launches[k] // AGCN_STEPS
+                         for k in AGCN_KERNELS},
+            "max_err": {k: sig(x) for k, x in worst.items()},
+            "ms": sig(totals["fwd"]), "backward_ms": sig(totals["bwd"]),
+            "bound_ms": sig(totals["bound_fwd"]),
+            "backward_bound_ms": sig(totals["bound_bwd"]),
+            "plain_ms": sig(totals["plain"]),
+            "step_ms": sig(step_ms), "peak_gib": sig(peak)}
+
+
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
              "tp22": rank_tp22, "edge": rank_edge, "ring": rank_ring}
 
@@ -5637,6 +5865,10 @@ def main() -> None:
     ap.add_argument("--bn-only", action="store_true",
                     help="phases 1, 2 and 25 alone: the train-mode BN "
                     "kernels' checks, launch counts and timings")
+    ap.add_argument("--agcn-only", action="store_true",
+                    help="phases 1, 2 and 26 alone: 2s-AGCN through the "
+                    "Trainer and its adjacency kernels' checks, launch "
+                    "counts and timings")
     # a rank process of phase 18, started by run_ranks
     for flag in ("--rank-job", "--workdir", "--settings"):
         ap.add_argument(flag, default=None, help=argparse.SUPPRESS)
@@ -5687,9 +5919,13 @@ def main() -> None:
                  f"{sass}")
         print("[build] K4/K5/K6 functions, HMMA instructions / registers: "
               + ", ".join(f"{k} {h}/{r}" for k, (h, r) in sass.items()))
-    if args.bn_only:
-        bn = run_batchnorm(gen, dev, card)
-        print(json.dumps({"batch_norm_train": bn}, separators=(",", ":")))
+    if args.bn_only or args.agcn_only:
+        if args.bn_only:
+            out = {"batch_norm_train": run_batchnorm(gen, dev, card)}
+        else:
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_") as wd:
+                out = {"agcn_adjacency": run_agcn(rng, gen, dev, wd, card)}
+        print(json.dumps(out, separators=(",", ":")))
         print(card)
         print(json.dumps({"ok": True, "device": {
             "platform": "gpu", "kind": kind,
@@ -5966,6 +6202,10 @@ def main() -> None:
     # 25. train-mode BN ----------------------------------------------------
     bn = run_batchnorm(gen, dev, card)
 
+    # 26. 2s-AGCN's adjacency ------------------------------------------------
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as workdir:
+        adj = run_agcn(rng, gen, dev, workdir, card)
+
     entries = []
     rows = [(name, totals[name], launches[name], err) for name, err in
             (("temporal_shift", k1_err), ("shift_gcn", k4_err))]
@@ -5993,6 +6233,12 @@ def main() -> None:
         "name": "batch_norm_train", "route": "cuda", "source": BN_SOURCE,
         "replaces": "no TPU kernel: stock ops (reference ops/batchnorm.py)",
         "bound_by": "bytes", **bn})
+    entries.append({
+        "name": "agcn_adjacency", "route": "cuda", "source": AGCN_SOURCE,
+        "replaces": "no TPU kernel: 2s-AGCN's attention (reference "
+        "ops/adaptive.py)", "bound_by": "bytes",
+        **{k: x for k, x in adj.items() if k not in ("step_ms",
+                                                     "peak_gib")}})
     print("[note] kernel ms / plain_ms / bound_ms / library_ms, fp32: "
           "temporal_shift and shift_gcn per stream forward at "
           f"{N_WINDOWS} windows x T={T_WINDOW}, launches from the serving "
@@ -6005,8 +6251,11 @@ def main() -> None:
           "launches from its Trainer run (22d), max_abs_err over V in "
           f"{WIDE_JOINTS} (22b); batch_norm_train: phase 25, forward "
           "(ms) and backward per train step of each model at "
-          f"{N_WINDOWS} clips x T={T_WINDOW}; summary: phases 6, 8, 9, 10, "
-          "12, 13, 14, 16-22")
+          f"{N_WINDOWS} clips x T={T_WINDOW}; agcn_adjacency: phase 26, "
+          "forward (ms) and backward over a 2s-AGCN train step's launches "
+          f"at {N_WINDOWS} clips x T={T_WINDOW}, launches a step from its "
+          "Trainer run; summary: phases 6, 8, 9, 10, 12, 13, 14, 16-22, "
+          "26")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))
@@ -6047,7 +6296,8 @@ def main() -> None:
                       for k, r in remat.items())
           + f"; V={HOLISTIC_V} bf16 batch {wide['batch']} step "
           f"{wide['step_ms']:.4g} ms, peak {wide['peak']:.3g} GiB, fp32 "
-          f"grads {wide['grad_gap']:.2g}")
+          f"grads {wide['grad_gap']:.2g}; 2s-AGCN step {adj['step_ms']:.4g} "
+          f"ms, peak {adj['peak_gib']:.3g} GiB")
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

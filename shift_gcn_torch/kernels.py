@@ -25,7 +25,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("temporal_shift", "shift_gcn", "batchnorm")
+SOURCES = ("temporal_shift", "shift_gcn", "batchnorm", "adaptive")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -38,12 +38,15 @@ KERNELS: Dict[str, str] = {
     "shift_gcn_wgrad": "shift_gcn",               # K6: dgate, dW, dbias
     "batch_norm_train": "batchnorm",              # train-mode BN forward
     "batch_norm_train_backward": "batchnorm",     # and its backward
+    "agcn_adjacency": "adaptive",                 # 2s-AGCN's graph, forward
+    "agcn_adjacency_backward": "adaptive",        # and its backward
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (a kernel run as a partial-sum pass and a final
 # pass, the fused temporal-shift backward and K6, counts as one launch, as
-# does each train-mode BN forward and backward, whatever its passes).
+# does each train-mode BN forward and backward, whatever its passes, and
+# each 2s-AGCN adjacency forward, for all of a unit's subsets, and backward).
 # Callers reset them with reset_launches().
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -117,7 +120,15 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
     plan = [i32] * 7  # r, f, then ops/batchnorm.py's LaunchPlan
-    if name == "batchnorm":
+    if name == "adaptive":
+        signatures = {
+            # (e, a, pa, partial, p, g, n, v, t, k, d, vp, fs, fc, chunks,
+            #  stream)
+            "agcn_adjacency_forward": [ptr] * 6 + [i32] * 9 + [ptr],
+            # (e, p, dg, de, n, v, t, k, d, vp, fs, fc, chunks, stream)
+            "agcn_adjacency_backward": [ptr] * 4 + [i32] * 9 + [ptr],
+        }
+    elif name == "batchnorm":
         signatures = {
             # (x, partial, stats, mean_inv, running_mean, running_var,
             #  num_batches_tracked, r, f, plan, eps, 1 - momentum,

@@ -12,7 +12,9 @@ ring-GNN's node shards ``ring``; the reference's test for an ``edges``
 or ``ring_steps`` parameter of its apply).  The names the
 reference resolves (its family names, its aliases and its module paths)
 resolve here to the same families, beside this package's module paths,
-so its YAML configs train here unchanged.
+so its YAML configs train here unchanged.  ``agcn2s`` (2s-AGCN's joint
+stream, ``models/agcn.py``) is the port's own family, with no counterpart
+in the reference package; 2s-AGCN's ``model.agcn.Model`` names it.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any, Callable, Dict, NamedTuple, Tuple
 
 from torch import nn
 
-from shift_gcn_torch.models import ring_gnn, shift_gcn, stgcn
+from shift_gcn_torch.models import agcn, ring_gnn, shift_gcn, stgcn
 
 
 class ModelFamily(NamedTuple):
@@ -53,6 +55,12 @@ register_model(ModelFamily(
     edge_strategies=("gather",),
 ))
 register_model(ModelFamily(
+    name="agcn2s",
+    build_config=agcn.config_from_args,
+    build=agcn.Model,
+    skeleton=True,
+))
+register_model(ModelFamily(
     name="ring_gnn",
     build_config=ring_gnn.config_from_args,
     build=ring_gnn.Model,
@@ -60,12 +68,16 @@ register_model(ModelFamily(
     edge_strategies=("ring",),
 ))
 
-# the reference torch repo's model path and the reference's short alias;
-# a module path <package>.models.<family> (the reference package's, as
-# its YAML configs name them, or this package's) names <family>
+# the reference torch repo's model path and the reference's short alias
+# (``agcn`` names ST-GCN, as in the reference package); 2s-AGCN's own
+# repository's path and this package's module of it; a module path
+# <package>.models.<family> (the reference package's, as its YAML
+# configs name them, or this package's) names <family>
 _ALIASES = {
     "model.shift_gcn.Model": "shift_gcn",
     "agcn": "stgcn",
+    "model.agcn.Model": "agcn2s",
+    "shift_gcn_torch.models.agcn": "agcn2s",
 }
 
 

@@ -23,7 +23,9 @@ inside it ``serve.windows`` and ``serve.pre_normalization``;
 ``serve.forward``, then ``serve.readback`` (``EnsemblePredictor.predict``);
 ``train.epoch_start`` (``Trainer.train_epoch`` until the first batch is
 in hand), ``train.feeder_wait`` (each later batch), ``train.step`` and
-``train.epoch_end`` (the final synchronization and the losses' readback).
+``train.epoch_end`` (the final synchronization and the losses' readback);
+``agcn.adjacency`` and ``agcn.adjacency_grad`` (each 2s-AGCN unit's
+adjacency forward and backward, ``ops/adaptive.py``).
 """
 
 from __future__ import annotations

@@ -2,7 +2,8 @@
 NTU-60 and other-family phases (16-17), the Trainer of its
 custom-topology phase (22d) and its kernel timings there (22e), its
 Trainer epoch with the clips memory-mapped and in memory (phases 9 and
-23) and its shift-op demo (phase 24a), rehearsed on the CPU at a small
+23), its shift-op demo (phase 24a), its train-mode BN (25) and its
+2s-AGCN through the Trainer (26), rehearsed on the CPU at a small
 size: the kernels' plain versions run in place of the kernels, so every
 check but the launch counts must pass, and the launch counts must fail
 (the plain versions launch nothing).  The four-stream phase (14) and
@@ -325,3 +326,41 @@ def test_bn_phase_rehearses_on_cpu(rehearsal, capsys):
     printed = capsys.readouterr().out
     assert "[bn] 25 fall: 36 train-mode BNs a step" in printed
     assert "[bn] 25 NTU-60: 36 train-mode BNs a step" in printed
+
+
+def test_agcn_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
+                                     capsys, tmp_path):
+    """Phase 26 at T=16 and 2 clips a batch for one Trainer step: the
+    plain versions stand in for the adjacency and BN kernels, so every
+    comparison passes and only the launch counts fail (the plain versions
+    launch nothing)."""
+    monkeypatch.setattr(chip_smoke, "N_WINDOWS", 2)
+    monkeypatch.setattr(chip_smoke, "T_WINDOW", 16)
+    monkeypatch.setattr(chip_smoke, "AGCN_STEPS", 1)
+    monkeypatch.setattr("shift_gcn_torch.models.agcn.resolve_device",
+                        mock.Mock(return_value=torch.device("cpu")))
+    out = chip_smoke.run_agcn(np.random.default_rng(0),
+                              torch.Generator().manual_seed(0),
+                              torch.device("cpu"), str(tmp_path), "card")
+    assert len(training_rehearsal) == 1, training_rehearsal
+    msg = training_rehearsal[0]
+    assert "26 2s-AGCN launch counts of 1 Trainer steps" in msg
+    assert "'agcn_adjacency': 10" in msg and "(26)" in msg
+    assert out["launches"] == {"agcn_adjacency": 0,
+                               "agcn_adjacency_backward": 0}
+    assert set(out["max_err"]) == {"G", "P", "de"}
+    assert (out["step_ms"], out["peak_gib"]) == (1.0, 0.0)
+    printed = capsys.readouterr().out
+    assert "vs plain versions at 5 unit shapes" in printed
+    assert "(N', V, T, K, d) = (4, 25, 4, 3, 64) x2" in printed
+
+
+def test_launch_tables_name_every_kernel():
+    """The per-step launch tables that the phases compare
+    ``kernels.LAUNCHES`` against name every kernel of the port, those a
+    step does not launch at 0: a kernel added to the port and left out
+    of them fails every Trainer phase's count on the card."""
+    from shift_gcn_torch import kernels
+
+    for table in (chip_smoke.PER_STEP, chip_smoke.REMAT_STEP):
+        assert set(table) == set(kernels.KERNELS)
