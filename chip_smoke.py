@@ -289,12 +289,20 @@ Phases, in order; any failure exits non-zero:
    widths, fp32) through the Trainer for 2 steps of 64 synthetic clips x
    T=300, launches counted from zero: 10 adjacency forwards and 10
    backwards a step (``csrc/adaptive.cu``), one BN forward and backward
-   per train-mode BN, no other kernel of the port's; the adjacency
-   kernels against their plain versions at every unit's launch shape
-   (G, P and de within ADJ_TOL of their largest value, P's columns
-   summing to 1 over the source joints, bit-equal across two launches);
-   their times over a step's launches beside their bytes bound and the
-   plain versions; a bare train step's time, peak memory and busy share.
+   per train-mode BN, 10 9-tap conv forwards, input gradients and
+   weight gradients a step (``csrc/agcn_tconv.cu``), no other kernel of
+   the port's; the adjacency kernels against their plain versions at
+   every unit's launch shape (G, P and de within ADJ_TOL of their
+   largest value, P's columns summing to 1 over the source joints,
+   bit-equal across two launches); their times over a step's launches
+   beside their bytes bound and the plain versions; a bare train step's
+   time, peak memory and busy share; no cuDNN convolution in a profiled
+   forward and backward; the 9-tap conv kernels against their plain
+   versions in float64 at every unit's launch shape (y, dx, dW and db
+   within twice cuDNN fp32's gap or TCONV_FLOOR of their largest value,
+   bit-equal across two launches), and their times over a step's
+   launches beside the 3xTF32 bound, the plain versions and cuDNN's fp32
+   forward and backward.
    ``--agcn-only`` runs phases 1, 2 and 26 alone.
 
 The last four lines are a JSON object with one entry per kernel (and,
@@ -371,6 +379,18 @@ AGCN_STEPS = 2   # Trainer steps of phase 26
 # (backward) in another order than the plain versions' matmuls: a few ulps
 # of the largest value, amplified by the softmax's exponent
 ADJ_TOL = 2e-5
+# 2s-AGCN's 9-tap temporal conv kernels (phase 26)
+TCONV_SOURCE = "shift_gcn_torch/csrc/agcn_tconv.cu"
+TCONV_KERNELS = ("agcn_tconv", "agcn_tconv_input_grad",
+                 "agcn_tconv_weight_grad")
+# fp32: the kernels' 3xTF32 products summed in another order than
+# cuDNN's fp32 convolution: each output within twice cuDNN's own gap to the
+# float64 plain version, or this share of its largest value where cuDNN's
+# gap is smaller
+TCONV_FLOOR = 2e-5
+# cuDNN's convolution kernels, by the names the profiler shows
+CUDNN_CONV = ("cudnn", "dgrad_engine", "wgrad_alg0_engine", "implicit_gemm",
+              "fprop_", "convolve")
 
 
 # the edge-partition keys phase 17 drops from its configs (phase 20 keeps
@@ -403,11 +423,13 @@ TRAIN_CLIPS, VAL_CLIPS = 512, 128
 # K4 (every unit's input needs its gradient: unit 1's is data_bn's
 # output), K6 once per K4; and one train-mode BN forward and backward per
 # BN: data_bn, three a unit, a down BN in units 1, 5 and 8 and a residual
-# BN in units 5 and 8; no 2s-AGCN adjacency
+# BN in units 5 and 8; no 2s-AGCN adjacency or 9-tap conv
 PER_STEP = {"temporal_shift": 20, "temporal_shift_backward": 20,
             "shift_gcn": 10, "shift_gcn_dx": 10, "shift_gcn_wgrad": 10,
             "batch_norm_train": 36, "batch_norm_train_backward": 36,
-            "agcn_adjacency": 0, "agcn_adjacency_backward": 0}
+            "agcn_adjacency": 0, "agcn_adjacency_backward": 0,
+            "agcn_tconv": 0, "agcn_tconv_input_grad": 0,
+            "agcn_tconv_weight_grad": 0}
 PER_EVAL_FORWARD = {"temporal_shift": 20, "shift_gcn": 10}
 # a train step with ``remat`` (phase 21): each unit's forward runs again
 # in the backward, K1, K4 and its 35 BNs (all but data_bn) with it; the
@@ -433,6 +455,7 @@ PROFILE_GROUPS = (
                "shift_gcn_mma_kernel<__nv_bfloat16, true")),
     ("K6 weight gradients", ("wgrad_partial_kernel", "wgrad_final_kernel")),
     ("train-mode BN", ("bnorm_",)),
+    ("2s-AGCN 9-tap conv", ("agcn_tconv_",)),
     ("cuBLAS / cuDNN", ("gemm", "xmma", "cutlass", "sm90_", "convolve")),
     ("reductions", ("reduce_kernel",)),
     ("copies and casts", ("copy",)),
@@ -5721,17 +5744,192 @@ def check_adjacency_case(shape, gen, dev):
     return (e, a, pa, dg, p), errs
 
 
+def tconv_shapes(config, n: int, t: int):
+    """{(R, T, C, stride): launches a step} of every unit's 9-tap conv of
+    ``config`` (an AGCNConfig) on clips of ``t`` frames, ``n`` skeleton
+    rows a batch: R = n V rows, T the conv's input length, C its width."""
+    shapes = {}
+    for _, cout, stride, _ in config.blocks:
+        shape = (n * config.num_point, t, cout, stride)
+        shapes[shape] = shapes.get(shape, 0) + 1
+        t = -(-t // stride)
+    return shapes
+
+
+def tconv_cost_ms(rows: int, t: int, c: int, stride: int):
+    """(forward, input gradient + weight gradient) bound ms of one
+    launch each: per op 2 R T' C^2 9 FLOPs at the 3xTF32 rate or its
+    bytes at the HBM rate (each input read and each output written once),
+    the larger."""
+    t_out = -(-t // stride)
+    x, y, w = 4 * rows * t * c, 4 * rows * t_out * c, 4 * 9 * c * c
+    flops = 2.0 * rows * t_out * c * c * 9
+
+    def bound(nbytes):
+        return 1e3 * max(nbytes / HBM_BYTES_PER_S, flops / TF32_3X_FLOPS)
+
+    return (bound(x + w + 4 * c + y),
+            bound(y + w + x) + bound(x + y + w + 4 * c))
+
+
+def check_tconv_case(shape, gen, dev):
+    """The kernels against their plain versions in float64 at one launch
+    shape, on N(0, 1) inputs and a fan-out draw of W: y, dx, dW and db
+    each within twice cuDNN's fp32 gap to the same plain version, or
+    TCONV_FLOOR of its largest value; every output bit-equal across two
+    launches.  Returns (the inputs, the worst shares of scale)."""
+    from shift_gcn_torch.ops import agcn_tconv
+
+    rows, t, c, stride = shape
+    x = torch.randn(rows, t, c, generator=gen, device=dev)
+    w = torch.randn(c, c, 9, 1, generator=gen, device=dev) * \
+        (2.0 / (9 * c)) ** 0.5
+    b = torch.randn(c, generator=gen, device=dev) * 0.1
+    dy = torch.randn(rows, -(-t // stride), c, generator=gen, device=dev)
+    outs = [(agcn_tconv.tconv_forward(x, w, b, stride),
+             agcn_tconv.tconv_input_grad(dy, w, t, stride),
+             *agcn_tconv.tconv_weight_grad(x, dy, stride))
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    where = f"26 9-tap conv (R, T, C, stride) = {shape}"
+    names = ("y", "dx", "dW", "db")
+    for name, one, two in zip(names, *outs):
+        if not torch.equal(one, two):
+            fail(f"{where}: {name} differs between two launches")
+    x64, w64, b64, dy64 = (a.double() for a in (x, w, b, dy))
+    want = (agcn_tconv.tconv_forward_reference(x64, w64, b64, stride),
+            agcn_tconv.tconv_input_grad_reference(dy64, w64, t, stride),
+            *agcn_tconv.tconv_weight_grad_reference(x64, dy64, stride))
+    library = conv2d_fp32(x, w, b, dy, stride)
+    errs = {}
+    for name, got, lib, ref in zip(names, outs[0], library, want):
+        scale = float(ref.abs().max())
+        err = float((got.double() - ref).abs().max())
+        tol = max(2 * float((lib.double() - ref).abs().max()),
+                  TCONV_FLOOR * scale)
+        if not err <= tol:
+            fail(f"{where}: {name} max|err| {err:.3g} > {tol:.3g}")
+        errs[name] = err / scale
+    del outs, want, library
+    return (x, w, b, dy), errs
+
+
+def conv2d_fp32(x, w, b, dy, stride: int):
+    """cuDNN's fp32 (TF32 off) forward, dx, dW and db of the 9-tap conv
+    on the (R, C, T, 1) view: the library that the kernels replace."""
+    leaves = [a.detach().clone().requires_grad_() for a in (x, w, b)]
+    y = torch.nn.functional.conv2d(
+        leaves[0].transpose(1, 2).unsqueeze(-1), leaves[1], leaves[2],
+        stride=(stride, 1), padding=(4, 0)).squeeze(-1).transpose(1, 2)
+    y.backward(dy)
+    return (y.detach(), *(a.grad for a in leaves))
+
+
+def device_kernel_names(fn) -> list:
+    """The device kernels of one call of ``fn``, by the names the profiler
+    shows (none where there is no card)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.key for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU]
+
+
+def run_tconv(config, model, batch, gen, dev, card: str) -> dict:
+    """Phase 26's 9-tap conv: no cuDNN convolution in a profiled forward
+    and backward of ``model`` on ``batch``; the kernels against their
+    plain versions at every unit's launch shape (check_tconv_case); their
+    times over a step's launches beside the bound, the plain versions and
+    cuDNN's fp32 forward and backward.  Returns the figures of the kernels
+    entry."""
+    from shift_gcn_torch.ops import agcn_tconv
+
+    def step():
+        torch.nn.functional.cross_entropy(
+            model(batch["data"]), batch["label"]).backward()
+
+    found = [k for k in device_kernel_names(step)
+             if any(p in k for p in CUDNN_CONV)]
+    if found:
+        fail(f"26 a 2s-AGCN forward and backward ran cuDNN's convolution "
+             f"kernels {found}")
+    model.zero_grad(set_to_none=True)
+    worst = {}
+    totals = dict.fromkeys(("fwd", "dx", "dw", "bound_fwd", "bound_bwd",
+                            "plain", "library"), 0.0)
+    shapes = tconv_shapes(config, N_WINDOWS * config.num_person, T_WINDOW)
+    for shape, count in shapes.items():
+        (x, w, b, dy), errs = check_tconv_case(shape, gen, dev)
+        for key, err in errs.items():
+            worst[key] = max(worst.get(key, 0.0), err)
+        t, stride = shape[1], shape[3]
+        fwd = time_ms(lambda: agcn_tconv.tconv_forward(x, w, b, stride))
+        dx = time_ms(lambda: agcn_tconv.tconv_input_grad(dy, w, t, stride))
+        dw = time_ms(lambda: agcn_tconv.tconv_weight_grad(x, dy, stride))
+
+        def plain():
+            agcn_tconv.tconv_forward_reference(x, w, b, stride)
+            agcn_tconv.tconv_input_grad_reference(dy, w, t, stride)
+            agcn_tconv.tconv_weight_grad_reference(x, dy, stride)
+
+        plain_ms = time_ms(plain, iters=2, reps=3)
+        library = time_ms(lambda: conv2d_fp32(x, w, b, dy, stride))
+        bound_fwd, bound_bwd = tconv_cost_ms(*shape)
+        for key, val in (("fwd", fwd), ("dx", dx), ("dw", dw),
+                         ("plain", plain_ms), ("library", library),
+                         ("bound_fwd", bound_fwd), ("bound_bwd", bound_bwd)):
+            totals[key] += count * val
+        print(f"[agcn] 26 9-tap conv (R, T, C, stride) = {shape} x{count}: "
+              f"forward {fwd:.4f} ms (bound {bound_fwd:.4f}), input grad "
+              f"{dx:.4f} + weight grad {dw:.4f} ms (bound {bound_bwd:.4f}), "
+              f"plain {plain_ms:.4f}, cuDNN fp32 {library:.4f} ms forward "
+              f"and backward | {card}")
+        del x, w, b, dy
+        torch.cuda.empty_cache()
+    ms = totals["fwd"] + totals["dx"] + totals["dw"]
+    bound = totals["bound_fwd"] + totals["bound_bwd"]
+    print(f"[agcn] 26 9-tap conv kernels vs plain versions (float64) at "
+          f"{len(shapes)} unit shapes: worst share of the largest value "
+          + ", ".join(f"{k} {x:.3g}" for k, x in sorted(worst.items()))
+          + f" (within twice cuDNN fp32's gap or {TCONV_FLOOR:g}), "
+          f"bit-equal across two launches; no cuDNN convolution in a "
+          f"forward and backward")
+    print(f"[agcn] 26 a step's 9-tap conv launches at {N_WINDOWS} clips x "
+          f"T={T_WINDOW}: forward {totals['fwd']:.3f} ms (bound "
+          f"{totals['bound_fwd']:.3f}), input grad {totals['dx']:.3f} + "
+          f"weight grad {totals['dw']:.3f} ms (bound "
+          f"{totals['bound_bwd']:.3f}), {100 * bound / ms:.0f}% of the "
+          f"3xTF32 bound; plain {totals['plain']:.3f} ms; cuDNN fp32 "
+          f"{totals['library']:.3f} ms | {card}")
+    return {"max_err": {k: sig(x) for k, x in worst.items()},
+            "ms": sig(totals["fwd"]),
+            "backward_ms": sig(totals["dx"] + totals["dw"]),
+            "input_grad_ms": sig(totals["dx"]),
+            "weight_grad_ms": sig(totals["dw"]),
+            "bound_ms": sig(totals["bound_fwd"]),
+            "backward_bound_ms": sig(totals["bound_bwd"]),
+            "plain_ms": sig(totals["plain"]),
+            "library_ms": sig(totals["library"])}
+
+
 def run_agcn(rng, gen, dev, workdir: str, card: str) -> dict:
     """Phase 26: 2s-AGCN's joint stream (AGCN_CONFIG, the ``agcn2s``
     family at the published widths, fp32) through the Trainer for
     AGCN_STEPS steps of N_WINDOWS synthetic NTU-60 clips of T_WINDOW
     frames, launches counted from zero: one adjacency forward and one
-    backward per unit, one BN forward and backward per train-mode BN,
+    backward per unit, one 9-tap conv forward, input gradient and weight
+    gradient per unit, one BN forward and backward per train-mode BN,
     nothing else of the port's; the adjacency kernels against their plain
     versions at every unit's launch shape; their times over a step's
-    launches beside the bound and the plain versions; and a bare train
-    step's time, peak memory and busy share.  Returns the figures of the
-    kernels entry and the summary."""
+    launches beside the bound and the plain versions; a bare train step's
+    time, peak memory and busy share; and the 9-tap conv (run_tconv).
+    Returns the figures of the kernels entries and the summary."""
     from shift_gcn_torch import kernels
     from shift_gcn_torch.models import agcn
     from shift_gcn_torch.models.registry import get_model
@@ -5772,13 +5970,15 @@ def run_agcn(rng, gen, dev, workdir: str, card: str) -> dict:
     launches = dict(kernels.LAUNCHES)
     per_step = dict.fromkeys(kernels.KERNELS, 0)
     per_step.update(dict.fromkeys(AGCN_KERNELS, units))
+    per_step.update(dict.fromkeys(TCONV_KERNELS, units))
     per_step.update(dict.fromkeys(BN_KERNELS, bns))
     expect = {k: c * AGCN_STEPS for k, c in per_step.items()}
     if launches != expect:
         fail(f"26 2s-AGCN launch counts of {AGCN_STEPS} Trainer steps "
              f"{launches} != expected {expect}: per step one adjacency "
-             f"forward and backward per unit ({units}), one BN forward and "
-             f"backward per train-mode BN ({bns})")
+             f"forward and backward and one 9-tap conv forward, input "
+             f"gradient and weight gradient per unit ({units}), one BN "
+             f"forward and backward per train-mode BN ({bns})")
     losses = epoch["losses"]
     if len(losses) != AGCN_STEPS or not np.isfinite(losses).all():
         fail(f"26 2s-AGCN train losses {losses}")
@@ -5794,6 +5994,8 @@ def run_agcn(rng, gen, dev, workdir: str, card: str) -> dict:
     step_ms, fwd_ms, peak, busy = step_cost(
         model, batch, base.base_lr, dev,
         f"one 2s-AGCN fp32 train step, batch {N_WINDOWS}", card)
+    model.train()
+    tconv = run_tconv(config, model, batch, gen, dev, card)
     del model, batch
     torch.cuda.empty_cache()
 
@@ -5849,7 +6051,9 @@ def run_agcn(rng, gen, dev, workdir: str, card: str) -> dict:
             "bound_ms": sig(totals["bound_fwd"]),
             "backward_bound_ms": sig(totals["bound_bwd"]),
             "plain_ms": sig(totals["plain"]),
-            "step_ms": sig(step_ms), "peak_gib": sig(peak)}
+            "step_ms": sig(step_ms), "peak_gib": sig(peak),
+            "tconv": {"launches": {k: launches[k] // AGCN_STEPS
+                                   for k in TCONV_KERNELS}, **tconv}}
 
 
 RANK_JOBS = {"dp": rank_dp, "seqpar": rank_seqpar, "tp": rank_tp,
@@ -6237,8 +6441,13 @@ def main() -> None:
         "name": "agcn_adjacency", "route": "cuda", "source": AGCN_SOURCE,
         "replaces": "no TPU kernel: 2s-AGCN's attention (reference "
         "ops/adaptive.py)", "bound_by": "bytes",
-        **{k: x for k, x in adj.items() if k not in ("step_ms",
-                                                     "peak_gib")}})
+        **{k: x for k, x in adj.items() if k not in ("step_ms", "peak_gib",
+                                                     "tconv")}})
+    entries.append({
+        "name": "agcn_tconv", "route": "cuda", "source": TCONV_SOURCE,
+        "replaces": "no TPU kernel: 2s-AGCN's 9-tap temporal conv, "
+        "cuDNN's in the port before", "bound_by": "operations",
+        **adj["tconv"]})
     print("[note] kernel ms / plain_ms / bound_ms / library_ms, fp32: "
           "temporal_shift and shift_gcn per stream forward at "
           f"{N_WINDOWS} windows x T={T_WINDOW}, launches from the serving "
@@ -6254,8 +6463,10 @@ def main() -> None:
           f"{N_WINDOWS} clips x T={T_WINDOW}; agcn_adjacency: phase 26, "
           "forward (ms) and backward over a 2s-AGCN train step's launches "
           f"at {N_WINDOWS} clips x T={T_WINDOW}, launches a step from its "
-          "Trainer run; summary: phases 6, 8, 9, 10, 12, 13, 14, 16-22, "
-          "26")
+          "Trainer run; agcn_tconv: phase 26, forward (ms) and input plus "
+          "weight gradient (backward_ms) over the same step's launches, "
+          "library_ms cuDNN's fp32 forward and backward; summary: phases "
+          "6, 8, 9, 10, 12, 13, 14, 16-22, 26")
     # compact, so that the kernels, the summary and the card fit in the
     # last 2 kB of the output
     print(json.dumps({"kernels": entries}, separators=(",", ":")))

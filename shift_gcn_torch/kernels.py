@@ -25,7 +25,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
-SOURCES = ("temporal_shift", "shift_gcn", "batchnorm", "adaptive")
+SOURCES = ("temporal_shift", "shift_gcn", "batchnorm", "adaptive",
+           "agcn_tconv")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -40,13 +41,18 @@ KERNELS: Dict[str, str] = {
     "batch_norm_train_backward": "batchnorm",     # and its backward
     "agcn_adjacency": "adaptive",                 # 2s-AGCN's graph, forward
     "agcn_adjacency_backward": "adaptive",        # and its backward
+    "agcn_tconv": "agcn_tconv",                   # 2s-AGCN's 9-tap conv
+    "agcn_tconv_input_grad": "agcn_tconv",        # its input gradient
+    "agcn_tconv_weight_grad": "agcn_tconv",       # dW and db
 }
 
 # Launches per kernel: each wrapper adds one where it launches its
 # kernel, and nowhere else (a kernel run as a partial-sum pass and a final
 # pass, the fused temporal-shift backward and K6, counts as one launch, as
 # does each train-mode BN forward and backward, whatever its passes, and
-# each 2s-AGCN adjacency forward, for all of a unit's subsets, and backward).
+# each 2s-AGCN adjacency forward, for all of a unit's subsets, and backward,
+# and each 9-tap conv forward and input gradient, with the pass that packs
+# their weights, and weight gradient, with its final sum).
 # Callers reset them with reset_launches().
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
@@ -120,7 +126,18 @@ def _declare(name: str, lib: ctypes.CDLL) -> None:
     ptr, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     f32 = ctypes.c_float
     plan = [i32] * 7  # r, f, then ops/batchnorm.py's LaunchPlan
-    if name == "adaptive":
+    if name == "agcn_tconv":
+        signatures = {
+            # (backward, src, w, bias, pack, out, rows, ts, tu, tout,
+            #  kdim, ndim, cin, cout, period, pad, sstride, taps, npar,
+            #  chunks, nt8, bu, slab_rows, ld, bn, stream); bias null
+            #  for the input gradient
+            "agcn_tconv_run": [i32] + [ptr] * 5 + [i32] * 19 + [ptr],
+            # (x, dy, partial, dw, db, rows, tx, ty, cin, cout, stride,
+            #  splits, groups a split, stream)
+            "agcn_tconv_weight": [ptr] * 5 + [i32] * 8 + [ptr],
+        }
+    elif name == "adaptive":
         signatures = {
             # (e, a, pa, partial, p, g, n, v, t, k, d, vp, fs, fc, chunks,
             #  stream)

@@ -32,9 +32,12 @@ sample's joints outermost, so that ``x @ G_k`` is one batched product over
 the samples of (V, V) by (V, T*C) matrices, and BN normalizes the
 trailing channels.  The adjacency is one op on two hand-written kernels
 (``ops/adaptive.py``, ``csrc/adaptive.cu``) that count one forward and
-one backward launch per unit; the embeddings, the aggregation, ``conv_d``
-and the convolutions are cuBLAS and cuDNN products pinned to full fp32
-(``utils/device.pin_fp32_math``), and train-mode BN is the port's kernels.
+one backward launch per unit, and so is the 9-tap temporal conv
+(``ops/agcn_tconv.py``, ``csrc/agcn_tconv.cu``: forward, input gradient
+and weight gradient, one launch each per unit); the embeddings, the
+aggregation, ``conv_d`` and the 1x1 convs are cuBLAS products pinned to
+full fp32 (``utils/device.pin_fp32_math``), and train-mode BN is the
+port's kernels.
 The family runs in fp32: its config has no ``activation_dtype``.
 
 Parameter and buffer names are the published state_dict's
@@ -55,9 +58,9 @@ import torch
 from torch import nn
 
 from shift_gcn_torch.graphs import get_graph
-from shift_gcn_torch.ops import adaptive
+from shift_gcn_torch.ops import adaptive, agcn_tconv
 from shift_gcn_torch.ops.batchnorm import BatchNorm
-from shift_gcn_torch.ops.conv import Conv, pointwise_conv, temporal_conv
+from shift_gcn_torch.ops.conv import Conv, pointwise_conv
 from shift_gcn_torch.utils.device import pin_fp32_math, resolve_device
 
 COFF_EMBEDDING = 4   # d = C_out // 4 (the published unit_gcn default)
@@ -128,7 +131,8 @@ class UnitGCN(nn.Module):
 
 class UnitTCN(nn.Module):
     """BN(conv_{k x 1, stride s}(x)): (N', V, T, C_in) -> (N', V, T // s,
-    C_out); k = 1 is the strided residual."""
+    C_out); k = 1 is the strided residual, k = 9 the unit's TCN (the
+    port's kernels, ``ops/agcn_tconv.py``)."""
 
     def __init__(self, cin: int, cout: int, k: int = TEMPORAL_KERNEL,
                  stride: int = 1):
@@ -143,8 +147,9 @@ class UnitTCN(nn.Module):
             h = pointwise_conv(x[:, :, ::self.stride], self.conv.weight,
                                self.conv.bias)
         else:
-            h = temporal_conv(x.reshape(n * v, t, 1, c), self.conv.weight,
-                              self.conv.bias, stride=self.stride)
+            h = agcn_tconv.temporal_conv9(x.reshape(n * v, t, c),
+                                          self.conv.weight, self.conv.bias,
+                                          self.stride)
             h = h.reshape(n, v, h.shape[1], -1)
         return self.bn(h)
 

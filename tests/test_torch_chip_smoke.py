@@ -331,9 +331,9 @@ def test_bn_phase_rehearses_on_cpu(rehearsal, capsys):
 def test_agcn_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
                                      capsys, tmp_path):
     """Phase 26 at T=16 and 2 clips a batch for one Trainer step: the
-    plain versions stand in for the adjacency and BN kernels, so every
-    comparison passes and only the launch counts fail (the plain versions
-    launch nothing)."""
+    plain versions stand in for the adjacency, 9-tap conv and BN kernels,
+    so every comparison passes and only the launch counts fail (the plain
+    versions launch nothing)."""
     monkeypatch.setattr(chip_smoke, "N_WINDOWS", 2)
     monkeypatch.setattr(chip_smoke, "T_WINDOW", 16)
     monkeypatch.setattr(chip_smoke, "AGCN_STEPS", 1)
@@ -346,13 +346,23 @@ def test_agcn_phase_rehearses_on_cpu(training_rehearsal, monkeypatch,
     msg = training_rehearsal[0]
     assert "26 2s-AGCN launch counts of 1 Trainer steps" in msg
     assert "'agcn_adjacency': 10" in msg and "(26)" in msg
+    assert "'agcn_tconv': 10" in msg
+    assert "'agcn_tconv_weight_grad': 10" in msg
     assert out["launches"] == {"agcn_adjacency": 0,
                                "agcn_adjacency_backward": 0}
     assert set(out["max_err"]) == {"G", "P", "de"}
     assert (out["step_ms"], out["peak_gib"]) == (1.0, 0.0)
+    assert out["tconv"]["launches"] == dict.fromkeys(
+        chip_smoke.TCONV_KERNELS, 0)
+    assert set(out["tconv"]["max_err"]) == {"y", "dx", "dW", "db"}
+    assert out["tconv"]["library_ms"] == 10.0  # ten launches at 1 ms
     printed = capsys.readouterr().out
     assert "vs plain versions at 5 unit shapes" in printed
     assert "(N', V, T, K, d) = (4, 25, 4, 3, 64) x2" in printed
+    assert "9-tap conv kernels vs plain versions (float64) at 5 unit " \
+        "shapes" in printed
+    assert "(R, T, C, stride) = (100, 16, 64, 1) x4" in printed
+    assert "(R, T, C, stride) = (100, 8, 256, 2) x1" in printed
 
 
 def test_launch_tables_name_every_kernel():
@@ -364,3 +374,6 @@ def test_launch_tables_name_every_kernel():
 
     for table in (chip_smoke.PER_STEP, chip_smoke.REMAT_STEP):
         assert set(table) == set(kernels.KERNELS)
+        # no Shift-GCN step runs 2s-AGCN's kernels
+        for name in chip_smoke.AGCN_KERNELS + chip_smoke.TCONV_KERNELS:
+            assert table[name] == 0, name
